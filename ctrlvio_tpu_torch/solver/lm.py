@@ -1,0 +1,153 @@
+"""Levenberg–Marquardt with analytic Schur elimination of landmarks (PyTorch
+port of `ctrlvio_tpu/solver/lm.py`).
+
+Per iteration: normal equations (camera system H (C,C), diagonal landmark
+block, coupling H_cl) -> damped Schur-complement solve (Jacobi-scaled
+Cholesky) -> landmark back-substitution -> robust-cost accept/reject with
+the lambda schedule. The iteration loop is a Python loop that stops at
+`opts.max_iters` or at the first accepted step whose relative cost
+decrease is below `opts.tol`.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from . import assemble
+from .layout import (BiasFactors, ImageFactors, ImuFactors, PriorFactor,
+                     SolveOptions, WindowConfig, WindowParams, boxminus_full,
+                     column_mask, retract)
+
+
+class SolveStats(NamedTuple):
+    cost0: torch.Tensor
+    cost: torch.Tensor
+    lm_lambda: torch.Tensor
+    accepted: torch.Tensor  # number of accepted steps
+
+
+def cholesky_nan(A):
+    """Lower Cholesky factor; NaN-filled where the factorization fails
+    (LAPACK's behaviour under JAX, which the LM accept test relies on)."""
+    L, info = torch.linalg.cholesky_ex(A)
+    return torch.where((info == 0)[..., None, None], L,
+                       torch.full_like(L, float("nan")))
+
+
+def build_normal_equations(lin: assemble.Linearization, cfg: WindowConfig,
+                           col_mask):
+    """H, g for the camera system + diagonal landmark system + coupling.
+    Returns (H (C,C), g (C,), H_ll (LM,), g_l (LM,), H_cl (LM, C))."""
+    dtype, dev = lin.J.dtype, lin.J.device
+    J = lin.J * col_mask[None, :]
+    H = J.T @ J
+    g = J.T @ lin.r
+    Jl = lin.J_lm
+    h_ll = torch.zeros((cfg.LM,), dtype=dtype, device=dev).index_add(
+        0, lin.lm_idx, torch.sum(Jl * Jl, dim=-1))
+    r_img = lin.r[: 2 * cfg.OBS].reshape(cfg.OBS, 2)
+    g_l = torch.zeros((cfg.LM,), dtype=dtype, device=dev).index_add(
+        0, lin.lm_idx, torch.sum(Jl * r_img, dim=-1))
+    J_rows = J[: 2 * cfg.OBS].reshape(cfg.OBS, 2, cfg.C)
+    W = torch.einsum("oc,ock->ok", Jl, J_rows)
+    H_cl = torch.zeros((cfg.LM, cfg.C), dtype=dtype, device=dev).index_add(
+        0, lin.lm_idx, W)
+    return H, g, h_ll, g_l, H_cl
+
+
+def schur_solve(H, g, h_ll, g_l, H_cl, lam, col_mask, dtype_eps=1e-8,
+                solver: str = "chol"):
+    """Damped Schur-complement solve. Returns (dx_cam (C,), dx_lm (LM,)).
+    A failed factorization yields NaNs, which the accept test rejects."""
+    if solver != "chol":
+        raise NotImplementedError(
+            f"Schur solver {solver!r} is not ported yet; use 'chol'")
+    diag = torch.clamp(torch.diagonal(H), 1e-6, 1e32)
+    H_d = H + lam * torch.diag(diag)
+    H_d = H_d + torch.diag(1.0 - col_mask)
+    h_ll_d = h_ll * (1.0 + lam) + dtype_eps
+
+    inv_hll = 1.0 / h_ll_d
+    H_sc = H_d - H_cl.T @ (H_cl * inv_hll[:, None])
+    g_sc = g - H_cl.T @ (g_l * inv_hll)
+
+    # Jacobi preconditioning (bias information ~1e6 vs knot blocks ~1e2)
+    s = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(H_sc), min=1e-12))
+    H_n = 0.5 * (H_sc * s[:, None] * s[None, :]
+                 + H_sc.T * s[None, :] * s[:, None])
+    b = -(s * g_sc)
+    L = cholesky_nan(H_n)
+    y = torch.linalg.solve_triangular(L, b[:, None], upper=False)
+    dx = s * torch.linalg.solve_triangular(L.T, y, upper=True)[:, 0]
+    dx = dx * col_mask
+    dx_lm = -(g_l + H_cl @ dx) * inv_hll
+    return dx, dx_lm
+
+
+def solve_window(params: WindowParams, img: ImageFactors, imu: ImuFactors,
+                 bias: BiasFactors, prior: PriorFactor, fixed_knots,
+                 ext, gravity, imu_info, sqrt_info_img,
+                 cfg: WindowConfig, opts: SolveOptions,
+                 ne_mode: str = "chunked", chunk: Optional[int] = None):
+    """Run up to `opts.max_iters` LM iterations.
+
+    fixed_knots: (KW,) bool, knots held constant.
+    ne_mode: "chunked" (`assemble.accumulate_normal_equations`, `chunk`
+    factor slots at a time, the prior's constant Gauss-Newton pieces
+    hoisted out of the loop) or "dense" (`assemble.linearize` +
+    `build_normal_equations`); the two are algebraically identical.
+    Returns (params, SolveStats)."""
+    if ne_mode not in ("chunked", "dense"):
+        raise ValueError(f"unknown ne_mode {ne_mode!r}")
+    dtype, dev = params.knots_p.dtype, params.knots_p.device
+    cmask = column_mask(cfg, opts, fixed_knots, dtype)
+
+    lm_used = torch.zeros((cfg.LM,), dtype=torch.int64, device=dev).index_add(
+        0, img.lm_idx, img.valid.to(torch.int64))
+    lm_mask = (lm_used > 0).to(dtype)
+
+    Pm = prior.J * cmask[None, :]
+    H_p = Pm.T @ Pm
+    g_p0 = Pm.T @ prior.r0
+    A_p = Pm.T @ prior.J
+
+    def ne_at(p):
+        if ne_mode == "dense":
+            lin = assemble.linearize(p, img, imu, bias, prior, ext, gravity,
+                                     imu_info, sqrt_info_img, cfg, opts)
+            return build_normal_equations(lin, cfg, cmask), lin.cost
+        H, g, h_ll, g_l, H_cl, cost_f = assemble.accumulate_normal_equations(
+            p, img, imu, bias, ext, gravity, imu_info, sqrt_info_img, cfg,
+            opts, chunk)
+        H = H * cmask[:, None] * cmask[None, :] + H_p
+        dx0 = boxminus_full(p, prior.knots_q0, prior.knots_p0, prior.bg0,
+                            prior.ba0, prior.ld0, cfg)
+        g = g * cmask + g_p0 + A_p @ dx0
+        H_cl = H_cl * cmask[None, :]
+        r_prior = prior.r0 + prior.J @ dx0
+        return (H, g, h_ll, g_l, H_cl), cost_f + 0.5 * torch.sum(r_prior * r_prior)
+
+    ne, cost = ne_at(params)
+    cost0 = cost
+    p = params
+    lam = torch.tensor(opts.lm_lambda_init, dtype=dtype, device=dev)
+    n_acc = 0
+    for _ in range(opts.max_iters):
+        dx, dx_lm = schur_solve(*ne, lam, cmask, solver=opts.solver)
+        trial = retract(p, dx, cfg, opts)
+        trial = trial._replace(dinv=p.dinv + dx_lm * lm_mask)
+        ne_t, cost_t = ne_at(trial)
+        accept = bool(cost_t < cost) and bool(torch.isfinite(cost_t))
+        if accept:
+            rel_dec = (cost - cost_t) / torch.clamp(cost, min=1e-30)
+            p, ne, cost = trial, ne_t, cost_t
+            lam = torch.clamp(lam * opts.lm_lambda_down, 1e-10, 1e8)
+            n_acc += 1
+            if bool(rel_dec < opts.tol):
+                break
+        else:
+            lam = torch.clamp(lam * opts.lm_lambda_up, 1e-10, 1e8)
+    return p, SolveStats(cost0=cost0, cost=cost, lm_lambda=lam,
+                         accepted=torch.tensor(n_acc, device=dev))
