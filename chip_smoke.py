@@ -5,16 +5,22 @@
 Phases, each printed as one JSON line:
   1. device  - CUDA present; the card's name and power limit (nvidia-smi);
   2. build   - every hand-written kernel compiled from the repo's sources;
-  3. K1      - the LK kernel against its plain PyTorch version at the main
-               path's shapes (three pyramid levels of a 1280x1024 pair);
-  4. main    - the image-in main path: rendered 1280x1024 Kannala-Brandt
+  3. k1_level - the LK kernel's one-level case against its plain PyTorch
+               version at the main path's shapes (each of the three pyramid
+               levels of a 1280x1024 pair);
+  4. k1_track - the fused forward-backward track (one launch a frame, what
+               the main path runs) against its plain version at the main
+               path's shapes, for interior features, features near the
+               borders and a large motion that sends taps outside the
+               kernel's staged windows;
+  5. main    - the image-in main path: rendered 1280x1024 Kannala-Brandt
                rolling-shutter frames through the port's FusedTracker,
                rotation_flow and CtrlVIO.process_frame, with accuracy gates
                and a check that the main path launched every kernel;
                per-frame front-end and estimator times, the estimator's
                phases, and a torch.profiler trace of the last frame
                (device time, busy share, device operations, top kernels);
-  5. kernels - one line listing every kernel with launches, error and times.
+  6. kernels - one line listing every kernel with launches, error and times.
 The last line is {"ok": true, "device": {...}}; any failed phase exits
 non-zero without it. Needs a CUDA device; imports nothing of JAX.
 """
@@ -128,13 +134,61 @@ def time_cuda(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def textured_pair(H, W, dx, dy, seed):
+def textured_pair(H, W, dx, dy, seed, block=8, sigma=1.5):
+    """A blocky, smoothed random texture and its copy shifted by (dx, dy)."""
     from scipy.ndimage import gaussian_filter, shift
 
     rng = np.random.default_rng(seed)
-    img = rng.uniform(0, 1, size=(H // 8, W // 8))
-    img = gaussian_filter(np.kron(img, np.ones((8, 8))) * 255.0, 1.5)
+    img = rng.uniform(0, 1, size=(H // block, W // block))
+    img = gaussian_filter(np.kron(img, np.ones((block, block))) * 255.0,
+                          sigma)
     return img, shift(img, (dy, dx), order=3, mode="nearest")
+
+
+TRACK_CASES = ("interior", "border", "large_motion")
+# the kernel's search window reaches M = 5 px past the patch on each side
+# (`csrc/lk.cu`): a feature that moves farther at one level reads global
+# memory for some of its taps
+SEARCH_MARGIN = 5
+
+
+def track_case(name, device, N=150):
+    """The main path's track at full size: the three levels of a 1280x1024
+    pair shifted by (2.4, -1.7), N features, their true positions plus an
+    offset as `init`. interior: features 40 px or more inside, init 2 px
+    off. border: features within 12 px of a border, init 2 px off.
+    large_motion: a smoother texture (32 px blocks, sigma 8) with init
+    32 px off, 8 px at the coarsest level, so that level moves most
+    features beyond the staged search window. Returns (pyr0, pyr1, pts,
+    init, shift)."""
+    H, W = 1024, 1280
+    dx, dy = 2.4, -1.7
+    rng = np.random.default_rng(0)
+    if name == "large_motion":
+        img0, img1 = textured_pair(H, W, dx, dy, seed=5, block=32, sigma=8.0)
+    else:
+        img0, img1 = textured_pair(H, W, dx, dy, seed=4)
+    if name == "border":
+        side = np.arange(N) % 4
+        d = rng.uniform(1.0, 12.0, N)
+        x = np.where(side == 0, d, np.where(side == 1, W - 1 - d,
+                                            rng.uniform(1, W - 2, N)))
+        y = np.where(side == 2, d, np.where(side == 3, H - 1 - d,
+                                            rng.uniform(1, H - 2, N)))
+        pts = np.stack([x, y], 1)
+    else:
+        pts = np.stack([rng.uniform(40, W - 40, N),
+                        rng.uniform(40, H - 40, N)], 1)
+    ang = rng.uniform(0, 2 * np.pi, N)
+    off = (32.0 if name == "large_motion" else 2.0) * np.stack(
+        [np.cos(ang), np.sin(ang)], 1)
+    init = pts + np.array([dx, dy]) + off
+
+    def f32(x):
+        return torch.tensor(x, dtype=torch.float32, device=device)
+
+    return (klt.pyramid(f32(img0), 3), klt.pyramid(f32(img1), 3), f32(pts),
+            f32(init), (dx, dy))
 
 
 def k1_bound_ms(N, iters):
@@ -147,7 +201,7 @@ def k1_bound_ms(N, iters):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_k1():
+def phase_k1_level():
     dev = torch.device("cuda")
     H, W, N, iters = 1024, 1280, 150, 10
     dx, dy = 2.4, -1.7
@@ -180,7 +234,8 @@ def phase_k1():
         emit({"phase": "k1_level", **rec})
         if not (pos_err <= 1e-3 and eig_rel <= 1e-4 and shift_err <= 0.15
                 and int(good.sum()) >= N // 2):
-            raise SystemExit(f"K1 disagrees with its plain version: {rec}")
+            raise SystemExit(f"K1 (one level) disagrees with its plain "
+                             f"version: {rec}")
 
     def mean(key):
         vals = [r[key] for r in levels]
@@ -190,6 +245,89 @@ def phase_k1():
             "ms": mean("ms"), "device_ms": mean("device_ms"),
             "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
             "bound_by": levels[0]["bound_by"]}
+
+
+def phase_k1_track():
+    """The fused track against `lk_track_plain`, 150 features, 10
+    iterations, fb_thresh and min_eig of `KLTConfig`. Positions within
+    1e-3 px where both say ok; ok equal except where the plain version's
+    fb lies within 1e-3 px of fb_thresh, its min_eig within 1e-4 relative
+    of min_eig, or its position within 1e-3 px of the in-bounds edge
+    (counted as `n_near_gate`); min_eig within 1e-4 relative; the known
+    shift recovered to 0.15 px. Times: `device_ms` by graph replay of
+    whole tracks, `ms` by CUDA events over back-to-back calls, `plain_ms`;
+    the bound of the 2L = 6 level-passes; the latency floor's 66
+    dependent reductions (2L x (1 template + iters rounds)). What the
+    chain costs: `device_ms_iters0`, the track with no Gauss-Newton round
+    (templates, copies, launch), `device_us_per_round` from the
+    difference, and `device_ms_n1`, one feature alone (no SM holds two)."""
+    iters = 10
+    cfg = klt.KLTConfig(pred_levels=3)
+    cases = []
+    for name in TRACK_CASES:
+        pyr0, pyr1, pts, init, (dx, dy) = track_case(name, "cuda")
+        L = len(pyr0)
+        H, W = pyr0[0].shape
+        N = pts.shape[0]
+        args = (pyr0, pyr1, pts, init, iters, lk.HALF, cfg.fb_thresh,
+                cfg.min_eig)
+        out_k, ok_k, eig_k = lk.lk_track(*args)
+        out_p, ok_p, eig_p = lk.lk_track_plain(*args)
+        back_p, _ = lk.lk_pass_plain(pyr1, pyr0, out_p, pts, iters)
+        fb = torch.linalg.vector_norm(back_p - pts, dim=-1)
+        edge = torch.stack([out_p[:, 0] - 1.0, out_p[:, 0] - (W - 1.0),
+                            out_p[:, 1] - 1.0, out_p[:, 1] - (H - 1.0)], 1)
+        near = (((fb - cfg.fb_thresh).abs() < 1e-3)
+                | ((eig_p - cfg.min_eig).abs() < 1e-4 * cfg.min_eig)
+                | (edge.abs() < 1e-3).any(dim=1))
+        # how far the coarsest level moves each feature (plain version)
+        top = 2 ** (L - 1)
+        g_top, _ = lk.lk_level_plain(pyr0[-1], pyr1[-1], pts / top,
+                                     init / top, iters)
+        moved = (g_top - init / top).abs().max(dim=1).values
+        torch.cuda.synchronize()
+        both = ok_k & ok_p
+        pos_err = float((out_k - out_p)[both].abs().max()) if bool(
+            both.any()) else float("nan")
+        eig_rel = float(((eig_k - eig_p).abs()
+                         / eig_p.abs().clamp(min=1e-12)).max())
+        flow = (out_k - pts)[ok_k].median(dim=0).values.cpu().numpy()
+        t_k = time_cuda(lambda: lk.lk_track(*args), 200)
+        t_p = time_cuda(lambda: lk.lk_track_plain(*args), 10)
+        t_dev = graph_ms(lambda: lk.lk_track(*args), 50)
+        t_dev0 = graph_ms(lambda: lk.lk_track(*args[:4], 0), 50)
+        one = (pyr0, pyr1, pts[:1].contiguous(), init[:1].contiguous(), iters)
+        t_dev1 = graph_ms(lambda: lk.lk_track(*one), 50)
+        bound, bound_by = k1_bound_ms(N, iters)
+        rec = {"case": name, "levels": [list(p.shape) for p in pyr0],
+               "n": N, "n_ok": int(ok_k.sum()), "n_ok_plain": int(ok_p.sum()),
+               "n_ok_differ": int((ok_k != ok_p).sum()),
+               "n_near_gate": int(near.sum()),
+               "n_beyond_window": int((moved > SEARCH_MARGIN + 1).sum()),
+               "max_pos_err_px": pos_err, "max_eig_rel_err": eig_rel,
+               "shift_err_px": float(np.abs(flow - np.array([dx, dy])).max()),
+               "ms": t_k, "device_ms": t_dev, "plain_ms": t_p,
+               "device_ms_iters0": t_dev0, "device_ms_n1": t_dev1,
+               "device_us_per_round": (t_dev - t_dev0) * 1e3 / (2 * L * iters),
+               "bound_ms": 2 * L * bound, "bound_by": bound_by,
+               "latency_floor_rounds": 2 * L * (1 + iters)}
+        cases.append(rec)
+        emit({"phase": "k1_track", **rec})
+        ok_agree = not bool(((ok_k != ok_p) & ~near).any())
+        if not (pos_err <= 1e-3 and ok_agree and eig_rel <= 1e-4
+                and rec["shift_err_px"] <= 0.15 and rec["n_ok"] >= N // 2
+                and (name != "large_motion"
+                     or rec["n_beyond_window"] >= N // 2)):
+            raise SystemExit(f"K1 (fused track) disagrees with its plain "
+                             f"version: {rec}")
+
+    def mean(key):
+        return float(np.mean([r[key] for r in cases]))
+
+    return {"max_abs_err": max(r["max_pos_err_px"] for r in cases),
+            "ms": mean("ms"), "device_ms": mean("device_ms"),
+            "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
+            "bound_by": cases[0]["bound_by"]}
 
 
 def replay(sim, imgs, camera, tcfg, vio_cfg, device):
@@ -301,13 +439,14 @@ def phase_main():
         fix_ld=False, ld_init=0.0, ld_upper=3.5e-5, dtype=torch.float32)
 
     # the counts of the main path's run: zero just before, read just after
-    lk.lk_level.launches = 0
-    lk.lk_level_plain.calls = 0
+    lk.lk_track.launches = lk.lk_level.launches = 0
+    lk.lk_track_plain.calls = lk.lk_level_plain.calls = 0
     t0 = time.perf_counter()
     run = replay(sim, imgs, cam, tcfg, vio_cfg, "cuda")
     wall = time.perf_counter() - t0
-    launches = lk.lk_level.launches
-    plain_calls = lk.lk_level_plain.calls
+    launches = lk.lk_track.launches
+    level_launches = lk.lk_level.launches
+    plain_calls = lk.lk_level_plain.calls + lk.lk_track_plain.calls
 
     est, gt, vio = run["est"], run["gt"], run["vio"]
     ate = ate_rmse(est[10:], gt[10:], align="yaw")
@@ -317,7 +456,8 @@ def phase_main():
            "render_s": t_render, "wall_s": wall,
            "ate_m": ate, "line_delay_s": vio.traj.line_delay,
            "line_delay_true_s": sim.cfg.line_delay, "ld_err_s": ld_err,
-           "k1_launches": launches, "plain_lk_calls": plain_calls,
+           "k1_track_launches": launches,
+           "k1_level_launches": level_launches, "plain_lk_calls": plain_calls,
            "frontend_ms_median": float(np.median(run["t_feat"])) * 1e3,
            "estimator_ms_median": float(np.median(run["t_est"])) * 1e3,
            "frontend_ms_mean": float(np.mean(run["t_feat"])) * 1e3,
@@ -332,25 +472,28 @@ def phase_main():
     if not (finite and len(est) > 20 and ate < 0.15 and ld_err < 5e-6):
         raise SystemExit(f"main path fails its accuracy gates "
                          f"(ATE < 0.15 m, line-delay error < 5 us): {rec}")
-    if launches == 0 or launches != 6 * run["n_frames"] or plain_calls:
-        raise SystemExit(f"main path did not run through K1 six times a "
-                         f"frame: {rec}")
+    if launches == 0 or launches != run["n_frames"] or plain_calls:
+        raise SystemExit(f"main path did not run through the fused K1 "
+                         f"track once a frame: {rec}")
     return rec
 
 
 def main():
     phase_device()
     phase_build()
-    k1 = phase_k1()
-    launches = phase_main()["k1_launches"]
+    level = phase_k1_level()
+    k1 = phase_k1_track()
+    launches = phase_main()["k1_track_launches"]
     kernels = [{
-        "name": "K1 lk_level", "route": "cuda",
+        "name": "K1 lk_track", "route": "cuda",
         "source": "ctrlvio_tpu_torch/csrc/lk.cu",
         "replaces": "ctrlvio_tpu/ops/pallas/lk_kernel.py:118",
         "launches": launches, "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "device_ms": k1["device_ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"], "library_ms": None}]
+        "bound_by": k1["bound_by"], "library_ms": None,
+        "level_ms": level["ms"], "level_device_ms": level["device_ms"],
+        "level_max_abs_err": level["max_abs_err"]}]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

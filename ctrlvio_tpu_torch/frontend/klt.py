@@ -1,11 +1,11 @@
 """Batched pyramidal Lucas-Kanade optical flow (PyTorch port of
 `ctrlvio_tpu/frontend/klt.py`).
 
-All features track together: a Python coarse-to-fine loop over pyramid
-levels, and at each level one call of `ops.lk.lk_level`, which launches the
-hand-written kernel K1 for CUDA tensors (every level, whatever its size)
-and runs the plain PyTorch version for CPU tensors. The forward-backward
-consistency check (≙ `flow_back`/FB_THRESHOLD) follows.
+All features track together: the coarse-to-fine forward pass, the
+backward pass and the forward-backward consistency gate (≙
+`flow_back`/FB_THRESHOLD) are one call of `ops.lk.lk_track`, which
+launches the hand-written kernel K1 once for CUDA tensors and runs the
+plain PyTorch version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -68,26 +68,12 @@ def track(pyr_prev, pyr_cur, pts, cfg: KLTConfig = KLTConfig(), init=None):
     optional: initial guess of the tracked positions (gyro-predicted flow,
     `frontend/fused.py::rotation_flow`); the backward pass always starts
     from the original pts."""
-    H, W = pyr_prev[0].shape
     L = len(pyr_prev) if init is None else min(len(pyr_prev),
                                                max(cfg.pred_levels, 1))
-    pyr_prev, pyr_cur = list(pyr_prev[:L]), list(pyr_cur[:L])
-
-    def fwd(pyrs_a, pyrs_b, p0, g0):
-        g = g0 / (2 ** (L - 1))
-        eig = torch.zeros_like(p0[:, 0])
-        for lev in range(L - 1, -1, -1):
-            g, eig = track_level(pyrs_a[lev], pyrs_b[lev], p0 / (2 ** lev), g,
-                                 cfg)
-            if lev > 0:
-                g = g * 2.0
-        return g, eig
-
-    pts_cur, eig = fwd(pyr_prev, pyr_cur, pts, pts if init is None else init)
-    pts_back, _ = fwd(pyr_cur, pyr_prev, pts_cur, pts)
-
-    fb = torch.linalg.vector_norm(pts_back - pts, dim=-1)
-    inb = ((pts_cur[:, 0] >= 1.0) & (pts_cur[:, 0] < W - 1.0)
-           & (pts_cur[:, 1] >= 1.0) & (pts_cur[:, 1] < H - 1.0))
-    ok = (fb < cfg.fb_thresh) & inb & (eig > cfg.min_eig)
+    pts = pts.contiguous()
+    pts_cur, ok, _ = lk.lk_track(
+        [p.contiguous() for p in pyr_prev[:L]],
+        [p.contiguous() for p in pyr_cur[:L]], pts,
+        pts if init is None else init.contiguous(), cfg.iters, cfg.win,
+        cfg.fb_thresh, cfg.min_eig)
     return pts_cur, ok

@@ -135,6 +135,68 @@ def test_track_matches_jax_track(with_init):
                                rtol=0, atol=PX_TOL)
 
 
+def border_points(rng, n, H, W, within=12.0):
+    """n points, each within `within` px of one of the four borders."""
+    side = np.arange(n) % 4
+    d = rng.uniform(1.0, within, n)
+    x = np.where(side == 0, d, np.where(side == 1, W - 1 - d,
+                                        rng.uniform(1, W - 2, n)))
+    y = np.where(side == 2, d, np.where(side == 3, H - 1 - d,
+                                        rng.uniform(1, H - 2, n)))
+    return np.stack([x, y], 1).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["border", "large_motion"])
+def test_track_hard_cases_match_jax_track(case):
+    """The cases that on the card stage windows against the image border
+    and send taps outside the staged windows: features within 12 px of
+    each border, and an init 8 px off the true position at level 0. `ok`
+    as JAX's, positions within PX_TOL where ok."""
+    dx, dy = 3.1, -2.2
+    img0 = make_texture(h=200, w=320, seed=9)
+    img1 = shift_image(img0, dx, dy)
+    rng = np.random.default_rng(2)
+    if case == "border":
+        pts = border_points(rng, 48, 200, 320)
+        init = pts + np.float32([dx, dy])
+    else:
+        pts = np.stack([rng.uniform(30, 290, 48), rng.uniform(30, 170, 48)],
+                       1).astype(np.float32)
+        ang = rng.uniform(0, 2 * np.pi, 48)
+        off = 8.0 * np.stack([np.cos(ang), np.sin(ang)], 1)
+        init = (pts + np.float32([dx, dy]) + off).astype(np.float32)
+    cfg = jklt.KLTConfig(pred_levels=3)
+    pj0, pj1 = jklt.pyramid(jf32(img0), 4), jklt.pyramid(jf32(img1), 4)
+    o_ref, ok_ref = jklt.track(pj0, pj1, jf32(pts), cfg, use_pallas=False,
+                               init=jf32(init))
+    pt0, pt1 = tklt.pyramid(f32(img0), 4), tklt.pyramid(f32(img1), 4)
+    o, ok = tklt.track(pt0, pt1, f32(pts), tklt.KLTConfig(pred_levels=3),
+                       init=f32(init))
+    ok_ref = np.asarray(ok_ref)
+    np.testing.assert_array_equal(ok.numpy(), ok_ref)
+    assert ok_ref.sum() >= 24
+    np.testing.assert_allclose(o.numpy()[ok_ref], np.asarray(o_ref)[ok_ref],
+                               rtol=0, atol=PX_TOL)
+
+
+def test_lk_track_on_cpu_runs_the_plain_version_once():
+    """CPU tensors: one run of the plain track (2 passes x L levels of the
+    plain level version), no kernel launch."""
+    img0 = make_texture(h=96, w=128, seed=1)
+    img1 = shift_image(img0, 1.2, 0.7)
+    pyr0 = tklt.pyramid(f32(img0), 3)
+    pyr1 = tklt.pyramid(f32(img1), 3)
+    pts = f32(np.random.default_rng(5).uniform(20, 76, (10, 2)))
+    counts = (lk.lk_track_plain.calls, lk.lk_level_plain.calls,
+              lk.lk_track.launches, lk.lk_level.launches)
+    out, ok, eig = lk.lk_track(pyr0, pyr1, pts, pts + f32([1.2, 0.7]))
+    assert (lk.lk_track_plain.calls, lk.lk_level_plain.calls,
+            lk.lk_track.launches, lk.lk_level.launches) == (
+        counts[0] + 1, counts[1] + 6, counts[2], counts[3])
+    assert out.shape == (10, 2) and ok.dtype == torch.bool
+    assert eig.shape == (10,) and bool(ok.any())
+
+
 def test_clahe_matches_jax():
     rng = np.random.default_rng(3)
     img = np.clip(make_texture(h=128, w=160, seed=3) * 0.6
