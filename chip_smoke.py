@@ -4,7 +4,8 @@
 
 Phases, each printed as one JSON line:
   1. device  - CUDA present; the card's name and power limit (nvidia-smi);
-  2. build   - every hand-written kernel compiled from the repo's sources;
+  2. build   - every hand-written kernel compiled from the repo's sources,
+               and the native feature table's host library (g++);
   3. k1_level - the LK kernel's one-level case against its plain PyTorch
                version at the main path's shapes (each of the three pyramid
                levels of a 1280x1024 pair);
@@ -20,7 +21,18 @@ Phases, each printed as one JSON line:
                per-frame front-end and estimator times, the estimator's
                phases, and a torch.profiler trace of the last frame
                (device time, busy share, device operations, top kernels);
-  6. kernels - one line listing every kernel with launches, error and times.
+  6. e2e     - `bench.py`'s default run: a 16 s synthetic feature sequence
+               (reference sensor noise, seed 3) through CtrlVIO with the
+               visual bootstrap, the native feature table and the
+               streaming megastep, f32 on the card; bench.py's gates
+               (online and post-hoc ATE < 0.10 m, line-delay error
+               < 2 us), the visual bootstrap initialized the run, 40 or
+               more streamed frames, no synchronous window solve after the
+               warmup handoff, and no synchronizing CUDA call inside any
+               streamed dispatch; per-frame times (warmup and streamed
+               apart), sustained fps, the estimator's phases and a
+               torch.profiler trace of one streamed frame;
+  7. kernels - one line listing every kernel with launches, error and times.
 The last line is {"ok": true, "device": {...}}; any failed phase exits
 non-zero without it. Needs a CUDA device; imports nothing of JAX.
 """
@@ -35,6 +47,7 @@ import time
 import numpy as np
 import torch
 
+from ctrlvio_tpu_torch.estimator import native
 from ctrlvio_tpu_torch.estimator.initializer import bootstrap_from_sim
 from ctrlvio_tpu_torch.estimator.odometry import CtrlVIO, VIOConfig
 from ctrlvio_tpu_torch.frontend import klt
@@ -86,8 +99,10 @@ def phase_build():
     paths = cuda_build.build(names)
     for n in names:
         cuda_build.load(n)
+    native.load()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "libraries": {n: str(p.name) for n, p in paths.items()},
+          "libraries": {**{n: str(p.name) for n, p in paths.items()},
+                        "feature_table": native.library_path().name},
           "ptxas": {n: [ln for ln in cuda_build.build_log.get(n, "").splitlines()
                         if "registers" in ln or "spill" in ln]
                     for n in names}})
@@ -478,12 +493,157 @@ def phase_main():
     return rec
 
 
+def phase_e2e():
+    """`bench.py`'s default run (`--mode e2e`, the chip preset) on the card
+    at full width: `reference_noise(duration=16, n_landmarks=300, seed=3)`
+    with spline ground truth, the bench's window, f32, the visual
+    bootstrap with reject-and-retry, the native feature table and the
+    streaming megastep after its 40 warmup frames; IMU fed 0.25 s ahead
+    of each frame, no ground-truth hint. Times as the bench takes them:
+    per-frame host time from the frame `stream_warmup + 8` after init
+    (`timed_from`), sustained fps = timed frames over their summed time
+    plus the final flush() and torch.cuda.synchronize(). One streamed
+    frame in the timed region is traced with torch.profiler (after a
+    synchronize, ending in one) and left out of the timed frames."""
+    duration = 16.0
+    t0 = time.perf_counter()
+    sim = synthetic.generate(synthetic.reference_noise(
+        duration=duration, n_landmarks=300, seed=3, speed=1.0))
+    t_sim = time.perf_counter() - t0
+    cfg = VIOConfig(
+        window_config=WindowConfig(KW=32, NB=11, LM=256, OBS=768, MIMU=256),
+        fix_ld=False, ld_init=0.0, dtype=torch.float32, bootstrap="visual",
+        stream=True)
+    q_CtoI = so3np.quat_exp(np.asarray(sim.cfg.ext_rot, np.float64))
+    # the counts of the e2e run: zero just before, read just after
+    lk.lk_track.launches = lk.lk_level.launches = 0
+    t_run0 = time.perf_counter()
+    vio = CtrlVIO(cfg, q_CtoI, np.array(sim.cfg.ext_pos), device="cuda")
+    vio.check_dispatch_syncs = True
+    est, gt, t_est_ns = [], [], []
+    frame_times, kinds = [], []
+    init_frame = timed_from = profiled = None
+    prof = prof_s = None
+    imu_idx = 0
+    ahead_ns = int(0.25e9)
+    for i, fr in enumerate(sim.frames):
+        while imu_idx < len(sim.imu_t_ns) and \
+                sim.imu_t_ns[imu_idx] <= fr.t_ns + ahead_ns:
+            vio.process_imu(sim.imu_t_ns[imu_idx], sim.gyro[imu_idx],
+                            sim.accel[imu_idx])
+            imu_idx += 1
+        n_mega, n_sync = vio.counts["megastep"], vio.counts["sync_solve"]
+        trace = (timed_from is not None and profiled is None
+                 and i >= timed_from + 20)
+        if trace:
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                out = vio.process_frame(fr.t_ns, fr.ids, fr.pts, fr.rows)
+                torch.cuda.synchronize()
+                prof_s = time.perf_counter() - t0
+        else:
+            t0 = time.perf_counter()
+            out = vio.process_frame(fr.t_ns, fr.ids, fr.pts, fr.rows)
+        dt = time.perf_counter() - t0
+        kind = ("stream" if vio.counts["megastep"] > n_mega else
+                "sync" if vio.counts["sync_solve"] > n_sync else "other")
+        if trace:
+            profiled = i
+            if kind != "stream":
+                raise SystemExit(f"e2e: the traced frame {i} did not stream")
+        if out is not None:
+            if timed_from is None:
+                init_frame = i
+                timed_from = i + cfg.stream_warmup + 8
+            est.append(out[1])
+            t_est_ns.append(fr.t_ns)
+            gt.append(sim.pose_at(fr.t_ns * 1e-9)[1])
+        if timed_from is not None and i == timed_from:
+            vio.timing.clear()
+        if timed_from is not None and i >= timed_from and not trace:
+            frame_times.append(dt)
+            kinds.append(kind)
+        elif init_frame is not None and i > init_frame and kind == "sync":
+            kinds.append("warmup")
+            frame_times.append(dt)
+    t0 = time.perf_counter()
+    vio.flush()
+    torch.cuda.synchronize()
+    t_flush = time.perf_counter() - t0
+    wall = time.perf_counter() - t_run0
+    k1_launches = lk.lk_track.launches + lk.lk_level.launches
+
+    est, gt = np.asarray(est), np.asarray(gt)
+    err = ate_rmse(est[10:], gt[10:], align="yaw")
+    base = vio.data_start_ns or 0
+    post = np.stack([vio.traj.pose(t - base)[1][0] for t in t_est_ns])
+    err_post = ate_rmse(post[10:], gt[10:], align="yaw")
+    ld_err = abs(vio.traj.line_delay - sim.cfg.line_delay)
+    kinds = np.asarray(kinds)
+    times = np.asarray(frame_times, np.float64)
+    timed = times[kinds != "warmup"]
+    n_timed = len(timed)
+    streamed = times[kinds == "stream"]
+    warm = times[kinds == "warmup"]
+    c = vio.counts
+    rec = {"phase": "e2e", "duration_s": duration, "sim_s": t_sim,
+           "wall_s": wall, "frames": len(sim.frames), "solved": len(est),
+           "init_frame": init_frame,
+           "bootstrap_visual": c["bootstrap_visual"],
+           "bootstrap_rejections": c["bootstrap_rejected"],
+           "sync_solves": c["sync_solve"],
+           "sync_solves_after_handoff": c["sync_solve_after_handoff"],
+           "streamed_frames": int((kinds == "stream").sum()) + (
+               1 if profiled is not None else 0),
+           "megastep_calls": c["megastep"],
+           "megastep_syncs": c["megastep_syncs"],
+           "sync_messages": sorted(set(vio.sync_warnings))[:5],
+           "marg_overflows": c["marg_overflow"],
+           "ate_online_m": err, "ate_posthoc_m": err_post,
+           "line_delay_s": vio.traj.line_delay,
+           "line_delay_true_s": sim.cfg.line_delay, "ld_err_s": ld_err,
+           "timed_from": timed_from, "timed_frames": n_timed,
+           "frame_ms_median": float(np.median(timed)) * 1e3,
+           "sustained_fps": n_timed / (float(np.sum(timed)) + t_flush),
+           "flush_s": t_flush,
+           "warmup_ms_median": float(np.median(warm)) * 1e3
+           if len(warm) else None, "warmup_frames": len(warm),
+           "streamed_ms_median": float(np.median(streamed)) * 1e3
+           if len(streamed) else None,
+           "streamed_ms_mean": float(np.mean(streamed)) * 1e3
+           if len(streamed) else None,
+           "timing_ms_per_frame": {k: v / max(n_timed, 1) * 1e3
+                                   for k, v in vio.timing.items()},
+           "k1_launches": k1_launches,
+           "profiled_frame": profiled,
+           "profile_streamed_frame": device_share(
+               prof, prof_s, float(np.median(streamed)) * 1e3)
+           if prof is not None and len(streamed) else None}
+    emit(rec)
+    finite = bool(np.isfinite(est).all()) and np.isfinite(vio.traj.line_delay)
+    if not (finite and err < 0.10 and err_post < 0.10 and ld_err < 2e-6):
+        raise SystemExit(f"e2e fails bench.py's gates (online and post-hoc "
+                         f"ATE < 0.10 m, line-delay error < 2 us): {rec}")
+    if not (vio.initialized and c["bootstrap_visual"] >= 1
+            and c["megastep"] >= 40 and c["sync_solve_after_handoff"] == 0
+            and c["megastep_syncs"] == 0 and prof is not None):
+        raise SystemExit(f"e2e did not run the streamed path as required "
+                         f"(visual bootstrap, >= 40 megasteps, no sync solve "
+                         f"after the handoff, no sync inside a megastep, "
+                         f"one traced streamed frame): {rec}")
+    return rec
+
+
 def main():
     phase_device()
     phase_build()
     level = phase_k1_level()
     k1 = phase_k1_track()
     launches = phase_main()["k1_track_launches"]
+    e2e = phase_e2e()
     kernels = [{
         "name": "K1 lk_track", "route": "cuda",
         "source": "ctrlvio_tpu_torch/csrc/lk.cu",
@@ -493,7 +653,8 @@ def main():
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": None,
         "level_ms": level["ms"], "level_device_ms": level["device_ms"],
-        "level_max_abs_err": level["max_abs_err"]}]
+        "level_max_abs_err": level["max_abs_err"],
+        "e2e_launches": e2e["k1_launches"]}]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

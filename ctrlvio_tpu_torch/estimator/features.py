@@ -76,7 +76,8 @@ class FeatureTable:
         for slot, tr in enumerate(cands):
             d = 1.0 / dinv[slot] if dinv[slot] != 0 else -1.0
             tr.estimated_depth = float(d)
-            tr.solve_ok = d > 0
+            # a python bool: remove_failures tests it with `is False`
+            tr.solve_ok = bool(d > 0)
 
     def remove_failures(self):
         dead = [fid for fid, t in self.tracks.items()
@@ -97,7 +98,7 @@ class FeatureTable:
                 continue
             depth = 1.0 / d if d != 0 else -1.0
             tr.estimated_depth = float(depth)
-            tr.solve_ok = depth > 0
+            tr.solve_ok = bool(depth > 0)
 
     # ------------------------------------------------------------------
     def triangulate(self, cam_q: np.ndarray, cam_p: np.ndarray):

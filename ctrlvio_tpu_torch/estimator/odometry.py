@@ -1,5 +1,5 @@
-"""CtrlVIO: the per-frame estimation pipeline, synchronous path (PyTorch port
-of `ctrlvio_tpu/estimator/odometry.py`).
+"""CtrlVIO: the per-frame estimation pipeline (PyTorch port of
+`ctrlvio_tpu/estimator/odometry.py`).
 
 Per frame (after initialization):
   1. buffer IMU, pair with the frame
@@ -8,23 +8,38 @@ Per frame (after initialization):
   4. triangulate new landmarks
   5. full sliding-window LM solve in the solve dtype on the device
   6. 4-DoF gauge restore
-  7. marginalization prior, f64 on the device (MARGIN_OLD frames)
+  7. marginalization prior (MARGIN_OLD frames)
   8. slide window
 
-Initialization is external (`set_initial_state`, e.g. from
-`initializer.bootstrap_from_sim`); the first window's bootstrap solve and
-its square-root marginalization run once in f64 on the device. Host
-bookkeeping (trajectory, feature table, packing) is numpy; the factor
-tuples go to the device as tensors each frame.
+Two schedules run steps 5-8:
+- synchronous (`stream=False`, and the first `stream_warmup` frames of a
+  stream): one window solve with host round trips, the marginalization in
+  f64 on the device;
+- streaming (`stream=True` after the warmup): one device call a frame
+  (`stream.megastep`: solve, gauge, square-root marginalization in the
+  solve dtype, slide) chained through a device-resident state with no host
+  read; the host mirror consumes the solve summaries `stream_lag` frames
+  later, pulling every `stream_consume_every`-th asynchronously.
 
-Not ported yet: the device-resident streaming megastep (`stream=True`),
-the visual and static bootstraps, the native C++ feature table, the classic
-`FeatureTracker` front end and `residual_summary`.
+Initialization: external (`set_initial_state`, e.g. from
+`initializer.bootstrap_from_sim`), static (stillness, with the IMU
+attitude as fallback) or visual (SfM + visual-inertial alignment,
+`vio_init.VIOInitializer`). The first window's bootstrap solve and its
+square-root marginalization run once in f64 on the device; a self-bootstrap
+whose solve stays above `init_max_rms` is rejected and retried on a later
+window. Host bookkeeping (trajectory, feature table, packing) is numpy, the
+feature table native C++ by default (`native.NativeFeatureTable`).
+
+Not ported yet: the classic `FeatureTracker` front end, the batched-serving
+dispatch hook and `residual_summary`.
 """
 
 from __future__ import annotations
 
+import contextlib
+import sys
 import time
+import warnings
 from collections import defaultdict, deque
 from dataclasses import dataclass
 from types import SimpleNamespace
@@ -40,18 +55,21 @@ from ctrlvio_tpu_torch.solver import gauge, lm, marginalize
 from ctrlvio_tpu_torch.solver.layout import (BiasFactors, ImageFactors,
                                              PriorFactor, SolveOptions,
                                              WindowConfig, WindowParams,
-                                             empty_prior)
+                                             empty_params, empty_prior)
 from ctrlvio_tpu_torch.utils.convert import from_numpy, tensor, to_dtype
 from ctrlvio_tpu_torch.utils.device import resolve_device
 from ctrlvio_tpu_torch.utils.precision import pin_f32_matmuls
 
-from . import packing
+from . import packing, stream
 from .features import FeatureTable
-from .initializer import InitialState, dead_reckon_poses
+from .initializer import (ActiveInitializer, InitialState, StaticInitializer,
+                          dead_reckon_poses)
 
 S_TO_NS = 1_000_000_000
 MARGIN_OLD = 0
 MARGIN_SECOND_NEW = 1
+# what torch.cuda.set_sync_debug_mode("warn") says of a synchronizing call
+SYNC_WARNING = "called a synchronizing CUDA operation"
 
 
 @dataclass
@@ -78,20 +96,42 @@ class VIOConfig:
     ba_tol: float = 1e-5
     predict_iters: int = 8
     init_ba_iters: int = 30
-    # solve dtype (the bootstrap solve and the marginalization are f64)
+    # solve dtype (the bootstrap solve and the synchronous marginalization
+    # are f64)
     dtype: torch.dtype = torch.float32
+    # the C++ feature table (`native.NativeFeatureTable`, built at first
+    # use); a failed build raises. False = the python FeatureTable
+    use_native: bool = True
+    # bootstrap: "external" (the caller runs set_initial_state), "static"
+    # (stationary IMU, the IMU attitude as fallback) or "visual" (SfM +
+    # visual-inertial alignment)
+    bootstrap: str = "external"
+    excite_threshold: float = 0.25
+    # streaming pipeline: after `stream_warmup` synchronous frames (f64
+    # marginalization through the bootstrap transient), one device call a
+    # frame with no host read; summaries reach the host mirror `stream_lag`
+    # frames later, every `stream_consume_every`-th one pulled
+    # asynchronously (the mirror needs only the newest)
+    stream: bool = False
+    stream_lag: int = 6
+    stream_consume_every: int = 3
+    stream_warmup: int = 40
     # normal equations: "chunked" accumulation (`ne_chunk` factor slots at a
     # time, None = all at once) or "dense" rows (≙ CTRLVIO_NE / _NE_CHUNK)
     ne_mode: str = "chunked"
     ne_chunk: Optional[int] = None
-    # compacted subset caps (obs, imu, lm) of the bootstrap's square-root
-    # marginalization; None = marginalize.marg_caps defaults
-    # (≙ CTRLVIO_MARG_{OBS,IMU,LM})
+    # compacted subset caps (obs, imu, lm) of the square-root
+    # marginalization (bootstrap and stream); None = marginalize.marg_caps
+    # defaults (≙ CTRLVIO_MARG_{OBS,IMU,LM})
     marg_caps: Optional[Tuple[int, int, int]] = None
     # IMU capacity policy: "raise" or "subsample"
     imu_overflow: str = "raise"
     # a frame is solved once the IMU buffer covers t + 0.04 s by this margin
     imu_lookahead: float = 0.06
+    # a self-bootstrap is rejected (and retried on a later window) when the
+    # first-window f64 BA ends above this RMS weighted residual per image
+    # observation coordinate (1.0 = residuals at the measurement sigma)
+    init_max_rms: float = 3.0
 
 
 @dataclass
@@ -110,17 +150,29 @@ def _np_dtype(dtype: torch.dtype):
 class CtrlVIO:
     """Sliding-window continuous-time rolling-shutter VIO. Runs its solves
     on `device` (the card by default; pass device='cpu' to run on the
-    CPU)."""
+    CPU).
+
+    `counts` tallies what ran: "sync_solve" (window solves of the
+    synchronous schedule), "sync_solve_after_handoff", "megastep",
+    "bootstrap_static" / "bootstrap_visual" (initial states produced),
+    "bootstrap_rejected", "marg_overflow" (stream summaries reporting a
+    marginalization cap overflow) and, with `check_dispatch_syncs` set on a CUDA
+    device, "megastep_syncs": synchronizing CUDA calls inside the streamed
+    dispatch (`torch.cuda.set_sync_debug_mode("warn")`), whose messages
+    collect in `sync_warnings`."""
 
     def __init__(self, cfg: VIOConfig, q_CtoI, p_CinI, device="cuda"):
         self.device = resolve_device(device)
         pin_f32_matmuls()
+        if cfg.bootstrap not in ("external", "static", "visual"):
+            raise ValueError(f"unknown bootstrap {cfg.bootstrap!r}")
         self.cfg = cfg
         wc = cfg.window_config
         self.wc = wc
+        self.use_native = cfg.use_native
         self.traj = Trajectory(cfg.knot_dt, cfg.ld_init, cfg.fix_ld,
                                cfg.ld_lower, cfg.ld_upper)
-        self.features = FeatureTable(wc.NB - 1, cfg.min_parallax)
+        self.features = self._new_feature_table()
         self.q_CtoI = np.asarray(q_CtoI, dtype=np.float64)
         self.p_CinI = np.asarray(p_CinI, dtype=np.float64)
 
@@ -134,17 +186,38 @@ class CtrlVIO:
         self.gravity = np.array([0.0, 0.0, cfg.gravity_mag])
 
         self.timing = defaultdict(float)  # per-phase cumulative seconds
+        self.counts = defaultdict(int)
+        self.check_dispatch_syncs = False
+        self.sync_warnings: List[str] = []
         self.initialized = False
         self.frame_count = 0
         self.data_start_ns: Optional[int] = None
         self.prior: Optional[PriorFactor] = None   # solve dtype
         self._prior64: Optional[PriorFactor] = None  # f64 marg chain
+        self._init_prior: Optional[PriorFactor] = None  # stream handoff seed
         self.win_knot0 = 0
         self.marg_flag = MARGIN_OLD
         self.keyframes: List[KeyframePose] = []
         self.last_solve_stats = None
         self._pending_frames: deque = deque()
         self.tracker = None
+
+        # self-bootstrap state; recent frames replay into a fresh
+        # initializer when a bootstrap is rejected
+        self._static_init: Optional[StaticInitializer] = None
+        self._active_init: Optional[ActiveInitializer] = None
+        self._pending_init: Optional[InitialState] = None
+        self._vio_init = None
+        self._recent_frames: deque = deque(maxlen=wc.NB + 4)
+
+        # streaming state
+        self._stream_frame_no = 0
+        self._stream_pending: deque = deque()
+        self._dev_state: Optional[stream.DevState] = None
+        self._prev_slot_fids: dict = {}
+        self._dev_knot_hi = 0  # global knot index the device has seeds through
+        self._dispatch_no = -1
+        self._mirror_solved_hi: Optional[int] = None
 
         jdt = cfg.dtype
         self.jdt = jdt
@@ -182,6 +255,13 @@ class CtrlVIO:
     def _dev(self, nt, dtype=None):
         return from_numpy(nt, self.device, dtype)
 
+    def _new_feature_table(self):
+        if self.use_native:
+            from .native import NativeFeatureTable
+
+            return NativeFeatureTable(self.wc.NB - 1, self.cfg.min_parallax)
+        return FeatureTable(self.wc.NB - 1, self.cfg.min_parallax)
+
     def _solve(self, params, img, imu, bias, prior, fixed, ext, gravity,
                imu_info, sqrt_info, cfg, opts):
         return lm.solve_window(params, img, imu, bias, prior,
@@ -192,7 +272,12 @@ class CtrlVIO:
     # ------------------------------------------------------------------
     # ingest
     # ------------------------------------------------------------------
-    def process_imu(self, t_ns: int, gyro, accel):
+    def process_imu(self, t_ns: int, gyro, accel, quat=None):
+        """quat (wxyz, optional): the IMU message's own attitude estimate,
+        which the static bootstrap takes when its stillness test cannot
+        pass (≙ `sensor_msgs/Imu.orientation` in ActiveInitialIMUState)."""
+        if self.data_start_ns is None and self.cfg.bootstrap != "external":
+            self._boot_feed_imu(int(t_ns), gyro, accel, quat)
         if self.data_start_ns is not None:
             t_ns = int(t_ns) - self.data_start_ns
         self.imu_t_ns = np.append(self.imu_t_ns, np.int64(t_ns))
@@ -200,6 +285,52 @@ class CtrlVIO:
         self.imu_accel = np.vstack([self.imu_accel, np.asarray(accel)[None]])
         if self.initialized:
             self._drain_pending_frames()
+
+    # ------------------------------------------------------------------
+    # self-bootstrap (≙ the init state machine in ProcessVIOData,
+    # `odometry_manager.cpp:178-247`)
+    # ------------------------------------------------------------------
+    def _boot_feed_imu(self, t_ns, gyro, accel, quat=None):
+        cfg = self.cfg
+        if cfg.bootstrap == "static":
+            if self._static_init is None:
+                self._static_init = StaticInitializer(
+                    excite_threshold=0.5, gravity_mag=cfg.gravity_mag)
+                self._active_init = ActiveInitializer(
+                    gravity_mag=cfg.gravity_mag)
+            # static first, then the orientation-based fallback
+            # (≙ IMUInitializer::InitialIMUState)
+            st = self._static_init.feed(t_ns, gyro, accel)
+            if st is None and quat is not None:
+                st = self._active_init.feed(t_ns, quat)
+            if st is not None:
+                self._pending_init = st
+        elif cfg.bootstrap == "visual":
+            if self._vio_init is None:
+                from .vio_init import VIOInitializer
+
+                self._vio_init = VIOInitializer(
+                    self.q_CtoI, self.p_CinI, gravity_mag=cfg.gravity_mag,
+                    window_size=self.wc.NB - 1,
+                    excite_threshold=cfg.excite_threshold)
+            self._vio_init.feed_imu(t_ns, gyro, accel)
+
+    def _boot_feed_frame(self, t_ns, ids, pts) -> bool:
+        """True once the bootstrap produced an initial state (and
+        set_initial_state was applied)."""
+        st = None
+        if self.cfg.bootstrap == "static":
+            st = self._pending_init
+            if st is not None:
+                st.t_ns = t_ns  # anchor at this frame
+        elif self.cfg.bootstrap == "visual" and self._vio_init is not None:
+            st = self._vio_init.feed_frame(t_ns, ids, pts)
+        if st is None:
+            return False
+        self.counts["bootstrap_" + self.cfg.bootstrap] += 1
+        self.set_initial_state(st.t_ns, st.q, st.p, st.bg, st.ba, st.gravity,
+                               v0=st.v)
+        return True
 
     def set_initial_state(self, t0_ns: int, q0, p0, bg, ba, gravity, v0=None):
         """Bootstrap state (≙ SetInitialState): gravity-aligned initial pose
@@ -275,8 +406,19 @@ class CtrlVIO:
     def process_frame(self, t_ns: int, ids, pts, rows):
         """Feed one feature frame. Returns the current IMU pose estimate
         (q, p) at the frame time, or None before initialization."""
+        boot = self.cfg.bootstrap != "external"
+        if boot and not self.initialized:
+            # absolute times: a rejected bootstrap replays these into a
+            # fresh initializer
+            self._recent_frames.append(
+                (int(t_ns), np.asarray(ids).copy(), np.asarray(pts).copy(),
+                 np.asarray(rows).copy()))
         if self.data_start_ns is None:
-            raise RuntimeError("call set_initial_state first")
+            if not boot:
+                raise RuntimeError("call set_initial_state first")
+            if not self._boot_feed_frame(int(t_ns), ids, pts):
+                return None
+            # this frame becomes the first window frame
         t_ns = int(t_ns) - self.data_start_ns
         if not self.initialized:
             return self._accumulate_init_frame(t_ns, ids, pts, rows)
@@ -301,6 +443,32 @@ class CtrlVIO:
 
     def _process_frame_ready(self, t_ns: int, ids, pts, rows):
         wc = self.wc
+        stream_active = False
+        if self.cfg.stream:
+            self._stream_frame_no += 1
+            stream_active = self._stream_frame_no > self.cfg.stream_warmup
+        if stream_active:
+            # consume the summaries that are due (lagged host mirror); the
+            # lag ramps open over the first streamed frames so the mirror
+            # stays fresh right after the warmup handoff
+            t0 = time.perf_counter()
+            since = self._stream_frame_no - self.cfg.stream_warmup
+            lag = min(self.cfg.stream_lag, max(0, since - 5))
+            n_before = len(self._stream_pending)
+            self._consume_summaries(lag)
+            if len(self._stream_pending) < n_before:
+                # re-integrate the mirror's dead-reckoned tail from the
+                # freshly solved end, or the tip knots chain off stale
+                # states and the online estimate random-walks
+                t_dr = time.perf_counter()
+                hi = self._mirror_solved_hi
+                if hi < self.traj.n:
+                    self._deadreckon_extension(
+                        int((hi - 3) * self.traj.dt_ns), hi - 1,
+                        self.traj.max_time_ns)
+                self.timing["consume_dr"] += time.perf_counter() - t_dr
+            self.timing["consume"] += time.perf_counter() - t0
+
         is_kf = self.features.add_frame(wc.NB - 1, ids, pts, rows)
         self.marg_flag = MARGIN_OLD if is_kf else MARGIN_SECOND_NEW
         self.kf_t_ns[wc.NB - 1] = t_ns
@@ -315,31 +483,51 @@ class CtrlVIO:
         self._triangulate()
         self.timing["triangulate"] += time.perf_counter() - t0
 
+        if stream_active:
+            t0 = time.perf_counter()
+            self._stream_dispatch()
+            self.timing["dispatch"] += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            self._slide_window(record_keyframe=False)
+            self.timing["slide"] += time.perf_counter() - t0
+            # online forecast: raw IMU integrated from the newest solved
+            # spline state to t_ns (the spline's extrapolated tip carries
+            # the dead-reckon seeds' representation error)
+            return self._forecast_pose(t_ns)
+
         t0 = time.perf_counter()
         self._solve_window_ba()
         self.timing["ba"] += time.perf_counter() - t0
-
         t0 = time.perf_counter()
         self._slide_window()
         self.timing["slide"] += time.perf_counter() - t0
-
         q, p = self.traj.pose(t_ns)
         return q[0], p[0]
 
     def flush(self):
-        """End of stream: solve frames still queued behind the IMU-coverage
-        check (best effort)."""
+        """End of stream (call before reading final poses, keyframes or
+        the line delay): solve the frames still queued behind the
+        IMU-coverage check, then drain every in-flight stream summary into
+        the host mirror."""
         q = self._pending_frames
         last_imu = int(self.imu_t_ns[-1]) if len(self.imu_t_ns) else -1
         while q and q[0][0] <= last_imu:
             self._process_frame_ready(*q.popleft())
+        while self._stream_pending:
+            batch = [self._stream_pending.popleft()]
+            # extend to the next fetched entry (or the very end)
+            while self._stream_pending and not batch[-1][2]:
+                batch.append(self._stream_pending.popleft())
+            self._apply_summary_batch(batch)
 
     # ------------------------------------------------------------------
     def _forecast_pose(self, t_ns: int):
         """Online pose at t_ns: midpoint IMU integration from the newest
         image-constrained spline state."""
         dt_ns = int(self.traj.dt_ns)
-        hi = self.traj.n
+        hi = (self.traj.n if self._mirror_solved_hi is None
+              else self._mirror_solved_hi)
+        # the last ~3 knots before hi are weakly constrained; anchor below
         t0 = max((hi - 4) * dt_ns, 0)
         q0, p0 = self.traj.pose(t0)
         i0 = min(self.traj.ctrl_idx(t0), self.traj.n - 4)
@@ -378,19 +566,79 @@ class CtrlVIO:
         self.traj.knots_p[: self.traj.n] = kp
         self._extend_and_predict(t_ns, from_start=True)
         self._triangulate()
-        self._init_solve_f64()
+        n_img_obs = self._init_solve_f64()
+        # quality gate in measurement units: the RMS weighted residual per
+        # image-observation coordinate (1.0 = residuals at the configured
+        # sigma); a solve stuck outside the basin sits at many sigma
+        cost = float(self.last_solve_stats.cost)
+        rms = np.sqrt(2.0 * cost / max(2 * n_img_obs, 1))
+        if self.cfg.bootstrap != "external":
+            verdict = ("rejected" if rms > self.cfg.init_max_rms
+                       else "accepted")
+            print(f"[ctrlvio] bootstrap {verdict} (init BA residual RMS "
+                  f"{rms:.2f} sigma, limit {self.cfg.init_max_rms}, cost "
+                  f"{cost:.1f} over {n_img_obs} obs)", file=sys.stderr)
+            if rms > self.cfg.init_max_rms:
+                # retry with a later window (≙ the reference's init retried
+                # every frame, `vio_initial.cpp:42-56`)
+                self.counts["bootstrap_rejected"] += 1
+                self._reset_bootstrap()
+                return None
         self._slide_window()
         self.initialized = True
         q, p = self.traj.pose(t_ns)
         return q[0], p[0]
 
     # ------------------------------------------------------------------
+    def _reset_bootstrap(self):
+        """Roll back a rejected initialization and re-arm the bootstrap.
+        Buffered IMU and the recent feature frames replay into a fresh
+        initializer so the retry uses the newest window."""
+        shift = self.data_start_ns
+        self.data_start_ns = None
+        self.imu_t_ns = self.imu_t_ns + shift  # back to absolute time
+        self.frame_count = 0
+        self.kf_t_ns[:] = 0
+        self.bg[:] = 0.0
+        self.ba[:] = 0.0
+        self.prior = None
+        self._prior64 = None
+        self._init_prior = None
+        self._stream_frame_no = 0
+        self._dev_knot_hi = 0
+        self.traj = Trajectory(self.cfg.knot_dt, self.cfg.ld_init,
+                               self.cfg.fix_ld, self.cfg.ld_lower,
+                               self.cfg.ld_upper)
+        self.features = self._new_feature_table()
+        self._static_init = self._active_init = None
+        self._pending_init = None
+        self._vio_init = None
+        if self.cfg.bootstrap == "visual":
+            for k in range(len(self.imu_t_ns)):
+                self._boot_feed_imu(int(self.imu_t_ns[k]), self.imu_gyro[k],
+                                    self.imu_accel[k])
+            for (t_abs, ids, pts, rows) in list(self._recent_frames):
+                if self.data_start_ns is not None:
+                    break  # a replayed window already re-initialized
+                self._boot_feed_frame(t_abs, ids, pts)
+
+    # ------------------------------------------------------------------
     def _pack_window(self, dtype):
-        """Image, IMU and bias factors of the current window (numpy)."""
+        """Image, IMU and bias factors of the current window (numpy); the
+        python table also returns its candidate tracks (None for the native
+        one)."""
         wc, cfg = self.wc, self.cfg
-        img, dinv0, cands = packing.pack_image_factors(
-            list(self.features.tracks.values()), self.kf_t_ns, self.traj.dt,
-            self.win_knot0, wc, dtype)
+        if self.use_native:
+            img, dinv0, _ = self.features.pack_image_factors(
+                self.kf_t_ns, self.traj.dt, self.win_knot0, wc, dtype)
+            # the library packs f32; the solve takes its own dtype
+            img = ImageFactors(*(f.astype(dtype) if f.dtype.kind == "f"
+                                 else f for f in img))
+            cands = None
+        else:
+            img, dinv0, cands = packing.pack_image_factors(
+                list(self.features.tracks.values()), self.kf_t_ns,
+                self.traj.dt, self.win_knot0, wc, dtype)
         t_lo = self.win_knot0 * int(self.traj.dt_ns)
         imu = packing.pack_imu_factors(
             self.imu_t_ns, self.imu_gyro, self.imu_accel, self.kf_t_ns,
@@ -400,9 +648,17 @@ class CtrlVIO:
                                       cfg.sigma_bg, cfg.sigma_ba, wc, dtype)
         return img, dinv0, cands, imu, bias
 
+    def _set_depths(self, dinv, cands):
+        """Solved inverse depths (pack slot order) into the feature table."""
+        if self.use_native:
+            self.features.set_depths(np.asarray(dinv, np.float32))
+        else:
+            self.features.set_depths(dinv, cands)
+
     def _init_solve_f64(self):
         """One-time f64 bootstrap BA + square-root marginalization prior on
-        the device (≙ the first UpdateTrajectory after SetInitialState)."""
+        the device (≙ the first UpdateTrajectory after SetInitialState).
+        Returns the number of image observations of the window."""
         wc, cfg = self.wc, self.cfg
         f64 = torch.float64
         self.win_knot0 = self.traj.ctrl_idx(self.kf_t_ns[0])
@@ -437,7 +693,7 @@ class CtrlVIO:
             p_out, img_t, imu_t, bias_t, empty_prior(wc, f64, self.device),
             self._t(drop), ext64, grav64, info64, w64, wc,
             opts._replace(cauchy_c=1.0), knot_shift=k1, bias_shift=1,
-            caps=cfg.marg_caps)
+            caps=cfg.marg_caps, n_drop_knots=k1)
 
         self.last_solve_stats = SimpleNamespace(
             cost0=float(stats.cost0), cost=float(stats.cost),
@@ -450,12 +706,18 @@ class CtrlVIO:
             self.traj.line_delay = float(np.clip(
                 float(p_out.ld), cfg.ld_lower, cfg.ld_upper))
         dinv_np = p_out.dinv.cpu().numpy().astype(np.float64)
-        self.features.set_depths_by_id(self.features.slot_fids(wc.LM),
-                                       dinv_np[: wc.LM])
+        if self.use_native:
+            self.features.set_depths(dinv_np.astype(np.float32))
+        else:
+            self.features.set_depths_by_id(self.features.slot_fids(wc.LM),
+                                           dinv_np[: wc.LM])
         # the f64 prior seeds the per-frame f64 marg chain; the solve-dtype
-        # copy rides in the window solves
+        # copy rides in the window solves and, with no warmup, seeds the
+        # device stream state
         self._prior64 = prior64
         self.prior = to_dtype(prior64, self.jdt)
+        if cfg.stream:
+            self._init_prior = self.prior
         return int(np.asarray(img.valid).sum())
 
     # ------------------------------------------------------------------
@@ -531,6 +793,9 @@ class CtrlVIO:
 
     # ------------------------------------------------------------------
     def _solve_window_ba(self):
+        self.counts["sync_solve"] += 1
+        if self._dev_state is not None:
+            self.counts["sync_solve_after_handoff"] += 1
         t_pack0 = time.perf_counter()
         wc, cfg = self.wc, self.cfg
         jdt = self.jdt
@@ -589,7 +854,7 @@ class CtrlVIO:
             self.traj.line_delay = float(ld_np)
         self.bg = bg_np.copy()
         self.ba = ba_np.copy()
-        self.features.set_depths(dinv_np, cands)
+        self._set_depths(dinv_np, cands)
         self.timing["ba_writeback"] += time.perf_counter() - t0
 
         # [7] marginalization prior at the gauge-restored state, in f64 on
@@ -627,12 +892,16 @@ class CtrlVIO:
         self.timing["prior"] += time.perf_counter() - t0
 
     # ------------------------------------------------------------------
-    def _slide_window(self):
+    def _slide_window(self, record_keyframe: bool = True):
         wc = self.wc
         nb = wc.NB
         if self.marg_flag == MARGIN_OLD:
-            q, p = self.traj.pose(self.kf_t_ns[0])
-            self.keyframes.append(KeyframePose(int(self.kf_t_ns[0]), q[0], p[0]))
+            if record_keyframe:
+                # the keyframe leaving the window (the stream records it
+                # when its summary is consumed, where the pose is final)
+                q, p = self.traj.pose(self.kf_t_ns[0])
+                self.keyframes.append(
+                    KeyframePose(int(self.kf_t_ns[0]), q[0], p[0]))
             cam_q, cam_p = self.traj.camera_pose(
                 self.kf_t_ns[:2], self.q_CtoI, self.p_CinI)
             R = so3np.quat_to_matrix(cam_q)
@@ -652,6 +921,212 @@ class CtrlVIO:
             self.kf_t_ns[nb - 2] = self.kf_t_ns[nb - 1]
             self.bg[nb - 2] = self.bg[nb - 1]
             self.ba[nb - 2] = self.ba[nb - 1]
+
+    # ------------------------------------------------------------------
+    # streaming pipeline (device-resident state; see estimator/stream.py)
+    # ------------------------------------------------------------------
+    def _stream_dispatch(self):
+        """Pack this frame's inputs into one blob and chain the device
+        megastep, with no host read (steps 5-8 on the device)."""
+        t0 = time.perf_counter()
+        wc, cfg = self.wc, self.cfg
+        npdt = _np_dtype(self.jdt)
+        self.win_knot0 = self.traj.ctrl_idx(self.kf_t_ns[0])
+        span = self.traj.n - self.win_knot0
+        if span > wc.KW:
+            raise RuntimeError(
+                f"window spans {span} knots > KW={wc.KW}; raise WindowConfig.KW")
+        kq, kp, n_active = self.traj.window(self.win_knot0, wc.KW, np.float64)
+        img, dinv0, _, imu, bias = self._pack_window(npdt)
+        slot_fids = self.features.slot_fids(wc.LM)
+        fixed = np.ones(wc.KW, bool)
+        fixed[:n_active] = False
+
+        # knot seeds: only knots appended since the last dispatch. On the
+        # first dispatch (warmup handoff) the host mirror is authoritative
+        # and uploads values; afterwards the seeds are dead-reckoned on the
+        # device from its own spline end (`stream._extend_inertial`), which
+        # also re-seeds the weakly constrained last 3 knots
+        host_seeds = self._dev_state is None
+        seed_mask = np.zeros(wc.KW, bool)
+        lo_rel = 0 if host_seeds else max(self._dev_knot_hi - self.win_knot0, 0)
+        seed_lo = lo_rel if host_seeds else max(lo_rel - 3, 4, 0)
+        seed_mask[seed_lo:n_active] = True
+        self._dev_knot_hi = self.win_knot0 + n_active
+
+        # landmark slot permutation: current slot -> previous dispatch's
+        # slot (the device's dinv holds for persisting landmarks; fresh
+        # slots take the host seed)
+        perm = np.full(wc.LM, -1, np.int32)
+        if not host_seeds:
+            prev = self._prev_slot_fids
+            for i, fid in enumerate(slot_fids):
+                perm[i] = prev.get(int(fid), -1)
+        self._prev_slot_fids = {int(f): i for i, f in enumerate(slot_fids)}
+
+        marg_old = self.marg_flag == MARGIN_OLD
+        k1 = self.traj.ctrl_idx(self.kf_t_ns[1]) - self.win_knot0
+        drop = np.zeros(wc.KW, bool)
+        knot_shift = 0
+        if marg_old:
+            drop[:k1] = True
+            knot_shift = k1
+        g0i, g0f = packing.grid_of(self.kf_t_ns[0:1], self.traj.dt,
+                                   self.win_knot0)
+        g1i, g1f = packing.grid_of(self.kf_t_ns[1:2], self.traj.dt,
+                                   self.win_knot0)
+        blob = stream.pack_stream_blob(
+            img, imu, bias, fixed, kq, kp, seed_mask, perm, dinv0, drop,
+            marg_old, knot_shift, (g0i[0], g0f[0]), (g1i[0], g1f[0]),
+            old_hi=lo_rel, new_hi=n_active, host_seeds=host_seeds,
+            dtype=npdt)
+        self.timing["pack"] += time.perf_counter() - t0
+
+        meta = dict(win_knot0=self.win_knot0, n_active=n_active,
+                    kf0_t_ns=int(self.kf_t_ns[0]), marg_old=marg_old,
+                    slot_fids=slot_fids)
+        t0 = time.perf_counter()
+        if self._dev_state is None:
+            # warmup handoff: the synchronous warmup's f64 prior (cast,
+            # post-slide) seeds the device chain
+            self._dev_state = self._initial_dev_state()
+        with self._sync_check():
+            blob_dev = self._upload(blob)
+            self._dev_state, summary = stream.megastep(
+                self._dev_state, blob_dev, self._ext, self._gravity_j,
+                self._imu_info, self._sqrt_info_img, wc, self._ba_opts,
+                marg_old=marg_old, knot_shift=knot_shift,
+                host_seeds=host_seeds, caps=cfg.marg_caps)
+            self._enqueue_summary(meta, summary)
+        self.counts["megastep"] += 1
+        self.timing["megastep"] += time.perf_counter() - t0
+
+    @contextlib.contextmanager
+    def _sync_check(self):
+        """With `check_dispatch_syncs` on a CUDA device: count the
+        synchronizing CUDA calls made inside (sync debug mode "warn")."""
+        if not (self.check_dispatch_syncs and self.device.type == "cuda"):
+            yield
+            return
+        prev = torch.cuda.get_sync_debug_mode()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                yield
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+        # setting the mode warns that it is a prototype: not a sync
+        msgs = [f"{w.filename}:{w.lineno}: {w.message}" for w in caught
+                if SYNC_WARNING in str(w.message)]
+        self.counts["megastep_syncs"] += len(msgs)
+        self.sync_warnings.extend(msgs)
+
+    def _upload(self, blob: np.ndarray) -> torch.Tensor:
+        """The frame's blob on the device: one non-blocking copy from a
+        fresh pinned buffer (the caching host allocator does not hand the
+        buffer out again before its copy has completed)."""
+        src = torch.from_numpy(blob)
+        if self.device.type != "cuda":
+            return src.to(self.device)
+        buf = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        buf.copy_(src)
+        return buf.to(self.device, non_blocking=True)
+
+    def _initial_dev_state(self) -> stream.DevState:
+        """Device-resident state for the first dispatch."""
+        wc, jdt = self.wc, self.jdt
+        p0 = empty_params(wc, jdt, self.device)._replace(
+            bg=self._t(self.bg, jdt), ba=self._t(self.ba, jdt),
+            ld=self._t(self.traj.line_delay, jdt))
+        prior0 = self.prior if self.prior is not None else self._init_prior
+        if prior0 is None:
+            prior0 = empty_prior(wc, jdt, self.device)
+        return stream.DevState(params=p0, prior=to_dtype(prior0, jdt))
+
+    def _enqueue_summary(self, meta, summary):
+        """Queue a dispatched frame's summary; every k-th is pulled to
+        pinned host memory right away, without waiting (it has landed long
+        before it is consumed)."""
+        self._dispatch_no += 1
+        fetch = (self._dispatch_no % max(self.cfg.stream_consume_every, 1)
+                 == 0)
+        obj = summary
+        if fetch and summary.device.type == "cuda":
+            host = torch.empty(summary.shape, dtype=summary.dtype,
+                               pin_memory=True)
+            host.copy_(summary, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            obj = (host, done)
+        self._stream_pending.append((meta, obj, fetch))
+
+    def _consume_summaries(self, max_pending: int):
+        """Apply the newest consumable summary (the last fetched one among
+        the entries past the lag) to the host mirror; earlier entries are
+        dropped without a transfer."""
+        n_over = len(self._stream_pending) - max_pending
+        if n_over <= 0:
+            return
+        last = -1
+        for i in range(n_over):
+            if self._stream_pending[i][2]:
+                last = i
+        if last < 0:
+            return  # the next fetched summary is not past the lag yet
+        batch = [self._stream_pending.popleft() for _ in range(last + 1)]
+        self._apply_summary_batch(batch)
+
+    def _apply_summary_batch(self, batch):
+        """Write the batch's newest summary into the host mirror; record
+        keyframes for every marg_old frame of the batch from the mirror
+        (their slide-out times are still inside the knot window)."""
+        meta, obj, _ = batch[-1]
+        t0 = time.perf_counter()
+        if isinstance(obj, tuple):
+            host, done = obj
+            done.synchronize()
+        else:
+            host = obj.cpu()  # a CPU run, or an unfetched tail at flush()
+        host = host.numpy().astype(np.float64)
+        t1 = time.perf_counter()
+        self.timing["consume_fetch"] += t1 - t0
+        s = stream.unpack_summary(host, self.wc)
+        self.traj.write_back(meta["win_knot0"], s["knots_q"], s["knots_p"],
+                             meta["n_active"])
+        self._mirror_solved_hi = meta["win_knot0"] + meta["n_active"]
+        nb = self.wc.NB
+        # the freshest converged biases drive the host dead-reckoning
+        self.bg[:] = s["bg"][nb - 1]
+        self.ba[:] = s["ba"][nb - 1]
+        if not self.cfg.fix_ld:
+            self.traj.line_delay = float(
+                np.clip(s["ld"], self.cfg.ld_lower, self.cfg.ld_upper))
+        fids = meta["slot_fids"]
+        if len(fids):
+            self.features.set_depths_by_id(
+                fids, s["dinv"][: len(fids)].astype(np.float32))
+        self.last_solve_stats = SimpleNamespace(
+            cost0=s["cost0"], cost=s["cost"], accepted=s["accepted"],
+            rms=s["rms"])  # per type [image, imu, bias, prior]
+        ovf = s["marg_ovf"]
+        if float(ovf.sum()) > 0:
+            # the marginalization subset exceeded its compacted caps: the
+            # overflowed factors were dropped from the prior
+            self.counts["marg_overflow"] += 1
+            what = ", ".join(f"{n}+{int(v)}" for n, v in
+                             zip(("OBS", "IMU", "LM"), ovf) if v > 0)
+            caps = self.cfg.marg_caps or marginalize.marg_caps(self.wc)
+            warnings.warn(
+                f"marginalization subset overflowed its caps ({what}; "
+                f"marg_caps={tuple(caps)}); the excess factors were dropped "
+                "from the prior: raise VIOConfig.marg_caps", RuntimeWarning,
+                stacklevel=2)
+        for m, _, _ in batch:
+            if m["marg_old"]:
+                q, p = self.traj.pose(m["kf0_t_ns"])
+                self.keyframes.append(KeyframePose(m["kf0_t_ns"], q[0], p[0]))
+        self.timing["consume_apply"] += time.perf_counter() - t1
 
 
 def _empty_image_factors(wc: WindowConfig, dtype) -> ImageFactors:

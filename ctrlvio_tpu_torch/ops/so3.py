@@ -43,8 +43,9 @@ def quat_mul(q1, q2):
 
 
 def quat_conj(q):
-    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype,
-                            device=q.device)
+    # built on the device: a constant tensor from the host would be a
+    # synchronizing copy on every call
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
 def quat_normalize(q):

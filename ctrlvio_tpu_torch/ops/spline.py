@@ -63,10 +63,25 @@ def _u_powers(u, deriv: int):
     return torch.stack(cols, dim=-1)
 
 
+# the blending matrices as tensors, by (cumulative, dtype, device): each is
+# copied to a device once, not at every call (a host-to-device copy of
+# pageable memory synchronizes the host with the card)
+_M_TENSORS = {}
+
+
+def _blend_matrix(cumulative: bool, dtype, device):
+    key = (cumulative, dtype, str(device))
+    M = _M_TENSORS.get(key)
+    if M is None:
+        M = torch.as_tensor(_M_CUM if cumulative else _M_STD, dtype=dtype,
+                            device=device)
+        _M_TENSORS[key] = M
+    return M
+
+
 def blend_coeffs(u, deriv: int, cumulative: bool):
     """Blending coefficients lambda(u) (..., N), without 1/dt^deriv."""
-    M = _M_CUM if cumulative else _M_STD
-    Mj = torch.as_tensor(M, dtype=u.dtype, device=u.device)
+    Mj = _blend_matrix(cumulative, u.dtype, u.device)
     return _u_powers(u, deriv) @ Mj.T
 
 

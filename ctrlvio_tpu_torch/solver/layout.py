@@ -196,8 +196,9 @@ def column_mask(cfg: WindowConfig, opts: SolveOptions, fixed_knots,
     fixed line delay)."""
     NB = cfg.NB
     dev = fixed_knots.device
-    knot_m = torch.repeat_interleave(1.0 - fixed_knots.to(dtype), 3)
+    knot_m = (1.0 - fixed_knots.to(dtype))[:, None].expand(-1, 3).reshape(-1)
     bias_m = torch.full((6 * NB,), 0.0 if opts.lock_bias else 1.0, dtype=dtype,
                         device=dev)
-    ld_m = torch.tensor([0.0 if opts.fix_ld else 1.0], dtype=dtype, device=dev)
+    ld_m = torch.full((1,), 0.0 if opts.fix_ld else 1.0, dtype=dtype,
+                      device=dev)
     return torch.cat([knot_m, knot_m, bias_m, ld_m])

@@ -4,9 +4,16 @@ port of `ctrlvio_tpu/solver/lm.py`).
 Per iteration: normal equations (camera system H (C,C), diagonal landmark
 block, coupling H_cl) -> damped Schur-complement solve (Jacobi-scaled
 Cholesky) -> landmark back-substitution -> robust-cost accept/reject with
-the lambda schedule. The iteration loop is a Python loop that stops at
-`opts.max_iters` or at the first accepted step whose relative cost
-decrease is below `opts.tol`.
+the lambda schedule. Two loops share that iteration body:
+
+- `solve_window` stops at `opts.max_iters` or at the first accepted step
+  whose relative cost decrease is below `opts.tol`, reading the device
+  twice an iteration to decide;
+- `solve_window_fixed` always issues `opts.max_iters` iterations and never
+  reads the device: a device flag `done` (set by the same rule) freezes
+  every piece of state, so its result equals the other's. The streaming
+  megastep uses it, as the JAX package's megastep uses a device-side
+  while loop.
 """
 
 from __future__ import annotations
@@ -86,19 +93,12 @@ def schur_solve(H, g, h_ll, g_l, H_cl, lam, col_mask, dtype_eps=1e-8,
     return dx, dx_lm
 
 
-def solve_window(params: WindowParams, img: ImageFactors, imu: ImuFactors,
-                 bias: BiasFactors, prior: PriorFactor, fixed_knots,
-                 ext, gravity, imu_info, sqrt_info_img,
-                 cfg: WindowConfig, opts: SolveOptions,
-                 ne_mode: str = "chunked", chunk: Optional[int] = None):
-    """Run up to `opts.max_iters` LM iterations.
-
-    fixed_knots: (KW,) bool, knots held constant.
-    ne_mode: "chunked" (`assemble.accumulate_normal_equations`, `chunk`
-    factor slots at a time, the prior's constant Gauss-Newton pieces
-    hoisted out of the loop) or "dense" (`assemble.linearize` +
-    `build_normal_equations`); the two are algebraically identical.
-    Returns (params, SolveStats)."""
+def _setup(params: WindowParams, img: ImageFactors, imu: ImuFactors,
+           bias: BiasFactors, prior: PriorFactor, fixed_knots, ext, gravity,
+           imu_info, sqrt_info_img, cfg: WindowConfig, opts: SolveOptions,
+           ne_mode: str, chunk: Optional[int]):
+    """What the iterations share: the column mask, the landmark mask and
+    `ne_at(p) -> (normal equations, cost)`."""
     if ne_mode not in ("chunked", "dense"):
         raise ValueError(f"unknown ne_mode {ne_mode!r}")
     dtype, dev = params.knots_p.dtype, params.knots_p.device
@@ -129,18 +129,48 @@ def solve_window(params: WindowParams, img: ImageFactors, imu: ImuFactors,
         r_prior = prior.r0 + prior.J @ dx0
         return (H, g, h_ll, g_l, H_cl), cost_f + 0.5 * torch.sum(r_prior * r_prior)
 
+    return cmask, lm_mask, ne_at
+
+
+def _trial(p, ne, cost, lam, cmask, lm_mask, ne_at, cfg: WindowConfig,
+           opts: SolveOptions):
+    """One LM iteration's trial step from p: (trial params, its normal
+    equations, its cost, device bool `accept`)."""
+    dx, dx_lm = schur_solve(*ne, lam, cmask, solver=opts.solver)
+    trial = retract(p, dx, cfg, opts)
+    trial = trial._replace(dinv=p.dinv + dx_lm * lm_mask)
+    ne_t, cost_t = ne_at(trial)
+    accept = (cost_t < cost) & torch.isfinite(cost_t)
+    return trial, ne_t, cost_t, accept
+
+
+def solve_window(params: WindowParams, img: ImageFactors, imu: ImuFactors,
+                 bias: BiasFactors, prior: PriorFactor, fixed_knots,
+                 ext, gravity, imu_info, sqrt_info_img,
+                 cfg: WindowConfig, opts: SolveOptions,
+                 ne_mode: str = "chunked", chunk: Optional[int] = None):
+    """Run up to `opts.max_iters` LM iterations, leaving the loop on the
+    host at the first accepted step with relative decrease below `tol`.
+
+    fixed_knots: (KW,) bool, knots held constant.
+    ne_mode: "chunked" (`assemble.accumulate_normal_equations`, `chunk`
+    factor slots at a time, the prior's constant Gauss-Newton pieces
+    hoisted out of the loop) or "dense" (`assemble.linearize` +
+    `build_normal_equations`); the two are algebraically identical.
+    Returns (params, SolveStats)."""
+    dtype, dev = params.knots_p.dtype, params.knots_p.device
+    cmask, lm_mask, ne_at = _setup(params, img, imu, bias, prior, fixed_knots,
+                                   ext, gravity, imu_info, sqrt_info_img, cfg,
+                                   opts, ne_mode, chunk)
     ne, cost = ne_at(params)
     cost0 = cost
     p = params
-    lam = torch.tensor(opts.lm_lambda_init, dtype=dtype, device=dev)
+    lam = torch.full((), opts.lm_lambda_init, dtype=dtype, device=dev)
     n_acc = 0
     for _ in range(opts.max_iters):
-        dx, dx_lm = schur_solve(*ne, lam, cmask, solver=opts.solver)
-        trial = retract(p, dx, cfg, opts)
-        trial = trial._replace(dinv=p.dinv + dx_lm * lm_mask)
-        ne_t, cost_t = ne_at(trial)
-        accept = bool(cost_t < cost) and bool(torch.isfinite(cost_t))
-        if accept:
+        trial, ne_t, cost_t, accept = _trial(p, ne, cost, lam, cmask, lm_mask,
+                                             ne_at, cfg, opts)
+        if bool(accept):
             rel_dec = (cost - cost_t) / torch.clamp(cost, min=1e-30)
             p, ne, cost = trial, ne_t, cost_t
             lam = torch.clamp(lam * opts.lm_lambda_down, 1e-10, 1e8)
@@ -151,3 +181,42 @@ def solve_window(params: WindowParams, img: ImageFactors, imu: ImuFactors,
             lam = torch.clamp(lam * opts.lm_lambda_up, 1e-10, 1e8)
     return p, SolveStats(cost0=cost0, cost=cost, lm_lambda=lam,
                          accepted=torch.tensor(n_acc, device=dev))
+
+
+def solve_window_fixed(params: WindowParams, img: ImageFactors,
+                       imu: ImuFactors, bias: BiasFactors, prior: PriorFactor,
+                       fixed_knots, ext, gravity, imu_info, sqrt_info_img,
+                       cfg: WindowConfig, opts: SolveOptions,
+                       ne_mode: str = "chunked",
+                       chunk: Optional[int] = None):
+    """`solve_window` with no host exit: exactly `opts.max_iters`
+    iterations, each selecting params, normal equations, cost, lambda and
+    the accepted count by `torch.where` on a device `accept` that is false
+    once `done` (an accepted step with relative decrease below `tol`) is
+    set. Same result as `solve_window`; nothing is read back."""
+    dtype, dev = params.knots_p.dtype, params.knots_p.device
+    cmask, lm_mask, ne_at = _setup(params, img, imu, bias, prior, fixed_knots,
+                                   ext, gravity, imu_info, sqrt_info_img, cfg,
+                                   opts, ne_mode, chunk)
+    ne, cost = ne_at(params)
+    cost0 = cost
+    p = params
+    lam = torch.full((), opts.lm_lambda_init, dtype=dtype, device=dev)
+    n_acc = torch.zeros((), dtype=torch.int64, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    for _ in range(opts.max_iters):
+        trial, ne_t, cost_t, accept = _trial(p, ne, cost, lam, cmask, lm_mask,
+                                             ne_at, cfg, opts)
+        accept = accept & ~done
+        rel_dec = (cost - cost_t) / torch.clamp(cost, min=1e-30)
+        p = type(p)(*(torch.where(accept, b, a) for a, b in zip(p, trial)))
+        ne = tuple(torch.where(accept, b, a) for a, b in zip(ne, ne_t))
+        cost = torch.where(accept, cost_t, cost)
+        lam_next = torch.clamp(torch.where(accept, lam * opts.lm_lambda_down,
+                                           lam * opts.lm_lambda_up),
+                               1e-10, 1e8)
+        lam = torch.where(done, lam, lam_next)
+        n_acc = n_acc + accept.to(torch.int64)
+        done = done | (accept & (rel_dec < opts.tol))
+    return p, SolveStats(cost0=cost0, cost=cost, lm_lambda=lam,
+                         accepted=n_acc)

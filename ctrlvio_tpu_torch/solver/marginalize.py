@@ -39,7 +39,7 @@ def drop_mask(cfg: WindowConfig, drop_knots, drop_bias0: bool):
     """(C+LM,) bool mask of dropped coordinates (knots leaving the window,
     optionally the first bias, and every landmark)."""
     dev = drop_knots.device
-    km = torch.repeat_interleave(drop_knots, 3)
+    km = drop_knots[:, None].expand(-1, 3).reshape(-1)
     bias_m = torch.zeros((3 * cfg.NB,), dtype=torch.bool, device=dev)
     bias_m[:3] = drop_bias0
     ld_m = torch.zeros((1,), dtype=torch.bool, device=dev)
@@ -146,13 +146,16 @@ def build_prior_sqrt(params: WindowParams, img: ImageFactors, imu: ImuFactors,
                      knot_shift: Optional[int] = None,
                      bias_shift: Optional[int] = None,
                      return_overflow: bool = False,
-                     caps: Optional[Tuple[int, int, int]] = None):
+                     caps: Optional[Tuple[int, int, int]] = None,
+                     n_drop_knots: Optional[int] = None):
     """Square-root (QR) marginalization: stack the marg-subset factor rows,
     the landmark columns and the old prior's rows into one tall [A | b]
     over columns [landmarks | dropped coords | kept coords]; one Q-less
     Householder QR eliminates landmarks and dropped coords by orthogonal
     transforms only. Takes the full (uncompacted) factor arrays; `caps`
-    overrides `marg_caps(cfg)`."""
+    overrides `marg_caps(cfg)`. `n_drop_knots`, the number of True entries
+    of `drop_knots`, is what the caller knows on the host; without it the
+    count is read from the device."""
     dtype, dev = params.knots_p.dtype, params.knots_p.device
     C, LM = cfg.C, cfg.LM
     MOBS, MMIMU, MLM = caps if caps is not None else marg_caps(cfg)
@@ -187,7 +190,7 @@ def build_prior_sqrt(params: WindowParams, img: ImageFactors, imu: ImuFactors,
     sel = torch.zeros((LM,), dtype=torch.bool, device=dev)
     sel[perm_lm] = has[perm_lm]
     row_ok = ((~act) | sel[img_c.lm_idx]).to(dtype)
-    row2 = torch.repeat_interleave(row_ok, 2)
+    row2 = row_ok[:, None].expand(-1, 2).reshape(-1)
     J = lin.J.clone()
     r = lin.r.clone()
     J[: 2 * MOBS] = J[: 2 * MOBS] * row2[:, None]
@@ -223,7 +226,11 @@ def build_prior_sqrt(params: WindowParams, img: ImageFactors, imu: ImuFactors,
     A = torch.cat([A, reg], dim=0)
     Rq = torch.linalg.qr(A, mode="r")[1]
 
-    d_tot = MLM + int(drop_c.sum())
+    if n_drop_knots is None:
+        n_drop_knots = int(drop_knots.sum())
+    # dropped coordinates: 6 per knot (rotation, position) and the first
+    # keyframe's 6 bias coordinates
+    d_tot = MLM + 6 * n_drop_knots + 6
     rows = Rq[MLM : MLM + C]
     keep_row = (torch.arange(MLM, MLM + C, device=dev) >= d_tot)[:, None].to(dtype)
     rows = rows * keep_row
@@ -269,8 +276,9 @@ def roll_prior(prior: PriorFactor, knot_shift: int, bias_shift: int,
             a[max(n - shift, 0):] = fill
         return a
 
-    ident = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=prior.J.dtype,
-                         device=prior.J.device)
+    # made on the device: assigning a python number to one element of a
+    # CUDA tensor copies it from the host and synchronizes
+    ident = torch.eye(1, 4, dtype=prior.J.dtype, device=prior.J.device)[0]
     return PriorFactor(
         J=J, r0=prior.r0,
         knots_q0=roll_rows(prior.knots_q0, knot_shift, ident),

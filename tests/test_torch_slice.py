@@ -71,7 +71,7 @@ def run_image_path(side, sim, imgs):
     else:
         vio = TCtrlVIO(TVIOConfig(window_config=TWindowConfig(**WINDOW),
                                   fix_ld=False, ld_upper=5e-4,
-                                  dtype=torch.float64),
+                                  dtype=torch.float64, use_native=False),
                        q_CtoI, p_CinI, device="cpu")
         vio.attach_frontend(TPinhole(FX, FX, CX, CY), (H, W),
                             TTrackerConfig(**TRACKER))
@@ -179,6 +179,10 @@ def test_forbidden_imports_matcher(source, bad):
 def test_port_imports_neither_jax_nor_ctrlvio_tpu():
     files = sorted((REPO / "ctrlvio_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
+    # the gpu-marked tests run where JAX is absent
+    files += [REPO / "tests" / n for n in (
+        "test_torch_kernels.py", "test_torch_stream_gpu.py",
+        "torch_stream_case.py")]
     assert len(files) > 30
     found = {str(f.relative_to(REPO)): forbidden_imports(f.read_text())
              for f in files}
