@@ -4,24 +4,28 @@
 
 Phases, each printed as one JSON line:
   1. device  - CUDA present; the card's name and power limit (nvidia-smi);
+               then the textured frames of phase 7 start rendering in a
+               separate process (host numpy, minutes) beside phases 2-6;
   2. build   - every hand-written kernel compiled from the repo's sources,
                and the native feature table's host library (g++);
   3. k1_level - the LK kernel's one-level case against its plain PyTorch
                version at the main path's shapes (each of the three pyramid
                levels of a 1280x1024 pair);
   4. k1_track - the fused forward-backward track (one launch a frame, what
-               the main path runs) against its plain version at the main
-               path's shapes, for interior features, features near the
-               borders and a large motion that sends taps outside the
-               kernel's staged windows;
-  5. main    - the image-in main path: rendered 1280x1024 Kannala-Brandt
-               rolling-shutter frames through the port's FusedTracker,
-               rotation_flow and CtrlVIO.process_frame, with accuracy gates
-               and a check that the main path launched every kernel;
-               per-frame front-end and estimator times, the estimator's
-               phases, and a torch.profiler trace of the last frame
-               (device time, busy share, device operations, top kernels);
-  6. e2e     - `bench.py`'s default run: a 16 s synthetic feature sequence
+               the image paths run) against its plain version at their
+               shapes: three levels for interior features, features near
+               the borders and a large motion that sends taps outside the
+               kernel's staged windows; four levels with init = pts, the
+               classic tracker's track;
+  5. main    - the image-in path of `bench.py --mode image --scene blobs`:
+               4 s of rendered 1280x1024 Kannala-Brandt rolling-shutter frames
+               through the port's FusedTracker, rotation_flow and the
+               synchronous CtrlVIO.process_frame, with accuracy gates and a
+               check that the path launched every kernel; per-frame
+               front-end and estimator times, the estimator's phases, and a
+               torch.profiler trace of the last frame (device time, busy
+               share, device operations, top kernels);
+  6. e2e     - `bench.py`'s default run: a 12 s synthetic feature sequence
                (reference sensor noise, seed 3) through CtrlVIO with the
                visual bootstrap, the native feature table and the
                streaming megastep, f32 on the card; bench.py's gates
@@ -32,17 +36,32 @@ Phases, each printed as one JSON line:
                streamed dispatch; per-frame times (warmup and streamed
                apart), sustained fps, the estimator's phases and a
                torch.profiler trace of one streamed frame;
-  7. kernels - one line listing every kernel with launches, error and times.
+  7. image_textured - `bench.py --mode image` as its chip preset runs it:
+               12 s of the textured ray-cast scene (moving occluders,
+               photometric drift, pixel noise) through FusedTracker with
+               the F-RANSAC gate and lag=1 into the streaming CtrlVIO;
+               bench.py's image gates (ATE < 0.15 m, line-delay error
+               < 5 us), one 3-level K1 launch a frame and no plain LK call,
+               the gate fired, >= 40 megasteps with no synchronizing call;
+               front-end and estimator times, warmup and streamed medians,
+               sustained fps, render time, the front end's synchronizing
+               calls and a torch.profiler trace of one streamed frame;
+               then image_textured_classic: the first 4 s through
+               CtrlVIO.process_image with the classic FeatureTracker
+               (one 4-level K1 launch a frame, >= 100 features);
+  8. kernels - one line listing every kernel with launches, error and times.
 The last line is {"ok": true, "device": {...}}; any failed phase exits
 non-zero without it. Needs a CUDA device; imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -52,7 +71,7 @@ from ctrlvio_tpu_torch.estimator.initializer import bootstrap_from_sim
 from ctrlvio_tpu_torch.estimator.odometry import CtrlVIO, VIOConfig
 from ctrlvio_tpu_torch.frontend import klt
 from ctrlvio_tpu_torch.frontend.fused import FusedTracker, rotation_flow
-from ctrlvio_tpu_torch.frontend.tracker import TrackerConfig
+from ctrlvio_tpu_torch.frontend.tracker import FeatureTracker, TrackerConfig
 from ctrlvio_tpu_torch.models.cameras import Equidistant
 from ctrlvio_tpu_torch.ops import lk, so3np
 from ctrlvio_tpu_torch.sim import render, synthetic
@@ -160,7 +179,7 @@ def textured_pair(H, W, dx, dy, seed, block=8, sigma=1.5):
     return img, shift(img, (dy, dx), order=3, mode="nearest")
 
 
-TRACK_CASES = ("interior", "border", "large_motion")
+TRACK_CASES = ("interior", "border", "large_motion", "four_levels")
 # the kernel's search window reaches M = 5 px past the patch on each side
 # (`csrc/lk.cu`): a feature that moves farther at one level reads global
 # memory for some of its taps
@@ -174,8 +193,10 @@ def track_case(name, device, N=150):
     off. border: features within 12 px of a border, init 2 px off.
     large_motion: a smoother texture (32 px blocks, sigma 8) with init
     32 px off, 8 px at the coarsest level, so that level moves most
-    features beyond the staged search window. Returns (pyr0, pyr1, pts,
-    init, shift)."""
+    features beyond the staged search window. four_levels: the classic
+    tracker's track, the interior features over all four levels (1280x1024
+    down to 160x128) with init = pts. Returns (pyr0, pyr1, pts, init,
+    shift)."""
     H, W = 1024, 1280
     dx, dy = 2.4, -1.7
     rng = np.random.default_rng(0)
@@ -197,13 +218,14 @@ def track_case(name, device, N=150):
     ang = rng.uniform(0, 2 * np.pi, N)
     off = (32.0 if name == "large_motion" else 2.0) * np.stack(
         [np.cos(ang), np.sin(ang)], 1)
-    init = pts + np.array([dx, dy]) + off
+    init = pts if name == "four_levels" else pts + np.array([dx, dy]) + off
+    levels = 4 if name == "four_levels" else 3
 
     def f32(x):
         return torch.tensor(x, dtype=torch.float32, device=device)
 
-    return (klt.pyramid(f32(img0), 3), klt.pyramid(f32(img1), 3), f32(pts),
-            f32(init), (dx, dy))
+    return (klt.pyramid(f32(img0), levels), klt.pyramid(f32(img1), levels),
+            f32(pts), f32(init), (dx, dy))
 
 
 def k1_bound_ms(N, iters):
@@ -271,8 +293,9 @@ def phase_k1_track():
     (counted as `n_near_gate`); min_eig within 1e-4 relative; the known
     shift recovered to 0.15 px. Times: `device_ms` by graph replay of
     whole tracks, `ms` by CUDA events over back-to-back calls, `plain_ms`;
-    the bound of the 2L = 6 level-passes; the latency floor's 66
-    dependent reductions (2L x (1 template + iters rounds)). What the
+    the bound of the 2L level-passes; the latency floor's 2L x (1
+    template + iters rounds) dependent reductions. The launch is counted
+    under its level count. What the
     chain costs: `device_ms_iters0`, the track with no Gauss-Newton round
     (templates, copies, launch), `device_us_per_round` from the
     difference, and `device_ms_n1`, one feature alone (no SM holds two)."""
@@ -286,7 +309,9 @@ def phase_k1_track():
         N = pts.shape[0]
         args = (pyr0, pyr1, pts, init, iters, lk.HALF, cfg.fb_thresh,
                 cfg.min_eig)
+        by_levels = lk.lk_track.launches_by_levels.get(L, 0)
         out_k, ok_k, eig_k = lk.lk_track(*args)
+        counted = lk.lk_track.launches_by_levels.get(L, 0) == by_levels + 1
         out_p, ok_p, eig_p = lk.lk_track_plain(*args)
         back_p, _ = lk.lk_pass_plain(pyr1, pyr0, out_p, pts, iters)
         fb = torch.linalg.vector_norm(back_p - pts, dim=-1)
@@ -329,20 +354,69 @@ def phase_k1_track():
         cases.append(rec)
         emit({"phase": "k1_track", **rec})
         ok_agree = not bool(((ok_k != ok_p) & ~near).any())
-        if not (pos_err <= 1e-3 and ok_agree and eig_rel <= 1e-4
+        if not (counted and pos_err <= 1e-3 and ok_agree and eig_rel <= 1e-4
                 and rec["shift_err_px"] <= 0.15 and rec["n_ok"] >= N // 2
                 and (name != "large_motion"
                      or rec["n_beyond_window"] >= N // 2)):
             raise SystemExit(f"K1 (fused track) disagrees with its plain "
                              f"version: {rec}")
 
+    # the kernels line's times: the fused tracker's three-level cases
+    three = [r for r in cases if len(r["levels"]) == 3]
+    four = next(r for r in cases if r["case"] == "four_levels")
+
     def mean(key):
-        return float(np.mean([r[key] for r in cases]))
+        return float(np.mean([r[key] for r in three]))
 
     return {"max_abs_err": max(r["max_pos_err_px"] for r in cases),
             "ms": mean("ms"), "device_ms": mean("device_ms"),
             "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
-            "bound_by": cases[0]["bound_by"]}
+            "bound_by": cases[0]["bound_by"],
+            "four_levels": {k: four[k] for k in (
+                "max_pos_err_px", "ms", "device_ms", "plain_ms",
+                "bound_ms")}}
+
+
+def tumrs_camera():
+    """The 1280x1024 Kannala-Brandt camera of `cam_tumrs.yaml`
+    (`bench.py:412-416`)."""
+    return Equidistant(
+        mu=739.1654756101043, mv=739.1438452683457,
+        u0=625.826167006398, v0=517.3370973594253,
+        k2=0.019327620961435945, k3=0.006784242994724914,
+        k4=-0.008658628531456217, k5=0.0051893686731546585)
+
+
+def image_sim(duration, n_landmarks):
+    """`bench.py --mode image`'s sequence: reference IMU noise without the
+    simulator's pixel noise (the images carry their own), seed 3."""
+    noise = {k: v for k, v in synthetic.REFERENCE_NOISE.items()
+             if k != "pixel_noise"}
+    return synthetic.generate(synthetic.SimConfig(
+        duration=duration, n_landmarks=n_landmarks, seed=3, image_h=1024,
+        image_w=1280, **noise))
+
+
+def image_vio_config(stream):
+    """`bench.py --mode image`'s estimator (`bench.py:452-455`), f32."""
+    return VIOConfig(
+        window_config=WindowConfig(KW=32, NB=11, LM=256, OBS=768, MIMU=256),
+        fix_ld=False, ld_init=0.0, ld_upper=3.5e-5, dtype=torch.float32,
+        stream=stream)
+
+
+def started_vio(sim, cfg, device="cuda"):
+    """A CtrlVIO with every IMU sample fed and the ground-truth bootstrap
+    set (`bench.py:458-464`)."""
+    vio = CtrlVIO(cfg, so3np.quat_exp(np.asarray(sim.cfg.ext_rot,
+                                                 np.float64)),
+                  np.array(sim.cfg.ext_pos), device=device)
+    init = bootstrap_from_sim(sim)
+    for k in range(len(sim.imu_t_ns)):
+        vio.process_imu(sim.imu_t_ns[k], sim.gyro[k], sim.accel[k])
+    vio.set_initial_state(init.t_ns, init.q, init.p, init.bg, init.ba,
+                          init.gravity, v0=init.v)
+    return vio
 
 
 def replay(sim, imgs, camera, tcfg, vio_cfg, device):
@@ -355,14 +429,9 @@ def replay(sim, imgs, camera, tcfg, vio_cfg, device):
     timed_from = 4
     H, W = imgs.shape[1:]
     tracker = FusedTracker(tcfg, camera, (H, W), device=device)
-    q_CtoI = so3np.quat_exp(np.asarray(sim.cfg.ext_rot, np.float64))
-    R_CtoI = so3np.quat_to_matrix(q_CtoI[None])[0]
-    vio = CtrlVIO(vio_cfg, q_CtoI, np.array(sim.cfg.ext_pos), device=device)
-    init = bootstrap_from_sim(sim)
-    for k in range(len(sim.imu_t_ns)):
-        vio.process_imu(sim.imu_t_ns[k], sim.gyro[k], sim.accel[k])
-    vio.set_initial_state(init.t_ns, init.q, init.p, init.bg, init.ba,
-                          init.gravity, v0=init.v)
+    R_CtoI = so3np.quat_to_matrix(so3np.quat_exp(
+        np.asarray(sim.cfg.ext_rot, np.float64))[None])[0]
+    vio = started_vio(sim, vio_cfg, device)
     imgs_dev = torch.as_tensor(imgs, device=device)
     est, gt = [], []
 
@@ -392,8 +461,10 @@ def replay(sim, imgs, camera, tcfg, vio_cfg, device):
     for i in range(n - 1):
         if i == timed_from:
             vio.timing.clear()
+            tracker.timing.clear()
         times.append(frame(i))
     timing = dict(vio.timing)  # the estimator's phases, unprofiled frames
+    fe_timing = dict(tracker.timing)
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -402,7 +473,7 @@ def replay(sim, imgs, camera, tcfg, vio_cfg, device):
     times = np.asarray(times[timed_from:])
     return dict(est=np.asarray(est), gt=np.asarray(gt), vio=vio, n_frames=n,
                 t_feat=times[:, 0], t_est=times[:, 1], timing=timing,
-                prof=prof, prof_s=t_last)
+                fe_timing=fe_timing, prof=prof, prof_s=t_last)
 
 
 def device_share(prof, prof_s, frame_ms):
@@ -431,31 +502,21 @@ def phase_main():
     """`bench.py --mode image --scene blobs` at full width: 1280x1024
     Kannala-Brandt (`cam_tumrs.yaml`), 150 features, min_dist 25, CLAHE and
     the FB check on, pred_levels 3, the bench's window; f32 solve and f64
-    marginalization on the card. Depth cut: 6 s of imagery."""
-    H, W, duration = 1024, 1280, 6.0
-    cam = Equidistant(
-        mu=739.1654756101043, mv=739.1438452683457,
-        u0=625.826167006398, v0=517.3370973594253,
-        k2=0.019327620961435945, k3=0.006784242994724914,
-        k4=-0.008658628531456217, k5=0.0051893686731546585)
-    noise = {k: v for k, v in synthetic.REFERENCE_NOISE.items()
-             if k != "pixel_noise"}
+    marginalization on the card. Depth cut: 4 s of imagery (the script's
+    time limit; the bench renders 12 s)."""
+    H, W, duration = 1024, 1280, 4.0
+    cam = tumrs_camera()
     t0 = time.perf_counter()
-    sim = synthetic.generate(synthetic.SimConfig(
-        duration=duration, n_landmarks=1500, seed=3, image_h=H, image_w=W,
-        **noise))
+    sim = image_sim(duration, 1500)
     imgs = render.render_sequence(sim, H, W, camera=cam, seed=1,
                                   big_every=6, texture=6.0)
     t_render = time.perf_counter() - t0
     tcfg = TrackerConfig(max_cnt=150, min_dist=25, use_clahe=True,
                          fb_check=True, klt=klt.KLTConfig(pred_levels=3))
-    vio_cfg = VIOConfig(
-        window_config=WindowConfig(KW=32, NB=11, LM=256, OBS=768, MIMU=256),
-        fix_ld=False, ld_init=0.0, ld_upper=3.5e-5, dtype=torch.float32)
+    vio_cfg = image_vio_config(stream=False)
 
     # the counts of the main path's run: zero just before, read just after
-    lk.lk_track.launches = lk.lk_level.launches = 0
-    lk.lk_track_plain.calls = lk.lk_level_plain.calls = 0
+    lk.reset_counts()
     t0 = time.perf_counter()
     run = replay(sim, imgs, cam, tcfg, vio_cfg, "cuda")
     wall = time.perf_counter() - t0
@@ -479,6 +540,8 @@ def phase_main():
            "estimator_ms_mean": float(np.mean(run["t_est"])) * 1e3,
            "timing_ms_per_frame": {k: v / n * 1e3
                                    for k, v in run["timing"].items()},
+           "frontend_timing_ms_per_frame": {
+               k: v / n * 1e3 for k, v in run["fe_timing"].items()},
            "profile_last_frame": device_share(
                run["prof"], run["prof_s"],
                float(np.median(run["t_feat"] + run["t_est"])) * 1e3)}
@@ -495,8 +558,10 @@ def phase_main():
 
 def phase_e2e():
     """`bench.py`'s default run (`--mode e2e`, the chip preset) on the card
-    at full width: `reference_noise(duration=16, n_landmarks=300, seed=3)`
-    with spline ground truth, the bench's window, f32, the visual
+    at full width, its depth cut from the bench's 16 s to 12 s for the
+    script's time limit (still >= 40 streamed frames after the bootstrap
+    and the 40 warmup frames): `reference_noise(duration=12,
+    n_landmarks=300, seed=3)` with spline ground truth, the bench's window, f32, the visual
     bootstrap with reject-and-retry, the native feature table and the
     streaming megastep after its 40 warmup frames; IMU fed 0.25 s ahead
     of each frame, no ground-truth hint. Times as the bench takes them:
@@ -505,7 +570,7 @@ def phase_e2e():
     plus the final flush() and torch.cuda.synchronize(). One streamed
     frame in the timed region is traced with torch.profiler (after a
     synchronize, ending in one) and left out of the timed frames."""
-    duration = 16.0
+    duration = 12.0
     t0 = time.perf_counter()
     sim = synthetic.generate(synthetic.reference_noise(
         duration=duration, n_landmarks=300, seed=3, speed=1.0))
@@ -516,7 +581,7 @@ def phase_e2e():
         stream=True)
     q_CtoI = so3np.quat_exp(np.asarray(sim.cfg.ext_rot, np.float64))
     # the counts of the e2e run: zero just before, read just after
-    lk.lk_track.launches = lk.lk_level.launches = 0
+    lk.reset_counts()
     t_run0 = time.perf_counter()
     vio = CtrlVIO(cfg, q_CtoI, np.array(sim.cfg.ext_pos), device="cuda")
     vio.check_dispatch_syncs = True
@@ -637,13 +702,304 @@ def phase_e2e():
     return rec
 
 
+# bench.py --mode image's chip preset: 12 s of the textured scene
+TEXTURED_S = 12.0
+CLASSIC_FRAMES = 40
+FRAMES_FILE = Path(__file__).resolve().parent / "build" / "textured_frames.npy"
+
+
+def render_textured(path):
+    """Child process: the image_textured phase's frames (host numpy, as in
+    `bench.py:437-441`), saved to `path` as uint8 (F, H, W); the seconds
+    it took go to `path` + ".json"."""
+    t0 = time.perf_counter()
+    imgs = render.render_textured_sequence(
+        image_sim(TEXTURED_S, 300), 1024, 1280, tumrs_camera(), seed=1,
+        n_occluders=4, occluder_speed=0.4, photometric=True,
+        pixel_noise=2.0)
+    np.save(path, imgs)
+    Path(path + ".json").write_text(json.dumps(
+        {"render_s": time.perf_counter() - t0}))
+
+
+def start_render():
+    """Render the textured frames in a separate process while the earlier
+    phases run (the renderer is host code and takes minutes)."""
+    import multiprocessing
+
+    FRAMES_FILE.parent.mkdir(parents=True, exist_ok=True)
+    for f in (FRAMES_FILE, Path(str(FRAMES_FILE) + ".json")):
+        f.unlink(missing_ok=True)
+    proc = multiprocessing.get_context("spawn").Process(
+        target=render_textured, args=(str(FRAMES_FILE),), daemon=True)
+    proc.start()
+    return proc
+
+
+def textured_frames(proc):
+    """Wait for the render process; returns (frames, render_s, wait_s)."""
+    t0 = time.perf_counter()
+    proc.join()
+    wait_s = time.perf_counter() - t0
+    if proc.exitcode != 0:
+        raise SystemExit(f"textured render failed (exit code {proc.exitcode})")
+    meta = Path(str(FRAMES_FILE) + ".json")
+    imgs = np.load(FRAMES_FILE)
+    render_s = json.loads(meta.read_text())["render_s"]
+    FRAMES_FILE.unlink()
+    meta.unlink()
+    return imgs, render_s, wait_s
+
+
+def gated_tracker_config():
+    """`bench.py:446-449` for the textured scene: cam_tumrs.yaml's tracker
+    block with the F-RANSAC gate on."""
+    return TrackerConfig(max_cnt=150, min_dist=25, use_clahe=True,
+                         fb_check=True, reject_wf=True, f_threshold=1.0,
+                         klt=klt.KLTConfig(pred_levels=3))
+
+
+def phase_image_textured(render_proc):
+    """`bench.py --mode image` as its chip preset runs it
+    (`bench.py:411-512`), at full width and the preset's full 12 s: the
+    textured scene (ray-cast room, 4 occluders, the even ones moving at
+    0.4 m/s, photometric drift, vignetting, pixel noise) at 1280x1024
+    Kannala-Brandt; FusedTracker with the F-RANSAC gate and lag=1; CtrlVIO
+    streaming in f32 from the ground-truth bootstrap; images preloaded on
+    the card. Per frame: rotation_flow, tracker.step, process_frame; then
+    tracker.flush() and vio.flush(). No synchronize inside a frame: host
+    times as the bench takes them, from frame `stream_warmup + 10`
+    (`timed_from`); sustained fps = timed frames over their summed time
+    (`bench.py:527-536`). One streamed frame from timed_from + 20 is traced
+    with torch.profiler (after a synchronize, ending in one) and left out
+    of the timed frames. Gates: bench.py's (ATE < 0.15 m from the 11th
+    solved frame, yaw-aligned; line-delay error < 5 us); one 3-level K1
+    track launch a frame and no plain LK call; the F-gate fired; >= 40
+    megasteps, none with a synchronizing call, no synchronous solve after
+    the handoff. Then the classic tracker's check on the same frames."""
+    H, W = 1024, 1280
+    cam = tumrs_camera()
+    sim = image_sim(TEXTURED_S, 300)
+    imgs, render_s, render_wait_s = textured_frames(render_proc)
+    imgs_dev = torch.as_tensor(imgs, device="cuda")
+    torch.cuda.synchronize()
+    cfg = image_vio_config(stream=True)
+    R_CtoI = so3np.quat_to_matrix(so3np.quat_exp(
+        np.asarray(sim.cfg.ext_rot, np.float64))[None])[0]
+
+    # the counts of this path's run: zero just before, read just after
+    lk.reset_counts()
+    t_run0 = time.perf_counter()
+    tracker = FusedTracker(gated_tracker_config(), cam, (H, W), lag=1,
+                           device="cuda")
+    tracker.check_dispatch_syncs = True
+    vio = started_vio(sim, cfg)
+    vio.check_dispatch_syncs = True
+    est, gt = [], []
+
+    def estimate(feat):
+        if feat is None or len(feat["ids"]) < 8:
+            return
+        out = vio.process_frame(feat["t_ns"], feat["ids"], feat["pts"],
+                                feat["rows"])
+        if out is not None:
+            est.append(out[1])
+            gt.append(sim.pose_at(feat["t_ns"] * 1e-9)[1])
+
+    timed_from = cfg.stream_warmup + 10
+    t_feat, t_est, kinds, warm = [], [], [], []
+    prof = prof_s = profiled = None
+    prev_t = None
+    for i, fr in enumerate(sim.frames):
+        n_mega, n_sync = vio.counts["megastep"], vio.counts["sync_solve"]
+        trace = i >= timed_from + 20 and profiled is None
+        if trace:
+            torch.cuda.synchronize()
+        if i == timed_from:
+            vio.timing.clear()
+            tracker.timing.clear()
+        with (torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) if trace
+              else contextlib.nullcontext()) as p:
+            t0 = time.perf_counter()
+            M = (rotation_flow(sim.imu_t_ns, sim.gyro, prev_t, fr.t_ns,
+                               R_CtoI) if prev_t is not None else None)
+            feat = tracker.step(fr.t_ns, imgs_dev[i], R_rel=M)
+            prev_t = fr.t_ns
+            t1 = time.perf_counter()
+            estimate(feat)
+            if trace:
+                torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        kind = ("stream" if vio.counts["megastep"] > n_mega else
+                "sync" if vio.counts["sync_solve"] > n_sync else "other")
+        if trace:
+            prof, prof_s, profiled = p, t2 - t0, i
+            if kind != "stream":
+                raise SystemExit(f"image_textured: the traced frame {i} "
+                                 f"did not stream")
+        elif i >= timed_from:
+            t_feat.append(t1 - t0)
+            t_est.append(t2 - t1)
+            kinds.append(kind)
+        elif kind == "sync":
+            warm.append(t2 - t0)
+    estimate(tracker.flush())
+    vio.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run0
+    launches = lk.lk_track.launches
+    by_levels = dict(lk.lk_track.launches_by_levels)
+    plain_calls = lk.lk_level_plain.calls + lk.lk_track_plain.calls
+    level_launches = lk.lk_level.launches
+
+    est, gt = np.asarray(est), np.asarray(gt)
+    ate = ate_rmse(est[10:], gt[10:], align="yaw")
+    ld_err = abs(vio.traj.line_delay - sim.cfg.line_delay)
+    t_feat, t_est = np.asarray(t_feat), np.asarray(t_est)
+    times = t_feat + t_est
+    kinds = np.asarray(kinds)
+    streamed = times[kinds == "stream"]
+    n_timed = len(times)
+    c = vio.counts
+    rec = {"phase": "image_textured", "duration_s": TEXTURED_S,
+           "frames": len(sim.frames), "solved": len(est),
+           "render_s": render_s, "render_wait_s": render_wait_s,
+           "wall_s": wall, "ate_m": ate,
+           "line_delay_s": vio.traj.line_delay,
+           "line_delay_true_s": sim.cfg.line_delay, "ld_err_s": ld_err,
+           "n_rejected": tracker.n_rejected,
+           "k1_track_launches": launches,
+           "k1_track_launches_by_levels": by_levels,
+           "k1_level_launches": level_launches, "plain_lk_calls": plain_calls,
+           "frontend_dispatch_syncs": tracker.dispatch_syncs,
+           "frontend_sync_messages": sorted(set(tracker.sync_warnings))[:5],
+           "megastep_calls": c["megastep"],
+           "megastep_syncs": c["megastep_syncs"],
+           "sync_messages": sorted(set(vio.sync_warnings))[:5],
+           "sync_solves": c["sync_solve"],
+           "sync_solves_after_handoff": c["sync_solve_after_handoff"],
+           "marg_overflows": c["marg_overflow"],
+           "timed_from": timed_from, "timed_frames": n_timed,
+           "frontend_ms_median": float(np.median(t_feat)) * 1e3,
+           "frontend_ms_mean": float(np.mean(t_feat)) * 1e3,
+           "estimator_ms_median": float(np.median(t_est)) * 1e3,
+           "estimator_ms_mean": float(np.mean(t_est)) * 1e3,
+           "frame_ms_median": float(np.median(times)) * 1e3,
+           "sustained_fps": n_timed / float(np.sum(times)),
+           "warmup_ms_median": float(np.median(warm)) * 1e3
+           if len(warm) else None, "warmup_frames": len(warm),
+           "streamed_ms_median": float(np.median(streamed)) * 1e3
+           if len(streamed) else None,
+           "streamed_frames": len(streamed),
+           "timing_ms_per_frame": {k: v / max(n_timed, 1) * 1e3
+                                   for k, v in vio.timing.items()},
+           "frontend_timing_ms_per_frame": {
+               k: v / max(n_timed, 1) * 1e3
+               for k, v in tracker.timing.items()},
+           "profiled_frame": profiled,
+           "profile_streamed_frame": device_share(
+               prof, prof_s, float(np.median(streamed)) * 1e3)
+           if prof is not None and len(streamed) else None}
+    emit(rec)
+    finite = bool(np.isfinite(est).all()) and np.isfinite(vio.traj.line_delay)
+    if not (finite and len(est) > 20 and ate < 0.15 and ld_err < 5e-6):
+        raise SystemExit(f"image_textured fails bench.py's gates (ATE < "
+                         f"0.15 m, line-delay error < 5 us): {rec}")
+    if not (launches == len(sim.frames) and by_levels == {3: launches}
+            and plain_calls == 0 and level_launches == 0):
+        raise SystemExit(f"image_textured did not run through one 3-level "
+                         f"K1 track launch a frame: {rec}")
+    if not (tracker.n_rejected > 0 and c["megastep"] >= 40
+            and c["megastep_syncs"] == 0
+            and c["sync_solve_after_handoff"] == 0 and prof is not None):
+        raise SystemExit(f"image_textured did not run the gated, streamed "
+                         f"path as required (F-gate fired, >= 40 "
+                         f"megasteps, no sync inside a megastep, no sync "
+                         f"solve after the handoff, one traced streamed "
+                         f"frame): {rec}")
+    rec["classic"] = phase_image_classic(sim, imgs_dev, cam)
+    return rec
+
+
+def phase_image_classic(sim, imgs_dev, cam):
+    """The classic tracker on the card, briefly: the first 4 s of the same
+    frames through `CtrlVIO.process_image` with `attach_frontend` and the
+    gated tracker config, which routes to `FeatureTracker` (all 4 levels,
+    no initial flow); the synchronous estimator from the ground-truth
+    bootstrap. Gates: finite poses, one 4-level K1 track launch a frame
+    from the second on (the first has no previous pyramid) and no plain LK
+    call, 100 or more published features a frame after the first. ATE and
+    line-delay error are reported, not gated."""
+    H, W = imgs_dev.shape[1:]
+    lk.reset_counts()
+    t_run0 = time.perf_counter()
+    vio = started_vio(sim, image_vio_config(stream=False))
+    vio.attach_frontend(cam, (H, W), gated_tracker_config())
+    tracker = vio.tracker
+    if not isinstance(tracker, FeatureTracker):
+        raise SystemExit(f"attach_frontend with reject_wf gave "
+                         f"{type(tracker).__name__}, not FeatureTracker")
+    est, gt, n_pub = [], [], []
+    frame_ms = []
+    for i, fr in enumerate(sim.frames[:CLASSIC_FRAMES]):
+        pub = tracker._pub_count
+        t0 = time.perf_counter()
+        out = vio.process_image(fr.t_ns, imgs_dev[i])
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        if tracker._pub_count > pub:
+            n_pub.append(int((tracker.ids >= 0).sum()))
+        if out is not None:
+            est.append(out[1])
+            gt.append(sim.pose_at(fr.t_ns * 1e-9)[1])
+    vio.flush()
+    torch.cuda.synchronize()
+    n = min(CLASSIC_FRAMES, len(sim.frames))
+    launches = lk.lk_track.launches
+    by_levels = dict(lk.lk_track.launches_by_levels)
+    plain_calls = lk.lk_level_plain.calls + lk.lk_track_plain.calls
+    est, gt = np.asarray(est), np.asarray(gt)
+    rec = {"phase": "image_textured_classic", "frames": n,
+           "solved": len(est), "published": len(n_pub),
+           "wall_s": time.perf_counter() - t_run0,
+           "features_min_after_first": min(n_pub[1:]) if len(n_pub) > 1
+           else None,
+           "features_median": float(np.median(n_pub)) if n_pub else None,
+           "ate_m": ate_rmse(est[10:], gt[10:], align="yaw")
+           if len(est) > 12 else None,
+           "ld_err_s": abs(vio.traj.line_delay - sim.cfg.line_delay),
+           "frame_ms_median": float(np.median(frame_ms[1:])),
+           "k1_track_launches": launches,
+           "k1_track_launches_by_levels": by_levels,
+           "plain_lk_calls": plain_calls}
+    emit(rec)
+    if not (len(est) > 0 and bool(np.isfinite(est).all())
+            and launches == n - 1 and by_levels == {4: n - 1}
+            and plain_calls == 0 and lk.lk_level.launches == 0
+            and rec["features_min_after_first"] is not None
+            and rec["features_min_after_first"] >= 100):
+        raise SystemExit(f"the classic tracker's check failed (finite "
+                         f"poses, one 4-level K1 launch a frame after the "
+                         f"first, no plain LK call, >= 100 features): {rec}")
+    return rec
+
+
 def main():
     phase_device()
-    phase_build()
-    level = phase_k1_level()
-    k1 = phase_k1_track()
-    launches = phase_main()["k1_track_launches"]
-    e2e = phase_e2e()
+    render_proc = start_render()
+    try:
+        phase_build()
+        level = phase_k1_level()
+        k1 = phase_k1_track()
+        launches = phase_main()["k1_track_launches"]
+        e2e = phase_e2e()
+        textured = phase_image_textured(render_proc)
+    finally:
+        if render_proc.is_alive():
+            render_proc.terminate()
+        render_proc.join()
     kernels = [{
         "name": "K1 lk_track", "route": "cuda",
         "source": "ctrlvio_tpu_torch/csrc/lk.cu",
@@ -654,7 +1010,11 @@ def main():
         "bound_by": k1["bound_by"], "library_ms": None,
         "level_ms": level["ms"], "level_device_ms": level["device_ms"],
         "level_max_abs_err": level["max_abs_err"],
-        "e2e_launches": e2e["k1_launches"]}]
+        "four_levels": k1["four_levels"],
+        "e2e_launches": e2e["k1_launches"],
+        "textured_launches": textured["k1_track_launches_by_levels"],
+        "classic_launches": textured["classic"][
+            "k1_track_launches_by_levels"]}]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

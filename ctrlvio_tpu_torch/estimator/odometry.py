@@ -30,8 +30,10 @@ whose solve stays above `init_max_rms` is rejected and retried on a later
 window. Host bookkeeping (trajectory, feature table, packing) is numpy, the
 feature table native C++ by default (`native.NativeFeatureTable`).
 
-Not ported yet: the classic `FeatureTracker` front end, the batched-serving
-dispatch hook and `residual_summary`.
+Raw images enter through `attach_frontend` and `process_image`, with the
+slot-identity `FusedTracker` or the classic `FeatureTracker` (the latter
+whenever the F-RANSAC gate is asked for, as in the JAX package). Not
+ported yet: the batched-serving dispatch hook and `residual_summary`.
 """
 
 from __future__ import annotations
@@ -57,7 +59,8 @@ from ctrlvio_tpu_torch.solver.layout import (BiasFactors, ImageFactors,
                                              WindowConfig, WindowParams,
                                              empty_params, empty_prior)
 from ctrlvio_tpu_torch.utils.convert import from_numpy, tensor, to_dtype
-from ctrlvio_tpu_torch.utils.device import resolve_device
+from ctrlvio_tpu_torch.utils.device import (SYNC_WARNING,  # noqa: F401
+                                            recorded_syncs, resolve_device)
 from ctrlvio_tpu_torch.utils.precision import pin_f32_matmuls
 
 from . import packing, stream
@@ -68,8 +71,6 @@ from .initializer import (ActiveInitializer, InitialState, StaticInitializer,
 S_TO_NS = 1_000_000_000
 MARGIN_OLD = 0
 MARGIN_SECOND_NEW = 1
-# what torch.cuda.set_sync_debug_mode("warn") says of a synchronizing call
-SYNC_WARNING = "called a synchronizing CUDA operation"
 
 
 @dataclass
@@ -355,27 +356,45 @@ class CtrlVIO:
     # ------------------------------------------------------------------
     # image front end
     # ------------------------------------------------------------------
-    def attach_frontend(self, camera, image_shape, tracker_cfg=None):
-        """Attach the slot-identity KLT front end (`FusedTracker`, on this
-        estimator's device) with gyro-predicted initial flow from this
-        estimator's own IMU buffer and gyro-bias estimate."""
+    def attach_frontend(self, camera, image_shape, tracker_cfg=None,
+                        fused: bool = True):
+        """Attach the KLT front end, on this estimator's device, so that raw
+        images can be fed. fused=True without `tracker_cfg.reject_wf` gives
+        the slot-identity `FusedTracker` with gyro-predicted initial flow
+        from this estimator's own IMU buffer and gyro-bias estimate;
+        otherwise the classic multi-dispatch `FeatureTracker`, which runs
+        the F-RANSAC gate on published frames (the JAX package's routing)."""
         from ctrlvio_tpu_torch.frontend.fused import FusedTracker
-        from ctrlvio_tpu_torch.frontend.tracker import TrackerConfig
+        from ctrlvio_tpu_torch.frontend.tracker import (FeatureTracker,
+                                                        TrackerConfig)
 
-        self.tracker = FusedTracker(tracker_cfg or TrackerConfig(), camera,
-                                    image_shape, device=self.device)
+        tcfg = tracker_cfg or TrackerConfig()
+        if fused and not tcfg.reject_wf:
+            self.tracker = FusedTracker(tcfg, camera, image_shape,
+                                        device=self.device)
+        else:
+            self.tracker = FeatureTracker(tcfg, camera, image_shape,
+                                          device=self.device)
         self._prev_img_t_ns = None
         self._img_first_t_ns = None
         self._img_pub = 0
 
     def process_image(self, t_ns: int, img):
-        """Feed one raw image: CLAHE -> gyro-predicted pyramidal KLT ->
-        undistort -> feature frame -> per-frame estimation. Returns the pose
-        like process_frame, or None for rate-gated frames / pre-init."""
+        """Feed one raw image: CLAHE -> pyramidal KLT (gyro-predicted with
+        the fused tracker) -> undistort -> feature frame -> per-frame
+        estimation. Returns the pose like process_frame, or None for
+        rate-gated frames / pre-init."""
         if self.tracker is None:
             raise RuntimeError("call attach_frontend(camera, image_shape) first")
-        from ctrlvio_tpu_torch.frontend.fused import rotation_flow
+        from ctrlvio_tpu_torch.frontend.fused import (FusedTracker,
+                                                      rotation_flow)
 
+        if not isinstance(self.tracker, FusedTracker):
+            out = self.tracker.process(int(t_ns), img)  # rate-gated inside
+            if out is None:
+                return None
+            return self.process_frame(out["t_ns"], out["ids"], out["pts"],
+                                      out["rows"])
         M = None
         if self._prev_img_t_ns is not None and len(self.imu_t_ns):
             R_ic = so3np.quat_to_matrix(self.q_CtoI[None])[0]
@@ -1005,20 +1024,9 @@ class CtrlVIO:
     def _sync_check(self):
         """With `check_dispatch_syncs` on a CUDA device: count the
         synchronizing CUDA calls made inside (sync debug mode "warn")."""
-        if not (self.check_dispatch_syncs and self.device.type == "cuda"):
+        with recorded_syncs(self.check_dispatch_syncs
+                            and self.device.type == "cuda") as msgs:
             yield
-            return
-        prev = torch.cuda.get_sync_debug_mode()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                yield
-            finally:
-                torch.cuda.set_sync_debug_mode(prev)
-        # setting the mode warns that it is a prototype: not a sync
-        msgs = [f"{w.filename}:{w.lineno}: {w.message}" for w in caught
-                if SYNC_WARNING in str(w.message)]
         self.counts["megastep_syncs"] += len(msgs)
         self.sync_warnings.extend(msgs)
 

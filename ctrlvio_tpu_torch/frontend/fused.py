@@ -5,25 +5,40 @@ Per frame: CLAHE -> pyramid -> gyro-predicted pyramidal LK (kernel K1 on
 the card) with the forward-backward check -> Shi-Tomasi refill of free
 slots -> undistortion. The pyramid and the track state stay on the device
 between frames; the host receives one packed (N, 8) array per frame
-([x, y, nx, ny, live, tracked, refilled, pad]) with one `.cpu()`, and keeps
-the id lifecycle in numpy. Feature identity is the slot: a slot tracks one
-feature until it dies and is refilled; the host assigns globally unique ids
-to refill events.
+([x, y, nx, ny, live, tracked, refilled, pad]) and keeps the id lifecycle
+in numpy. Feature identity is the slot: a slot tracks one feature until it
+dies and is refilled; the host assigns globally unique ids to refill
+events.
+
+On the card a step reads nothing back: the gyro rotation and the kill mask
+go up in one non-blocking copy from pinned memory, and the packed array
+comes down the same way, behind a CUDA event that only `_consume` waits
+on. With `lag=1` a frame is consumed one step later, so its pull overlaps
+the next frame's work.
+
+With `reject_wf` the host runs the epipolar F-RANSAC gate
+(`frontend/fransac.py`) on each consumed frame: a feature that violates
+the dominant two-view geometry is suppressed from publication at once and
+its slot is freed on the device at the next dispatch (≙ rejectWithF,
+`feature_tracker.cpp:201-235`).
 """
 
 from __future__ import annotations
 
+import time
+from collections import defaultdict
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ctrlvio_tpu_torch.ops import so3np
-from ctrlvio_tpu_torch.utils.device import resolve_device
+from ctrlvio_tpu_torch.utils.device import recorded_syncs, resolve_device
 from ctrlvio_tpu_torch.utils.precision import pin_f32_matmuls
 
 from . import clahe as clahe_mod
 from . import corners, klt
+from .fransac import reject_with_f
 from .tracker import TrackerConfig
 
 
@@ -53,13 +68,17 @@ class FusedTracker:
     """Slot-identity KLT tracker. Feed frames with `step(t_ns, img)`; it
     returns the published feature dict of the current frame (lag=0) or of
     the previous one (lag=1; None on the first call): ids, pts
-    (normalized), uv, vel, rows, t_ns."""
+    (normalized), uv, vel, rows, t_ns.
+
+    With `check_dispatch_syncs` set on a CUDA device, `dispatch_syncs`
+    counts the synchronizing CUDA calls of each step's dispatch (uploads,
+    the device work and the start of the pull; not the wait in `_consume`)
+    and `sync_warnings` collects their messages. `timing` holds cumulative
+    host seconds: "dispatch", "consume", and within the latter "pull_wait"
+    (the wait for the packed array) and "fgate"."""
 
     def __init__(self, cfg: TrackerConfig, camera, image_shape, lag: int = 0,
                  device="cuda"):
-        if cfg.reject_wf:
-            raise NotImplementedError(
-                "the epipolar F-RANSAC gate (reject_wf) is not ported yet")
         self.device = resolve_device(device)
         pin_f32_matmuls()
         self.cfg = cfg
@@ -76,11 +95,19 @@ class FusedTracker:
         self.prev_live = np.zeros((N,), dtype=bool)
         self.prev_t_ns: Optional[int] = None
         self.next_id = 0
-        self.n_rejected = 0
+        # F-gate state: slots the host gate killed are suppressed from
+        # publishing at once and freed on the device at the next dispatch
+        self._kill = np.zeros((N,), dtype=bool)
+        self._suppress = np.zeros((N,), dtype=bool)
+        self.n_rejected = 0  # cumulative F-gate rejections
+        self.check_dispatch_syncs = False
+        self.dispatch_syncs = 0
+        self.sync_warnings = []
+        self.timing = defaultdict(float)
 
         # device-resident state: (pyramid list, pts (N,2) f32, live (N,))
         self._dev = None
-        self._pending = None  # (t_ns, packed host array) awaiting consume
+        self._pending = None  # (t_ns, packed, event) awaiting consume
 
     # ------------------------------------------------------------------
     def _preprocess(self, img):
@@ -89,13 +116,15 @@ class FusedTracker:
             img = clahe_mod.clahe(img)
         return klt.pyramid(img, self.cfg.klt.levels)
 
-    def _megastep(self, img, pyr_prev, pts, live, M_rel):
+    def _megastep(self, img, pyr_prev, pts, live, M_rel, kill):
         """track -> refill free slots -> lift; returns the new device state
         and the packed (N, 8) f32 array. M_rel (3, 3): camera-frame rotation
-        prev -> cur used to predict each feature's position."""
+        prev -> cur used to predict each feature's position; kill (N,):
+        slots the host F-gate rejected."""
         cfg = self.cfg
         pyr_cur = self._preprocess(img)
 
+        live = live & ~kill  # host F-gate kills free their slots here
         pts_in = torch.where(live[:, None], pts, torch.zeros_like(pts))
         # gyro-predicted initial flow: rotate the lifted ray, re-project
         rays = self.camera.lift(pts_in)
@@ -104,9 +133,8 @@ class FusedTracker:
         guess_uv = self.camera.project(rot).to(torch.float32)
         ahead = rot[:, 2] > 0.1
         guess = torch.where((live & ahead)[:, None], guess_uv, pts_in)
-        hi = torch.tensor([[self.W - 1.0, self.H - 1.0]], dtype=torch.float32,
-                          device=self.device)
-        guess = torch.minimum(torch.clamp(guess, min=0.0), hi)
+        guess = torch.stack([guess[:, 0].clamp(0.0, self.W - 1.0),
+                             guess[:, 1].clamp(0.0, self.H - 1.0)], dim=1)
         new_pts, ok = klt.track(pyr_prev, pyr_cur, pts_in, cfg.klt, init=guess)
         ok = ok & live
 
@@ -161,14 +189,23 @@ class FusedTracker:
         M = np.eye(3, dtype=np.float32) if R_rel is None \
             else np.asarray(R_rel, np.float32)
         pyr, pts, live = self._dev
-        self._dev, packed = self._megastep(
-            imgd, pyr, pts, live, torch.as_tensor(M, device=self.device))
-        packed = packed.cpu().numpy()
+        # dispatch with the kills of the previous consume, then clear them
+        t0 = time.perf_counter()
+        with recorded_syncs(self.check_dispatch_syncs
+                            and self.device.type == "cuda") as msgs:
+            M_rel, kill = self._upload(M, self._kill)
+            self._dev, packed = self._megastep(imgd, pyr, pts, live, M_rel,
+                                               kill)
+            pulled = (t_ns, *self._pull(packed))
+        self.dispatch_syncs += len(msgs)
+        self.sync_warnings.extend(msgs)
+        self._kill = np.zeros((self.N,), dtype=bool)
+        self.timing["dispatch"] += time.perf_counter() - t0
 
         out = None
         if self.lag and self._pending is not None:
             out = self._consume(*self._pending)
-        self._pending = (t_ns, packed)
+        self._pending = pulled
         if not self.lag:
             out = self._consume(*self._pending)
             self._pending = None
@@ -189,15 +226,64 @@ class FusedTracker:
         self.track_cnt[:] = 0
         self.prev_live[:] = False
         self.prev_t_ns = None
+        self._kill[:] = False
+        self._suppress[:] = False
 
     # ------------------------------------------------------------------
-    def _consume(self, t_ns: int, packed):
-        p = np.asarray(packed, np.float64)
+    def _upload(self, M, kill):
+        """(M (3, 3) f32, kill (N,) bool) on the device: one copy of both,
+        non-blocking from a fresh pinned buffer on the card."""
+        src = torch.from_numpy(np.concatenate([M.reshape(-1),
+                                               kill.astype(np.float32)]))
+        if self.device.type == "cuda":
+            buf = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+            buf.copy_(src)
+            src = buf.to(self.device, non_blocking=True)
+        return src[:9].reshape(3, 3), src[9:] > 0.5
+
+    def _pull(self, packed):
+        """Start the packed array's copy to the host: (host tensor, CUDA
+        event to wait on, or None on the CPU)."""
+        if packed.device.type != "cuda":
+            return packed, None
+        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+        host.copy_(packed, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    def _consume(self, t_ns: int, packed, done=None):
+        t0 = time.perf_counter()
+        if done is not None:
+            done.synchronize()
+        t_gate = time.perf_counter()
+        self.timing["pull_wait"] += t_gate - t0
+        p = packed.numpy().astype(np.float64)
         uv = p[:, 0:2]
         norm = p[:, 2:4]
         live = p[:, 4] > 0.5
         tracked = p[:, 5] > 0.5
         refilled = p[:, 6] > 0.5
+
+        # epipolar outlier gate on the host: features violating the
+        # dominant two-view geometry (e.g. tracks on independently moving
+        # objects) are suppressed from this frame's publication and their
+        # slots queued for the next dispatch's kill and refill
+        self._suppress &= ~refilled  # the device refilled the slot
+        if self.cfg.reject_wf:
+            same = tracked & self.prev_live & ~self._suppress
+            idx = np.nonzero(same)[0]
+            if len(idx) >= 12:
+                inl = reject_with_f(self.prev_norm[idx], norm[idx],
+                                    thresh_px=self.cfg.f_threshold)
+                bad = idx[~inl]
+                if len(bad):
+                    self._suppress[bad] = True
+                    self._kill[bad] = True
+                    self.n_rejected += len(bad)
+            self.timing["fgate"] += time.perf_counter() - t_gate
+        live &= ~self._suppress
+        tracked &= ~self._suppress
 
         # id lifecycle on the host (slot identity makes this vectorizable)
         n_new = int(refilled.sum())
@@ -217,6 +303,7 @@ class FusedTracker:
         self.prev_t_ns = t_ns
         self.prev_norm = norm.copy()
         self.prev_live = live.copy()
+        self.timing["consume"] += time.perf_counter() - t0
 
         return dict(t_ns=t_ns, ids=self.ids[live].copy(), pts=norm[live],
                     uv=uv[live], vel=vel[live], rows=uv[live][:, 1])

@@ -15,11 +15,6 @@ import numpy as np
 import torch
 
 
-def _where(cond, a, b):
-    return torch.where(cond, torch.as_tensor(a, dtype=b.dtype, device=b.device)
-                       if not torch.is_tensor(a) else a, b)
-
-
 @dataclass(frozen=True)
 class Pinhole:
     fx: float; fy: float; cx: float; cy: float
@@ -74,8 +69,8 @@ class Equidistant:
         theta = torch.atan2(r, z)
         td = self._theta_d(theta)
         small = r < 1e-12
-        r_safe = _where(small, 1.0, r)
-        scale = _where(small, 0.0, td / r_safe)
+        r_safe = torch.where(small, 1.0, r)
+        scale = torch.where(small, 0.0, td / r_safe)
         return torch.stack([self.mu * scale * x + self.u0,
                             self.mv * scale * y + self.v0], dim=-1)
 
@@ -92,10 +87,10 @@ class Equidistant:
                 7 * self.k4 + t2 * 9 * self.k5)))
             theta = theta - f / df
         small = td < 1e-12
-        td_safe = _where(small, 1.0, td)
-        s = _where(small, 0.0, torch.sin(theta) / td_safe)
+        td_safe = torch.where(small, 1.0, td)
+        s = torch.where(small, 0.0, torch.sin(theta) / td_safe)
         z = torch.cos(theta)
-        z_safe = _where(torch.abs(z) < 1e-9, 1e-9, z)
+        z_safe = torch.where(torch.abs(z) < 1e-9, 1e-9, z)
         return torch.stack([s * pu / z_safe, s * pv / z_safe], dim=-1)
 
 
@@ -136,7 +131,7 @@ class Mei:
         r2 = x * x + y * y
         lam = (xi + torch.sqrt(1.0 + (1.0 - xi * xi) * r2)) / (1.0 + r2)
         z = lam - xi
-        z_safe = _where(torch.abs(z) < 1e-9, 1e-9, z)
+        z_safe = torch.where(torch.abs(z) < 1e-9, 1e-9, z)
         return torch.stack([lam * x / z_safe, lam * y / z_safe], dim=-1)
 
 
@@ -157,7 +152,7 @@ class Scaramuzza:
     def project(self, X):
         x, y, z = X[..., 0], X[..., 1], X[..., 2]
         norm = torch.sqrt(x * x + y * y)
-        norm_s = _where(norm > 1e-12, norm, torch.full_like(norm, 1e-12))
+        norm_s = torch.where(norm > 1e-12, norm, torch.full_like(norm, 1e-12))
         theta = torch.atan2(-z, norm)
         rho = torch.zeros_like(theta)
         for k in reversed(self.inv_poly):
@@ -178,7 +173,7 @@ class Scaramuzza:
         for k in reversed(self.poly):
             z = z * phi + k
         zf = -z
-        zf = _where(torch.abs(zf) > 1e-9, zf, torch.full_like(zf, 1e-9))
+        zf = torch.where(torch.abs(zf) > 1e-9, zf, torch.full_like(zf, 1e-9))
         return torch.stack([xc0 / zf, xc1 / zf], dim=-1)
 
 

@@ -16,8 +16,11 @@ no fallback.
 
 `lk_track.launches` and `lk_level.launches` count K1 launches (and nothing
 else), so a run can show that its main path went through the kernel;
-`lk_track_plain.calls` and `lk_level_plain.calls` count runs of the plain
-versions, so it can show that they stayed off the path.
+`lk_track.launches_by_levels` splits the former by the number of pyramid
+levels tracked (the fused tracker's gyro-predicted track takes
+`pred_levels`, the classic tracker's every level). `lk_track_plain.calls`
+and `lk_level_plain.calls` count runs of the plain versions, so a run can
+show that they stayed off the path. `reset_counts` sets all of them to 0.
 """
 
 from __future__ import annotations
@@ -248,10 +251,17 @@ def lk_track(pyr_prev, pyr_cur, pts, init, iters: int = 10, win: int = HALF,
     if err != 0:
         raise RuntimeError(f"lk_track: K1 launch failed (cudaError {err})")
     lk_track.launches += 1
+    lk_track.launches_by_levels[L] = lk_track.launches_by_levels.get(L, 0) + 1
     return out, ok, eig
 
 
-lk_level.launches = 0
-lk_track.launches = 0
-lk_level_plain.calls = 0
-lk_track_plain.calls = 0
+def reset_counts():
+    """Set every launch and plain-call count of this module to 0."""
+    lk_level.launches = 0
+    lk_track.launches = 0
+    lk_track.launches_by_levels = {}
+    lk_level_plain.calls = 0
+    lk_track_plain.calls = 0
+
+
+reset_counts()

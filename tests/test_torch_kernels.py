@@ -73,7 +73,9 @@ def test_k1_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 @pytest.mark.parametrize("case", TRACK_CASES)
 def test_k1_track_matches_plain_version(cuda, case):
     """The fused forward-backward track (`chip_smoke.track_case`: three
-    levels of a 1280x1024 pair, N=150, 10 iterations) in one launch: ok as
+    levels of a 1280x1024 pair, N=150, 10 iterations; four levels with
+    init = pts, the classic tracker's track) in one launch, counted under
+    its level count: ok as
     the plain version's except within 1e-3 px of fb_thresh or of the
     in-bounds edge, or within 1e-4 relative of min_eig; positions within
     1e-3 px where both say ok; min_eig within 1e-4 relative; the known
@@ -82,12 +84,16 @@ def test_k1_track_matches_plain_version(cuda, case):
     pyr0, pyr1, pts, init, shift = track_case(case, cuda)
     cfg = klt.KLTConfig(pred_levels=3)
     args = (pyr0, pyr1, pts, init, 10, lk.HALF, cfg.fb_thresh, cfg.min_eig)
+    L = len(pyr0)
+    assert L == (4 if case == "four_levels" else 3)
     launches = lk.lk_track.launches
+    by_levels = lk.lk_track.launches_by_levels.get(L, 0)
     out, ok, eig = lk.lk_track(*args)
     ref, ok_ref, eig_ref = lk.lk_track_plain(*args)
     back, _ = lk.lk_pass_plain(pyr1, pyr0, ref, pts, 10)
     torch.cuda.synchronize()
     assert lk.lk_track.launches == launches + 1
+    assert lk.lk_track.launches_by_levels[L] == by_levels + 1
     H, W = pyr0[0].shape
     fb = torch.linalg.vector_norm(back - pts, dim=-1)
     edge = torch.stack([ref[:, 0] - 1.0, ref[:, 0] - (W - 1.0),
