@@ -32,8 +32,10 @@ feature table native C++ by default (`native.NativeFeatureTable`).
 
 Raw images enter through `attach_frontend` and `process_image`, with the
 slot-identity `FusedTracker` or the classic `FeatureTracker` (the latter
-whenever the F-RANSAC gate is asked for, as in the JAX package). Not
-ported yet: the batched-serving dispatch hook and `residual_summary`.
+whenever the F-RANSAC gate is asked for, as in the JAX package). B
+streaming instances serve in lockstep behind `parallel.stream_batch.
+BatchedStream`, which sets their `_dispatch_hook`. Not ported yet:
+`residual_summary`.
 """
 
 from __future__ import annotations
@@ -95,6 +97,12 @@ class VIOConfig:
     # step improves the cost by < ba_tol (relative)
     ba_iters: int = 12
     ba_tol: float = 1e-5
+    # Schur solver of the window and streamed solves: "chol" (exact) or
+    # "cg" (`cg_iters` iterations of block-Jacobi PCG, `lm.schur_solve`);
+    # the bootstrap and predict solves always take "chol"
+    # (≙ CTRLVIO_SOLVE / CTRLVIO_CG_ITERS)
+    solver: str = "chol"
+    cg_iters: int = 48
     predict_iters: int = 8
     init_ba_iters: int = 30
     # solve dtype (the bootstrap solve and the synchronous marginalization
@@ -154,7 +162,8 @@ class CtrlVIO:
     CPU).
 
     `counts` tallies what ran: "sync_solve" (window solves of the
-    synchronous schedule), "sync_solve_after_handoff", "megastep",
+    synchronous schedule), "sync_solve_after_handoff", "megastep" (this
+    instance's streamed frames, alone or as a lane of a batched call),
     "bootstrap_static" / "bootstrap_visual" (initial states produced),
     "bootstrap_rejected", "marg_overflow" (stream summaries reporting a
     marginalization cap overflow) and, with `check_dispatch_syncs` set on a CUDA
@@ -219,6 +228,11 @@ class CtrlVIO:
         self._dev_knot_hi = 0  # global knot index the device has seeds through
         self._dispatch_no = -1
         self._mirror_solved_hi: Optional[int] = None
+        # batched serving (`parallel.stream_batch.BatchedStream`): with a
+        # hook set, a streamed dispatch hands (self, blob, host_seeds, meta)
+        # to the coordinator, which owns the device state of every lane
+        self._dispatch_hook = None
+        self._dev_dispatched = False
 
         jdt = cfg.dtype
         self.jdt = jdt
@@ -231,9 +245,10 @@ class CtrlVIO:
 
         self._ba_opts = SolveOptions(
             max_iters=cfg.ba_iters, fix_ld=cfg.fix_ld, ld_lower=cfg.ld_lower,
-            ld_upper=cfg.ld_upper, tol=cfg.ba_tol)
+            ld_upper=cfg.ld_upper, tol=cfg.ba_tol, solver=cfg.solver,
+            cg_iters=cfg.cg_iters)
         self._init_opts = self._ba_opts._replace(
-            max_iters=cfg.init_ba_iters, tol=0.0)
+            max_iters=cfg.init_ba_iters, tol=0.0, solver="chol")
         self._predict_opts = SolveOptions(
             max_iters=cfg.predict_iters, lock_bias=True, fix_ld=True)
         # the IMU-only predict touches no image factors or landmarks
@@ -813,7 +828,7 @@ class CtrlVIO:
     # ------------------------------------------------------------------
     def _solve_window_ba(self):
         self.counts["sync_solve"] += 1
-        if self._dev_state is not None:
+        if self._dev_state is not None or self._dev_dispatched:
             self.counts["sync_solve_after_handoff"] += 1
         t_pack0 = time.perf_counter()
         wc, cfg = self.wc, self.cfg
@@ -965,8 +980,12 @@ class CtrlVIO:
         # first dispatch (warmup handoff) the host mirror is authoritative
         # and uploads values; afterwards the seeds are dead-reckoned on the
         # device from its own spline end (`stream._extend_inertial`), which
-        # also re-seeds the weakly constrained last 3 knots
-        host_seeds = self._dev_state is None
+        # also re-seeds the weakly constrained last 3 knots. A hooked lane
+        # never holds a device state of its own: its first dispatch is the
+        # handoff
+        hooked = self._dispatch_hook is not None
+        host_seeds = (not self._dev_dispatched if hooked
+                      else self._dev_state is None)
         seed_mask = np.zeros(wc.KW, bool)
         lo_rel = 0 if host_seeds else max(self._dev_knot_hi - self.win_knot0, 0)
         seed_lo = lo_rel if host_seeds else max(lo_rel - 3, 4, 0)
@@ -1004,6 +1023,12 @@ class CtrlVIO:
         meta = dict(win_knot0=self.win_knot0, n_active=n_active,
                     kf0_t_ns=int(self.kf_t_ns[0]), marg_old=marg_old,
                     slot_fids=slot_fids)
+        if hooked:
+            # the coordinator runs one batched megastep for every lane in
+            # lockstep and hands this lane's summary to _stream_complete
+            self._dev_dispatched = True
+            self._dispatch_hook(self, blob, host_seeds, meta)
+            return
         t0 = time.perf_counter()
         if self._dev_state is None:
             # warmup handoff: the synchronous warmup's f64 prior (cast,
@@ -1042,7 +1067,8 @@ class CtrlVIO:
         return buf.to(self.device, non_blocking=True)
 
     def _initial_dev_state(self) -> stream.DevState:
-        """Device-resident state for the first dispatch."""
+        """Device-resident state for the first dispatch (a batched-serving
+        coordinator stacks those of its lanes)."""
         wc, jdt = self.wc, self.jdt
         p0 = empty_params(wc, jdt, self.device)._replace(
             bg=self._t(self.bg, jdt), ba=self._t(self.ba, jdt),
@@ -1068,6 +1094,12 @@ class CtrlVIO:
             done.record()
             obj = (host, done)
         self._stream_pending.append((meta, obj, fetch))
+
+    def _stream_complete(self, summary, meta):
+        """Batched-serving path: the coordinator hands back this lane's
+        summary (its row of the batched megastep's output)."""
+        self.counts["megastep"] += 1
+        self._enqueue_summary(meta, summary)
 
     def _consume_summaries(self, max_pending: int):
         """Apply the newest consumable summary (the last fetched one among

@@ -10,7 +10,10 @@ device-resident `DevState`, with no host read inside it:
   the device once it has converged (`lm.solve_window_fixed`);
 - the slide branch (marginalize the oldest keyframe or drop the second
   newest) is chosen on the host, which decided it when it packed the frame,
-  and the dropped-knot count rides in as a host int;
+  and the dropped-knot count rides in as a host int; `megastep_branchless`
+  instead computes both slides and selects per field on the device from
+  the blob's directives, the form that B lanes run as one batched call
+  (`parallel/stream_batch.py`);
 - the host packs every per-frame input into one flat buffer, moved by one
   copy; the device returns one flat summary, which the host pulls
   asynchronously a few frames later for its numpy mirror.
@@ -268,30 +271,28 @@ def _extend_inertial(params: WindowParams, imu: ImuFactors,
 # ---------------------------------------------------------------------------
 
 
-def megastep(state: DevState, blob: torch.Tensor, ext, gravity, imu_info,
-             sqrt_info_img, cfg: WindowConfig, opts: SolveOptions, *,
-             marg_old: bool, knot_shift: int, host_seeds: bool,
-             caps: Optional[Tuple[int, int, int]] = None):
-    """One frame on the device. Returns (next state, flat summary).
-
-    `marg_old`, `knot_shift` and `host_seeds` are the host's own copies of
-    the directives it packed into `blob`: they choose the branches, so
-    nothing is read back. `caps` overrides `marginalize.marg_caps(cfg)`.
-
-    Order ≙ the reference per-frame pipeline: solve (`UpdateTrajectory`),
-    gauge restore (`double2vector`), marginalization (`UpdateVIOPrior`),
-    slide (`SlideWindow{Old,New}`)."""
-    pin_f32_matmuls()
+def _merge_solve(state: DevState, blob: torch.Tensor, ext, gravity, imu_info,
+                 sqrt_info_img, cfg: WindowConfig, opts: SolveOptions,
+                 host_seeds: Optional[bool]):
+    """Unpack the blob, merge its seeds into the device window state, solve
+    and restore the gauge. `host_seeds` None selects the seeds by the
+    blob's own flag on the device (both computed). Returns (the unpacked
+    blob, solved params, SolveStats)."""
     dtype = state.params.knots_p.dtype
+    unpacked = unpack_stream_blob(blob, cfg, dtype)
     (img, imu, bias, fixed, seed_q, seed_p, seed_mask, dinv_perm, dinv_seed,
-     drop_knots, sc) = unpack_stream_blob(blob, cfg, dtype)
+     _, sc) = unpacked
 
     # ---- merge host uploads into the device window state ----------------
     params = state.params
     # new-knot seeds: IMU dead-reckoning from the device spline end
     # (lag-free); the uploaded values only at the warmup handoff, where the
     # host mirror is authoritative
-    if not host_seeds:
+    if host_seeds is None:
+        dr_q, dr_p = _extend_inertial(params, imu, sc, gravity, cfg)
+        seed_q = torch.where(sc.host_seeds, seed_q, dr_q)
+        seed_p = torch.where(sc.host_seeds, seed_p, dr_p)
+    elif not host_seeds:
         seed_q, seed_p = _extend_inertial(params, imu, sc, gravity, cfg)
     sm = seed_mask[:, None]
     params = params._replace(
@@ -309,46 +310,64 @@ def megastep(state: DevState, blob: torch.Tensor, ext, gravity, imu_info,
                                          sqrt_info_img, cfg, opts)
     q_new, p_new = gauge.restore_gauge(p_out.knots_q, p_out.knots_p,
                                        q_ref, p_ref, 0, 0)
-    p_out = p_out._replace(knots_q=q_new, knots_p=p_new)
+    return unpacked, p_out._replace(knots_q=q_new, knots_p=p_new), stats
 
-    # ---- marginalize + slide (only MARGIN_OLD pays the QR) ---------------
-    if marg_old:
-        # the host's marg_drop gates on its lagged depth; a landmark whose
-        # device depth has since failed must not enter the prior
-        img_m = img._replace(marg_drop=img.marg_drop
-                             & (p_out.dinv[img.lm_idx] > 1e-4))
-        prior_new, ovf = marginalize.build_prior_sqrt(
-            p_out, img_m, imu, bias, state.prior, drop_knots, ext, gravity,
-            imu_info, sqrt_info_img, cfg, opts._replace(cauchy_c=1.0),
-            knot_shift=knot_shift, bias_shift=1, return_overflow=True,
-            caps=caps, n_drop_knots=knot_shift)
-        dinv_sum = _depth_handoff(p_out, img, sc, ext, cfg)
-        new_params = p_out._replace(
-            knots_q=_roll_clamp(p_out.knots_q, knot_shift),
-            knots_p=_roll_clamp(p_out.knots_p, knot_shift),
-            bg=_roll_clamp(p_out.bg, 1), ba=_roll_clamp(p_out.ba, 1),
-            dinv=dinv_sum)
-        state2 = DevState(params=new_params, prior=prior_new)
-        marg_ovf = ovf.to(dtype)
-    else:
-        nb = cfg.NB
-        bg = p_out.bg.clone()
-        ba = p_out.ba.clone()
-        bg[nb - 2] = p_out.bg[nb - 1]
-        ba[nb - 2] = p_out.ba[nb - 1]
-        state2 = DevState(params=p_out._replace(bg=bg, ba=ba),
-                          prior=state.prior)
-        dinv_sum = p_out.dinv
-        marg_ovf = torch.zeros((3,), dtype=dtype, device=bg.device)
 
-    # per-type residual RMS at the solution (≙ the reference's per-solve
-    # ResidualSummary): the streaming path's regression signal
+def _slide_old(state: DevState, p_out: WindowParams, unpacked, ext, gravity,
+               imu_info, sqrt_info_img, cfg: WindowConfig, opts: SolveOptions,
+               caps, knot_shift):
+    """MARGIN_OLD: the square-root marginalization prior, the depth
+    handoff and the window roll by `knot_shift` (int or device tensor).
+    Returns (next state, summary depths, overflow counts)."""
+    img, imu, bias, drop_knots, sc = (unpacked[0], unpacked[1], unpacked[2],
+                                      unpacked[9], unpacked[10])
+    # the host's marg_drop gates on its lagged depth; a landmark whose
+    # device depth has since failed must not enter the prior
+    img_m = img._replace(marg_drop=img.marg_drop
+                         & (p_out.dinv[img.lm_idx] > 1e-4))
+    prior_new, ovf = marginalize.build_prior_sqrt(
+        p_out, img_m, imu, bias, state.prior, drop_knots, ext, gravity,
+        imu_info, sqrt_info_img, cfg, opts._replace(cauchy_c=1.0),
+        knot_shift=knot_shift, bias_shift=1, return_overflow=True,
+        caps=caps, n_drop_knots=knot_shift)
+    dinv_sum = _depth_handoff(p_out, img, sc, ext, cfg)
+    new_params = p_out._replace(
+        knots_q=_roll_clamp(p_out.knots_q, knot_shift),
+        knots_p=_roll_clamp(p_out.knots_p, knot_shift),
+        bg=_roll_clamp(p_out.bg, 1), ba=_roll_clamp(p_out.ba, 1),
+        dinv=dinv_sum)
+    return (DevState(params=new_params, prior=prior_new), dinv_sum,
+            ovf.to(p_out.knots_p.dtype))
+
+
+def _slide_second_new(state: DevState, p_out: WindowParams,
+                      cfg: WindowConfig):
+    """MARGIN_SECOND_NEW: the newest keyframe's biases replace the second
+    newest's; the prior rides through. Same returns as `_slide_old`."""
+    nb = cfg.NB
+
+    def drop_second_new(b):
+        return torch.cat([b[: nb - 2], b[nb - 1:], b[nb - 1:]])
+
+    new_params = p_out._replace(bg=drop_second_new(p_out.bg),
+                                ba=drop_second_new(p_out.ba))
+    zeros = torch.zeros((3,), dtype=p_out.knots_p.dtype,
+                        device=p_out.knots_p.device)
+    return DevState(params=new_params, prior=state.prior), p_out.dinv, zeros
+
+
+def _summary(state: DevState, p_out: WindowParams, stats, unpacked, dinv_sum,
+             marg_ovf, ext, gravity, imu_info, sqrt_info_img,
+             cfg: WindowConfig, opts: SolveOptions):
+    """The flat summary: this frame's pre-slide window, post-handoff depths,
+    the solve statistics, the per-type residual RMS at the solution
+    (≙ the reference's per-solve ResidualSummary) and the overflow counts."""
+    dtype = p_out.knots_p.dtype
+    img, imu, bias = unpacked[:3]
     rms4 = assemble.residual_rms(p_out, img, imu, bias, state.prior, ext,
                                  gravity, imu_info, sqrt_info_img, cfg, opts)
-
-    # summary: pre-slide layout (this frame's window), post-handoff depths
-    summary = torch.cat([
-        q_new.reshape(-1), p_new.reshape(-1),
+    return torch.cat([
+        p_out.knots_q.reshape(-1), p_out.knots_p.reshape(-1),
         p_out.bg.reshape(-1), p_out.ba.reshape(-1),
         dinv_sum.to(dtype), p_out.ld.reshape(1).to(dtype),
         torch.stack([stats.cost0, stats.cost,
@@ -356,7 +375,68 @@ def megastep(state: DevState, blob: torch.Tensor, ext, gravity, imu_info,
         rms4.to(dtype),
         marg_ovf,  # > 0: marg subset overflowed [obs, imu, lm]
     ])
-    return state2, summary
+
+
+def megastep(state: DevState, blob: torch.Tensor, ext, gravity, imu_info,
+             sqrt_info_img, cfg: WindowConfig, opts: SolveOptions, *,
+             marg_old: bool, knot_shift: int, host_seeds: bool,
+             caps: Optional[Tuple[int, int, int]] = None):
+    """One frame on the device. Returns (next state, flat summary).
+
+    `marg_old`, `knot_shift` and `host_seeds` are the host's own copies of
+    the directives it packed into `blob`: they choose the branches, so
+    nothing is read back and only a MARGIN_OLD frame pays the QR.
+    `caps` overrides `marginalize.marg_caps(cfg)`.
+
+    Order ≙ the reference per-frame pipeline: solve (`UpdateTrajectory`),
+    gauge restore (`double2vector`), marginalization (`UpdateVIOPrior`),
+    slide (`SlideWindow{Old,New}`)."""
+    pin_f32_matmuls()
+    unpacked, p_out, stats = _merge_solve(state, blob, ext, gravity,
+                                          imu_info, sqrt_info_img, cfg, opts,
+                                          host_seeds)
+    if marg_old:
+        state2, dinv_sum, marg_ovf = _slide_old(
+            state, p_out, unpacked, ext, gravity, imu_info, sqrt_info_img,
+            cfg, opts, caps, knot_shift)
+    else:
+        state2, dinv_sum, marg_ovf = _slide_second_new(state, p_out, cfg)
+    return state2, _summary(state, p_out, stats, unpacked, dinv_sum,
+                            marg_ovf, ext, gravity, imu_info, sqrt_info_img,
+                            cfg, opts)
+
+
+def _select(cond, a, b):
+    """Field by field torch.where(cond, a, b) over nested named tuples."""
+    if isinstance(a, tuple):
+        vals = [_select(cond, x, y) for x, y in zip(a, b)]
+        return type(a)(*vals) if hasattr(a, "_fields") else tuple(vals)
+    return torch.where(cond, a, b)
+
+
+def megastep_branchless(state: DevState, blob: torch.Tensor, ext, gravity,
+                        imu_info, sqrt_info_img, cfg: WindowConfig,
+                        opts: SolveOptions,
+                        caps: Optional[Tuple[int, int, int]] = None):
+    """`megastep` with every directive read from the blob's StreamScalars
+    on the device (≙ the JAX megastep under `vmap`, where `lax.cond`
+    becomes a select): both seed sources and both slides are computed and
+    each field is chosen by `torch.where` on `marg_old` / `host_seeds`;
+    the knot roll takes `knot_shift` as a tensor. So one call over stacked
+    lanes (`torch.func.vmap`, `parallel.stream_batch`) serves lanes whose
+    keyframe decisions differ. Same results as `megastep`."""
+    pin_f32_matmuls()
+    unpacked, p_out, stats = _merge_solve(state, blob, ext, gravity,
+                                          imu_info, sqrt_info_img, cfg, opts,
+                                          None)
+    sc = unpacked[10]
+    old = _slide_old(state, p_out, unpacked, ext, gravity, imu_info,
+                     sqrt_info_img, cfg, opts, caps, sc.knot_shift)
+    new = _slide_second_new(state, p_out, cfg)
+    state2, dinv_sum, marg_ovf = _select(sc.marg_old, old, new)
+    return state2, _summary(state, p_out, stats, unpacked, dinv_sum,
+                            marg_ovf, ext, gravity, imu_info, sqrt_info_img,
+                            cfg, opts)
 
 
 def summary_size(cfg: WindowConfig) -> int:

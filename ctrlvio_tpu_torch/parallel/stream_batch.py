@@ -1,0 +1,183 @@
+"""Batched multi-sequence streaming: B estimators on one device in lockstep
+(PyTorch port of `ctrlvio_tpu/parallel/stream_batch.py`).
+
+B independent sliding-window estimators replay B sequences frame by
+frame, and every frame runs ONE batched streaming megastep over their
+stacked device states: `torch.func.vmap` of
+`stream.megastep_branchless`, which reads each lane's slide directives
+from its own blob, so lanes that keyframe on different frames share the
+call. The host side stays per sequence (feature tables, packing, mirrors);
+the device side is one (B, ...) state owned by this coordinator.
+
+    vios = [CtrlVIO(cfg, q_CtoI, p_CinI) for _ in range(B)]  # cfg.stream
+    coord = BatchedStream(vios)
+    ... feed IMU to each instance as usual ...
+    outs = coord.step([(t_ns, ids, pts, rows), ...])   # a frame a lane
+    coord.flush()
+
+The instances share the window configuration and start together
+(lockstep). The extrinsics, gravity and information weights of lane 0
+serve every lane, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import defaultdict
+from functools import partial
+from typing import List
+
+import numpy as np
+import torch
+from torch.func import vmap
+
+from ctrlvio_tpu_torch.estimator import stream
+from ctrlvio_tpu_torch.utils.device import recorded_syncs
+
+from .batch import stack
+
+
+def batched_megastep(cfg, opts, caps=None):
+    """`megastep(states, blobs, ext, gravity, imu_info, sqrt_info_img) ->
+    (states, summaries)` over a leading lane axis of the stacked states
+    and the (B, n) blobs, the four constants shared: `torch.func.vmap` of
+    `stream.megastep_branchless`."""
+    return vmap(partial(stream.megastep_branchless, cfg=cfg, opts=opts,
+                        caps=caps),
+                in_dims=(0, 0, None, None, None, None))
+
+
+class BatchedStream:
+    """The lockstep coordinator. `timing` holds cumulative host seconds of
+    each step's parts: "host_lanes" (every lane's `process_frame`, which
+    packs its blob), "stack_upload" (the B blobs as one pinned
+    non-blocking copy), "dispatch" (the batched megastep) and "complete"
+    (each lane queues its summary row). `_n_steps` counts batched steps.
+    With `check_dispatch_syncs` on a CUDA device, `dispatch_syncs` counts
+    the synchronizing CUDA calls inside the coordinator's part of a step
+    (upload, megastep, completion), their messages in `sync_warnings`."""
+
+    def __init__(self, vios: List):
+        if not vios:
+            raise ValueError("BatchedStream needs at least one estimator")
+        v0 = vios[0]
+        for v in vios:
+            if not v.cfg.stream:
+                raise ValueError("BatchedStream requires cfg.stream=True")
+            if v.wc != v0.wc or v.device != v0.device or v.jdt != v0.jdt:
+                raise ValueError("the lanes must share the window "
+                                 "configuration, device and dtype")
+            v._dispatch_hook = self._on_dispatch
+        self.vios = vios
+        self.B = len(vios)
+        self.device = v0.device
+        self._lane = {id(v): i for i, v in enumerate(vios)}
+        self._slots: List = [None] * self.B
+        self._stacked = None
+        self._last_args = None
+        self.timing = defaultdict(float)
+        self._n_steps = 0
+        self.check_dispatch_syncs = False
+        self.dispatch_syncs = 0
+        self.sync_warnings: List[str] = []
+        self._vmega = batched_megastep(v0.wc, v0._ba_opts, v0.cfg.marg_caps)
+
+    # ------------------------------------------------------------------
+    def _on_dispatch(self, vio, blob, host_seeds, meta):
+        self._slots[self._lane[id(vio)]] = (blob, meta)
+
+    def _upload(self, blobs: List[np.ndarray]) -> torch.Tensor:
+        """The B blobs as one (B, n) tensor on the device: one
+        non-blocking copy from a fresh pinned buffer."""
+        src = torch.from_numpy(np.stack(blobs))
+        if self.device.type != "cuda":
+            return src.to(self.device)
+        buf = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        buf.copy_(src)
+        return buf.to(self.device, non_blocking=True)
+
+    # ------------------------------------------------------------------
+    def step(self, frames):
+        """Feed one frame per sequence; returns the lanes' `process_frame`
+        outputs. Once every lane has dispatched this frame, runs the
+        batched megastep once; a frame on which only some lanes dispatched
+        breaks the lockstep and raises."""
+        if len(frames) != self.B:
+            raise ValueError(f"{len(frames)} frames for {self.B} lanes")
+        self._slots = [None] * self.B
+        t0 = time.perf_counter()
+        outs = [v.process_frame(*f) for v, f in zip(self.vios, frames)]
+        t1 = time.perf_counter()
+        self.timing["host_lanes"] += t1 - t0
+
+        filled = [s is not None for s in self._slots]
+        if not any(filled):
+            return outs  # pre-init and warmup frames (synchronous path)
+        if not all(filled):
+            raise RuntimeError(
+                "lockstep violated: only a subset of sequences dispatched "
+                "this frame (mismatched init timing or warmup lengths)")
+        if self._stacked is None:
+            # the handoff: each lane's host state goes up once
+            self._stacked = stack([v._initial_dev_state()
+                                   for v in self.vios])
+            t1 = time.perf_counter()
+        with recorded_syncs(self.check_dispatch_syncs
+                            and self.device.type == "cuda") as msgs:
+            blobs = self._upload([s[0] for s in self._slots])
+            v0 = self.vios[0]
+            self._last_args = (self._stacked, blobs, v0._ext, v0._gravity_j,
+                               v0._imu_info, v0._sqrt_info_img)
+            t2 = time.perf_counter()
+            self.timing["stack_upload"] += t2 - t1
+            self._stacked, summaries = self._vmega(*self._last_args)
+            t3 = time.perf_counter()
+            self.timing["dispatch"] += t3 - t2
+            for i, v in enumerate(self.vios):
+                v._stream_complete(summaries[i], self._slots[i][1])
+            self.timing["complete"] += time.perf_counter() - t3
+        self.dispatch_syncs += len(msgs)
+        self.sync_warnings.extend(msgs)
+        self._n_steps += 1
+        return outs
+
+    # ------------------------------------------------------------------
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def device_steady_ms(self, reps: int = 20):
+        """Steady-state ms of one batched megastep without the host feed:
+        the last step's blobs chained through the megastep `reps` times
+        (state fed back on the device), one synchronize at the end. The
+        eager megastep is dispatch-bound, so this reads the host's
+        dispatch of the batched call, not the card's busy time (a profiled
+        step gives that). None before the first batched step."""
+        if self._last_args is None:
+            return None
+        st, blobs, *rest = self._last_args
+        self._sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            st, _ = self._vmega(st, blobs, *rest)
+        self._sync()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    def cost_analysis(self):
+        """Floating-point operations of ONE batched megastep (all B lanes)
+        on the last step's arguments, as `torch.utils.flop_counter.
+        FlopCounterMode` counts them: matrix products only, elementwise
+        work and factorizations uncounted, so a lower bound. Returns
+        {"flops": n} or None before the first batched step."""
+        if self._last_args is None:
+            return None
+        from torch.utils.flop_counter import FlopCounterMode
+
+        with FlopCounterMode(display=False) as fc:
+            self._vmega(*self._last_args)
+        return {"flops": float(fc.get_total_flops())}
+
+    # ------------------------------------------------------------------
+    def flush(self):
+        for v in self.vios:
+            v.flush()

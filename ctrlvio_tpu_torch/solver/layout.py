@@ -128,8 +128,8 @@ class SolveOptions(NamedTuple):
     # early termination: stop once an accepted step improves the cost by
     # less than tol (relative); 0 = always run max_iters
     tol: float = 0.0
-    # Schur solver: "chol" (exact Cholesky). The block-Jacobi PCG ("cg")
-    # of the JAX package is not ported yet.
+    # Schur solver: "chol" (exact Cholesky) or "cg" (`cg_iters` iterations
+    # of block-Jacobi PCG) (≙ CTRLVIO_SOLVE / CTRLVIO_CG_ITERS)
     solver: str = "chol"
     cg_iters: int = 48
 

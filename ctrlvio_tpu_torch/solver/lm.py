@@ -3,8 +3,9 @@ port of `ctrlvio_tpu/solver/lm.py`).
 
 Per iteration: normal equations (camera system H (C,C), diagonal landmark
 block, coupling H_cl) -> damped Schur-complement solve (Jacobi-scaled
-Cholesky) -> landmark back-substitution -> robust-cost accept/reject with
-the lambda schedule. Two loops share that iteration body:
+Cholesky, or fixed-count block-Jacobi PCG) -> landmark back-substitution
+-> robust-cost accept/reject with the lambda schedule. Two loops share
+that iteration body:
 
 - `solve_window` stops at `opts.max_iters` or at the first accepted step
   whose relative cost decrease is below `opts.tol`, reading the device
@@ -64,13 +65,61 @@ def build_normal_equations(lin: assemble.Linearization, cfg: WindowConfig,
     return H, g, h_ll, g_l, H_cl
 
 
+def _block_jacobi_inverse(H_n, nb3: int):
+    """Inverses of the (nb3, 3, 3) diagonal blocks of H_n's leading
+    3*nb3 coordinates, by the adjugate; identity where |det| <= 1e-12."""
+    Hb = H_n[: 3 * nb3, : 3 * nb3].reshape(nb3, 3, nb3, 3)
+    blk = torch.diagonal(Hb, dim1=0, dim2=2).permute(2, 0, 1)   # (nb3, 3, 3)
+    cross = torch.linalg.cross
+    cof = torch.stack([cross(blk[:, 1], blk[:, 2], dim=-1),
+                       cross(blk[:, 2], blk[:, 0], dim=-1),
+                       cross(blk[:, 0], blk[:, 1], dim=-1)], dim=2)
+    det = torch.einsum("ni,ni->n", blk[:, 0], cof[:, :, 0])
+    ok = torch.abs(det) > 1e-12
+    det = torch.where(ok, det, torch.ones_like(det))
+    eye = torch.eye(3, dtype=blk.dtype, device=blk.device)
+    return torch.where(ok[:, None, None], cof / det[:, None, None],
+                       eye.expand(nb3, 3, 3))
+
+
+def _pcg(H_n, b, iters: int):
+    """`iters` iterations of conjugate gradients on H_n y = b from y = 0,
+    preconditioned by the 3x3 block Jacobi inverse; no host read."""
+    nb3 = (H_n.shape[0] - 1) // 3
+    inv_blk = _block_jacobi_inverse(H_n, nb3)
+
+    def prec(r):
+        zb = torch.einsum("nij,nj->ni", inv_blk, r[: 3 * nb3].reshape(nb3, 3))
+        return torch.cat([zb.reshape(-1), r[3 * nb3:]])
+
+    x = torch.zeros_like(b)
+    r = b
+    z = prec(b)
+    p = z
+    rz = b @ z
+    for _ in range(iters):
+        Hp = H_n @ p
+        alpha = rz / torch.clamp(p @ Hp, min=1e-30)
+        x = x + alpha * p
+        r = r - alpha * Hp
+        z = prec(r)
+        rz_new = r @ z
+        p = z + (rz_new / torch.clamp(rz, min=1e-30)) * p
+        rz = rz_new
+    return x
+
+
 def schur_solve(H, g, h_ll, g_l, H_cl, lam, col_mask, dtype_eps=1e-8,
-                solver: str = "chol"):
+                solver: str = "chol", cg_iters: int = 48):
     """Damped Schur-complement solve. Returns (dx_cam (C,), dx_lm (LM,)).
-    A failed factorization yields NaNs, which the accept test rejects."""
-    if solver != "chol":
-        raise NotImplementedError(
-            f"Schur solver {solver!r} is not ported yet; use 'chol'")
+
+    solver: "chol", the exact Jacobi-scaled Cholesky solve (a failed
+    factorization yields NaNs, which the accept test rejects); or "cg",
+    `cg_iters` iterations of block-Jacobi preconditioned conjugate
+    gradients on the same scaled system: matrix-vector products only, an
+    inexact step that the LM accept test and lambda schedule absorb."""
+    if solver not in ("chol", "cg"):
+        raise ValueError(f"unknown Schur solver {solver!r}")
     diag = torch.clamp(torch.diagonal(H), 1e-6, 1e32)
     H_d = H + lam * torch.diag(diag)
     H_d = H_d + torch.diag(1.0 - col_mask)
@@ -85,9 +134,12 @@ def schur_solve(H, g, h_ll, g_l, H_cl, lam, col_mask, dtype_eps=1e-8,
     H_n = 0.5 * (H_sc * s[:, None] * s[None, :]
                  + H_sc.T * s[None, :] * s[:, None])
     b = -(s * g_sc)
-    L = cholesky_nan(H_n)
-    y = torch.linalg.solve_triangular(L, b[:, None], upper=False)
-    dx = s * torch.linalg.solve_triangular(L.T, y, upper=True)[:, 0]
+    if solver == "cg":
+        dx = s * _pcg(H_n, b, cg_iters)
+    else:
+        L = cholesky_nan(H_n)
+        y = torch.linalg.solve_triangular(L, b[:, None], upper=False)
+        dx = s * torch.linalg.solve_triangular(L.T, y, upper=True)[:, 0]
     dx = dx * col_mask
     dx_lm = -(g_l + H_cl @ dx) * inv_hll
     return dx, dx_lm
@@ -136,7 +188,8 @@ def _trial(p, ne, cost, lam, cmask, lm_mask, ne_at, cfg: WindowConfig,
            opts: SolveOptions):
     """One LM iteration's trial step from p: (trial params, its normal
     equations, its cost, device bool `accept`)."""
-    dx, dx_lm = schur_solve(*ne, lam, cmask, solver=opts.solver)
+    dx, dx_lm = schur_solve(*ne, lam, cmask, solver=opts.solver,
+                            cg_iters=opts.cg_iters)
     trial = retract(p, dx, cfg, opts)
     trial = trial._replace(dinv=p.dinv + dx_lm * lm_mask)
     ne_t, cost_t = ne_at(trial)

@@ -153,9 +153,10 @@ def build_prior_sqrt(params: WindowParams, img: ImageFactors, imu: ImuFactors,
     over columns [landmarks | dropped coords | kept coords]; one Q-less
     Householder QR eliminates landmarks and dropped coords by orthogonal
     transforms only. Takes the full (uncompacted) factor arrays; `caps`
-    overrides `marg_caps(cfg)`. `n_drop_knots`, the number of True entries
-    of `drop_knots`, is what the caller knows on the host; without it the
-    count is read from the device."""
+    overrides `marg_caps(cfg)`. `n_drop_knots` is the number of True
+    entries of `drop_knots` (a python int, or a device tensor, one per lane
+    of a batch; None counts them on the device); `knot_shift` and
+    `bias_shift` likewise take ints or tensors (`roll_prior`)."""
     dtype, dev = params.knots_p.dtype, params.knots_p.device
     C, LM = cfg.C, cfg.LM
     MOBS, MMIMU, MLM = caps if caps is not None else marg_caps(cfg)
@@ -182,13 +183,15 @@ def build_prior_sqrt(params: WindowParams, img: ImageFactors, imu: ImuFactors,
     has = cnt > 0
     n_lm = torch.sum(has.to(torch.int64))
     perm_lm = _stable_front(has, MLM)
-    rank = torch.zeros((LM,), dtype=torch.int64, device=dev)
-    rank[perm_lm] = torch.arange(MLM, device=dev)
+    # out-of-place scatters (a batched index cannot write into a fresh
+    # unbatched tensor under torch.func.vmap)
+    rank = torch.zeros((LM,), dtype=torch.int64, device=dev).scatter(
+        0, perm_lm, torch.arange(MLM, device=dev))
     new_idx = rank[lin.lm_idx]
 
     # an active row whose landmark did not win a compact slot is dropped
-    sel = torch.zeros((LM,), dtype=torch.bool, device=dev)
-    sel[perm_lm] = has[perm_lm]
+    sel = torch.zeros((LM,), dtype=torch.bool, device=dev).scatter(
+        0, perm_lm, has[perm_lm])
     row_ok = ((~act) | sel[img_c.lm_idx]).to(dtype)
     row2 = row_ok[:, None].expand(-1, 2).reshape(-1)
     J = lin.J.clone()
@@ -227,7 +230,7 @@ def build_prior_sqrt(params: WindowParams, img: ImageFactors, imu: ImuFactors,
     Rq = torch.linalg.qr(A, mode="r")[1]
 
     if n_drop_knots is None:
-        n_drop_knots = int(drop_knots.sum())
+        n_drop_knots = torch.sum(drop_knots.to(torch.int64))
     # dropped coordinates: 6 per knot (rotation, position) and the first
     # keyframe's 6 bias coordinates
     d_tot = MLM + 6 * n_drop_knots + 6
@@ -247,43 +250,46 @@ def build_prior_sqrt(params: WindowParams, img: ImageFactors, imu: ImuFactors,
     return out
 
 
-def roll_prior(prior: PriorFactor, knot_shift: int, bias_shift: int,
+def roll_prior(prior: PriorFactor, knot_shift, bias_shift,
                cfg: WindowConfig) -> PriorFactor:
     """Shift the prior's columns and linearization point when the window
     slides: knots advance by `knot_shift`, keyframe biases by `bias_shift`;
-    zero fill beyond the window edge."""
+    zero fill beyond the window edge. The shifts are python ints or device
+    tensors (one per lane under torch.func.vmap): every block is one gather
+    at clamped indices and a mask, so nothing is read back."""
     KW, NB = cfg.KW, cfg.NB
-    J = prior.J.clone()
+    dtype, dev = prior.J.dtype, prior.J.device
 
-    def roll_block(start, size, shift):
-        blk = J[:, start : start + size].clone()
-        J[:, start : start + size] = 0.0
-        if shift < size:
-            J[:, start : start + size - shift] = blk[:, shift:]
+    def shifted(n, shift):
+        """Source index of each of n slots after a roll by `shift`, clamped,
+        and whether it lies inside."""
+        idx = torch.arange(n, device=dev) + shift
+        return torch.clamp(idx, max=n - 1), idx < n
 
-    if knot_shift > 0:
-        roll_block(0, 3 * KW, 3 * knot_shift)
-        roll_block(3 * KW, 3 * KW, 3 * knot_shift)
-    if bias_shift > 0:
-        roll_block(6 * KW, 3 * NB, 3 * bias_shift)
-        roll_block(6 * KW + 3 * NB, 3 * NB, 3 * bias_shift)
+    # column sources of the whole (C,) layout: the knot and bias blocks
+    # roll by their own shifts, the line delay stays
+    blocks = [shifted(3 * KW, 3 * knot_shift), shifted(3 * KW, 3 * knot_shift),
+              shifted(3 * NB, 3 * bias_shift), shifted(3 * NB, 3 * bias_shift),
+              shifted(1, 0)]
+    starts = [0, 3 * KW, 6 * KW, 6 * KW + 3 * NB, 6 * KW + 6 * NB]
+    src = torch.cat([i + s for (i, _), s in zip(blocks, starts)])
+    inside = torch.cat([ok for _, ok in blocks])
+    J = torch.where(inside[None, :], prior.J[:, src],
+                    torch.zeros((), dtype=dtype, device=dev))
 
     def roll_rows(a, shift, fill):
-        a = a.clone()
-        if shift > 0:
-            n = a.shape[0]
-            a[: max(n - shift, 0)] = a[shift:].clone()
-            a[max(n - shift, 0):] = fill
-        return a
+        idx, ok = shifted(a.shape[0], shift)
+        return torch.where(ok[:, None], a[idx], fill)
 
-    # made on the device: assigning a python number to one element of a
-    # CUDA tensor copies it from the host and synchronizes
-    ident = torch.eye(1, 4, dtype=prior.J.dtype, device=prior.J.device)[0]
+    # made on the device: a python number written into one element of a
+    # CUDA tensor is copied from the host and synchronizes
+    ident = torch.eye(1, 4, dtype=dtype, device=dev)[0]
+    zero = torch.zeros((), dtype=dtype, device=dev)
     return PriorFactor(
         J=J, r0=prior.r0,
         knots_q0=roll_rows(prior.knots_q0, knot_shift, ident),
-        knots_p0=roll_rows(prior.knots_p0, knot_shift, 0.0),
-        bg0=roll_rows(prior.bg0, bias_shift, 0.0),
-        ba0=roll_rows(prior.ba0, bias_shift, 0.0),
+        knots_p0=roll_rows(prior.knots_p0, knot_shift, zero),
+        bg0=roll_rows(prior.bg0, bias_shift, zero),
+        ba0=roll_rows(prior.ba0, bias_shift, zero),
         ld0=prior.ld0,
     )

@@ -1,5 +1,7 @@
 """The streaming megastep on the card: one step on the CUDA device against
-the same step on the CPU, in f32, and no synchronizing CUDA call inside it.
+the same step on the CPU, in f32, and no synchronizing CUDA call inside it;
+the same for the batched megastep of the serving path over one
+MARGIN_OLD lane and one MARGIN_SECOND_NEW lane.
 Every test here needs a CUDA device and skips without one. The file
 imports neither JAX nor the JAX package, so that it runs on a machine that
 has only PyTorch:
@@ -16,6 +18,8 @@ import torch
 
 from ctrlvio_tpu_torch.estimator import stream
 from ctrlvio_tpu_torch.estimator.odometry import SYNC_WARNING
+from ctrlvio_tpu_torch.parallel import batch
+from ctrlvio_tpu_torch.parallel.stream_batch import batched_megastep
 from ctrlvio_tpu_torch.utils.precision import pin_f32_matmuls
 # imported by its own name: on a machine where another package provides a
 # top-level `tests`, `tests.torch_stream_case` does not resolve
@@ -54,12 +58,9 @@ def _abs(a, b):
                         - np.asarray(b, np.float64)).max())
 
 
-@pytest.mark.parametrize("marg_old", [True, False])
-def test_megastep_on_the_card_matches_cpu(cuda, marg_old):
-    case = build_case(marg_old)
-    st_c, sum_c = run_port(case, "cpu", torch.float32)
-    st_g, sum_g = run_port(case, cuda, torch.float32)
-    torch.cuda.synchronize()
+def _agree(st_g, sum_g, st_c, sum_c):
+    """Assert that a megastep's state and summary on the card agree with
+    the CPU's within the tolerances above."""
     s_c = stream.unpack_summary(sum_c.double().numpy(), CFG)
     s_g = stream.unpack_summary(sum_g.double().cpu().numpy(), CFG)
     Jg, Jc = st_g.prior.J.double().cpu(), st_c.prior.J.double()
@@ -79,6 +80,62 @@ def test_megastep_on_the_card_matches_cpu(cuda, marg_old):
     assert max(err.values()) <= TOL_STATE, msg
     assert max(rel.values()) <= TOL_REL, msg
     assert grad <= TOL_GRAD, msg
+
+
+@pytest.mark.parametrize("marg_old", [True, False])
+def test_megastep_on_the_card_matches_cpu(cuda, marg_old):
+    case = build_case(marg_old)
+    st_c, sum_c = run_port(case, "cpu", torch.float32)
+    st_g, sum_g = run_port(case, cuda, torch.float32)
+    torch.cuda.synchronize()
+    _agree(st_g, sum_g, st_c, sum_c)
+
+
+def _lane(t, i):
+    """Lane i of a stacked (nested) named tuple of tensors."""
+    return type(t)(*(_lane(x, i) if isinstance(x, tuple) else x[i]
+                     for x in t))
+
+
+def _batched(device):
+    """The batched megastep over the two cases stacked as lanes, f32 on
+    `device`: (callable, stacked states, blobs, the shared constants)."""
+    pa = [port_args(build_case(m), device, torch.float32)[0]
+          for m in (True, False)]
+    _, _, ext, g, info, w, cfg, opts = pa[0]
+    return (batched_megastep(cfg, opts), batch.stack([a[0] for a in pa]),
+            torch.stack([a[1] for a in pa]), (ext, g, info, w))
+
+
+def test_batched_megastep_on_the_card_matches_cpu(cuda):
+    """Each lane of the batched megastep on the card against the same lane
+    on the CPU."""
+    out = {}
+    for dev in ("cpu", cuda):
+        mega, states, blobs, consts = _batched(dev)
+        out[str(dev)] = mega(states, blobs, *consts)
+    torch.cuda.synchronize()
+    (st_c, sum_c), (st_g, sum_g) = out["cpu"], out[str(cuda)]
+    for i in range(2):
+        _agree(_lane(st_g, i), sum_g[i], _lane(st_c, i), sum_c[i])
+
+
+def test_batched_megastep_makes_no_synchronizing_call(cuda):
+    """Sync debug mode "warn" over a whole batched megastep (after a first
+    call): no synchronizing call."""
+    mega, states, blobs, consts = _batched(cuda)
+    mega(states, blobs, *consts)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            mega(states, blobs, *consts)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [f"{w.filename}:{w.lineno}" for w in caught
+             if SYNC_WARNING in str(w.message)]
+    assert syncs == [], syncs
 
 
 def test_megastep_makes_no_synchronizing_call(cuda):
