@@ -16,7 +16,8 @@ Phases, each printed as one JSON line:
                shapes: three levels for interior features, features near
                the borders and a large motion that sends taps outside the
                kernel's staged windows; four levels with init = pts, the
-               classic tracker's track;
+               classic tracker's track; two levels, the command line's
+               track (`KLTConfig`'s default pred_levels);
   5. main    - the image-in path of `bench.py --mode image --scene blobs`:
                4 s of rendered 1280x1024 Kannala-Brandt rolling-shutter frames
                through the port's FusedTracker, rotation_flow and the
@@ -61,9 +62,27 @@ Phases, each printed as one JSON line:
   9. batch   - `bench.py --mode batch`'s sweep: make_batched_solver over
                B = 1, 2, 4, 8, 16 copies of the bench's window against the
                single solve, and the CG Schur path beside chol at B = 8;
-               phases 8 and 9 run in a spawned process from the end of
-               phase 4, beside phases 5-7, and print after them;
- 10. kernels - one line listing every kernel with launches, error and times.
+ 10. cli     - the command line as a user runs it, in subprocesses of
+               `python -m ctrlvio_tpu_torch` on the card: 10 s of
+               `bench.py --mode image`'s 1280x1024 blobs scene (seed 3) at
+               0.4x its motion (the visual bootstrap cannot initialize at
+               the bench's own motion, in either package), written as a
+               rosbag (raw mono8 `sensor_msgs/Image`,
+               `sensor_msgs/Imu`, absolute stamps, uncompressed chunks)
+               beside a reference-schema three-file config (cam_tumrs's
+               Kannala-Brandt camera and tracker knobs); `convert`, then
+               `run --bootstrap visual` (FusedTracker with K1, the visual
+               bootstrap, the streaming estimator in f32 with the
+               command line's window, OBS=2048), then `viz` (HTML); gates:
+               the TUM file's stamps increase and its quaternions are
+               unit, ATE against ground truth < 0.15 m (yaw-aligned, from
+               the bootstrap frame on), line-delay error < 5 us, >= 10
+               megasteps with no synchronizing call, one 2-level K1 launch
+               a frame and no plain LK call;
+               phases 8 and 9 run in one spawned process and phase 10 in
+               another, both from the end of phase 4, beside phases 5-7;
+               they print after them;
+ 11. kernels - one line listing every kernel with launches, error and times.
 The last line is {"ok": true, "device": {...}}; any failed phase exits
 non-zero without it. Needs a CUDA device; imports nothing of JAX.
 """
@@ -72,6 +91,8 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
+import struct
 import subprocess
 import sys
 import time
@@ -115,14 +136,19 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+def card_name_and_power_limit():
+    """The card's name and power limit, as nvidia-smi reports them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
 def phase_device():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         sys.exit(2)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_name_and_power_limit()
     print(card, flush=True)
     pin_f32_matmuls()
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
@@ -197,7 +223,10 @@ def textured_pair(H, W, dx, dy, seed, block=8, sigma=1.5):
     return img, shift(img, (dy, dx), order=3, mode="nearest")
 
 
-TRACK_CASES = ("interior", "border", "large_motion", "four_levels")
+TRACK_CASES = ("interior", "border", "large_motion", "four_levels",
+               "two_levels")
+# pyramid levels of each case (three unless named)
+CASE_LEVELS = {"four_levels": 4, "two_levels": 2}
 # the kernel's search window reaches M = 5 px past the patch on each side
 # (`csrc/lk.cu`): a feature that moves farther at one level reads global
 # memory for some of its taps
@@ -213,8 +242,9 @@ def track_case(name, device, N=150):
     32 px off, 8 px at the coarsest level, so that level moves most
     features beyond the staged search window. four_levels: the classic
     tracker's track, the interior features over all four levels (1280x1024
-    down to 160x128) with init = pts. Returns (pyr0, pyr1, pts, init,
-    shift)."""
+    down to 160x128) with init = pts. two_levels: the command line's
+    track (`KLTConfig.pred_levels` 2), the interior case over two levels.
+    Returns (pyr0, pyr1, pts, init, shift)."""
     H, W = 1024, 1280
     dx, dy = 2.4, -1.7
     rng = np.random.default_rng(0)
@@ -237,7 +267,7 @@ def track_case(name, device, N=150):
     off = (32.0 if name == "large_motion" else 2.0) * np.stack(
         [np.cos(ang), np.sin(ang)], 1)
     init = pts if name == "four_levels" else pts + np.array([dx, dy]) + off
-    levels = 4 if name == "four_levels" else 3
+    levels = CASE_LEVELS.get(name, 3)
 
     def f32(x):
         return torch.tensor(x, dtype=torch.float32, device=device)
@@ -381,18 +411,21 @@ def phase_k1_track():
 
     # the kernels line's times: the fused tracker's three-level cases
     three = [r for r in cases if len(r["levels"]) == 3]
-    four = next(r for r in cases if r["case"] == "four_levels")
 
     def mean(key):
         return float(np.mean([r[key] for r in three]))
+
+    def case(name):
+        rec = next(r for r in cases if r["case"] == name)
+        return {k: rec[k] for k in ("max_pos_err_px", "ms", "device_ms",
+                                    "plain_ms", "bound_ms")}
 
     return {"max_abs_err": max(r["max_pos_err_px"] for r in cases),
             "ms": mean("ms"), "device_ms": mean("device_ms"),
             "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
             "bound_by": cases[0]["bound_by"],
-            "four_levels": {k: four[k] for k in (
-                "max_pos_err_px", "ms", "device_ms", "plain_ms",
-                "bound_ms")}}
+            "four_levels": case("four_levels"),
+            "two_levels": case("two_levels")}
 
 
 def tumrs_camera():
@@ -405,14 +438,15 @@ def tumrs_camera():
         k4=-0.008658628531456217, k5=0.0051893686731546585)
 
 
-def image_sim(duration, n_landmarks):
+def image_sim(duration, n_landmarks, speed=1.0):
     """`bench.py --mode image`'s sequence: reference IMU noise without the
-    simulator's pixel noise (the images carry their own), seed 3."""
+    simulator's pixel noise (the images carry their own), seed 3; `speed`
+    scales the motion (`SimConfig.speed`)."""
     noise = {k: v for k, v in synthetic.REFERENCE_NOISE.items()
              if k != "pixel_noise"}
     return synthetic.generate(synthetic.SimConfig(
         duration=duration, n_landmarks=n_landmarks, seed=3, image_h=1024,
-        image_w=1280, **noise))
+        image_w=1280, speed=speed, **noise))
 
 
 def image_vio_config(stream):
@@ -1256,12 +1290,285 @@ def phase_batch():
     return rec
 
 
-def batched_phases(conn):
-    """Child process: the serve and batch phases. Sends ("ok", (serve,
-    batch)) or ("failed", message) through `conn`."""
+# the command line's phase: bench.py --mode image's blobs scene, its
+# motion slowed to 0.4x: at the bench's own motion (~1.3 rad/s, ~75 px a
+# frame) the 10 Hz tracks live one frame (median), and neither package's
+# visual bootstrap finds 20 tracks across its 11-frame window. At 0.4x
+# both packages initialize at frame 25; 10 s then leave 30 megasteps after
+# the 40 warmup frames
+CLI_S = 10.0
+CLI_SPEED = 0.4
+ROOT = Path(__file__).resolve().parent
+CLI_DIR = ROOT / "build" / "cli"
+# absolute stamps of the bag: the sequence starts at this ROS time (s)
+CLI_T0_S = 1_600_000_000
+_U32 = struct.Struct("<I")
+
+
+def _bag_header(**fields):
+    return b"".join(_U32.pack(len(k) + 1 + len(v)) + k.encode() + b"=" + v
+                    for k, v in fields.items())
+
+
+def _bag_record(header, data):
+    return _U32.pack(len(header)) + header + _U32.pack(len(data)) + data
+
+
+def _ros_stamp(t_ns):
+    return struct.pack("<II", t_ns // 1_000_000_000, t_ns % 1_000_000_000)
+
+
+def _ros_msg_header(t_ns, frame_id):
+    return _U32.pack(0) + _ros_stamp(t_ns) + _U32.pack(len(frame_id)) \
+        + frame_id
+
+
+def imu_message(t_ns, gyro, accel):
+    """A serialized sensor_msgs/Imu (no orientation, zero covariances)."""
+    z4, z9 = np.zeros(4).tobytes(), np.zeros(9).tobytes()
+    return (_ros_msg_header(t_ns, b"imu") + z4 + z9
+            + np.asarray(gyro, "<f8").tobytes() + z9
+            + np.asarray(accel, "<f8").tobytes() + z9)
+
+
+def image_message(t_ns, img):
+    """A serialized sensor_msgs/Image, mono8."""
+    h, w = img.shape
+    return (_ros_msg_header(t_ns, b"cam") + _U32.pack(h) + _U32.pack(w)
+            + _U32.pack(5) + b"mono8" + b"\x00" + _U32.pack(w)
+            + _U32.pack(h * w) + np.ascontiguousarray(img, np.uint8).tobytes())
+
+
+def write_bag(path, chunks):
+    """A rosbag 2.0 file (http://wiki.ros.org/Bags/Format/2.0) with
+    uncompressed chunks. chunks: lists of (conn id, topic, type, t_ns,
+    payload); each chunk declares the connections it uses, as rosbag
+    record writes them. No index records (the reader scans chunks)."""
+    conns = {m[0] for c in chunks for m in c}
+    with open(path, "wb") as f:
+        f.write(b"#ROSBAG V2.0\n")
+        hdr = _bag_header(op=b"\x03", index_pos=struct.pack("<Q", 0),
+                          conn_count=_U32.pack(len(conns)),
+                          chunk_count=_U32.pack(len(chunks)))
+        f.write(_bag_record(hdr, b" " * (4096 - len(hdr))))
+        for msgs in chunks:
+            body, seen = [], set()
+            for cid, topic, mtype, t_ns, payload in msgs:
+                if cid not in seen:
+                    seen.add(cid)
+                    body.append(_bag_record(
+                        _bag_header(op=b"\x07", conn=_U32.pack(cid),
+                                    topic=topic.encode()),
+                        _bag_header(topic=topic.encode(), type=mtype.encode(),
+                                    md5sum=b"0" * 32,
+                                    message_definition=b"")))
+                t = struct.pack("<Q", (t_ns % 1_000_000_000) << 32
+                                | (t_ns // 1_000_000_000))
+                body.append(_bag_record(
+                    _bag_header(op=b"\x02", conn=_U32.pack(cid), time=t),
+                    payload))
+            data = b"".join(body)
+            f.write(_bag_record(_bag_header(op=b"\x05", compression=b"none",
+                                            size=_U32.pack(len(data))), data))
+
+
+def write_cli_config(d, sim, cam):
+    """The reference's three-file config (main, camera, IMU) for the
+    sequence: knots 0.05 s, image weight 800, the reference's IMU noise,
+    the line delay free in [0, 3.5e-5], T_CtoI from the sim's extrinsics;
+    cam_tumrs.yaml's Kannala-Brandt camera and tracker knobs."""
+    T = np.eye(4)
+    T[:3, :3] = so3np.quat_to_matrix(so3np.quat_exp(
+        np.asarray(sim.cfg.ext_rot, np.float64))[None])[0]
+    T[:3, 3] = sim.cfg.ext_pos
+    (d / "cam.yaml").write_text(f"""%YAML:1.0
+---
+model_type: KANNALA_BRANDT
+camera_name: camera
+image_width: 1280
+image_height: 1024
+projection_parameters:
+   k2: {cam.k2!r}
+   k3: {cam.k3!r}
+   k4: {cam.k4!r}
+   k5: {cam.k5!r}
+   mu: {cam.mu!r}
+   mv: {cam.mv!r}
+   u0: {cam.u0!r}
+   v0: {cam.v0!r}
+max_cnt: 150
+min_dist: 25
+freq: 10
+F_threshold: 1.0
+equalize: 1
+reject_wf: 0
+""")
+    (d / "imu.yaml").write_text(f"%YAML:1.0\n---\nimu_topic: /imu0\n"
+                                f"gravity_mag: {sim.cfg.gravity!r}\n")
+    data = ", ".join(repr(float(x)) for x in T.reshape(-1))
+    (d / "main.yaml").write_text(f"""%YAML:1.0
+---
+config_path: {d}/
+imu_yaml: imu.yaml
+camera_yaml: cam.yaml
+knot_distance: 0.05
+image_weight: 800
+gyroscope_noise_density: 4.0e-3
+accelerometer_noise_density: 8.0e-2
+gyroscope_random_walk: 2.0e-5
+accelerometer_random_walk: 4.0e-4
+ld_init: 0.0
+fix_ld: 0
+ld_lower: 0.0
+ld_upper: 3.5e-5
+T_CtoI: !!opencv-matrix
+   rows: 4
+   cols: 4
+   dt: d
+   data: [ {data} ]
+""")
+    return d / "main.yaml"
+
+
+def cli(*args, timeout):
+    """Run `python -m ctrlvio_tpu_torch <args>` from the repository root;
+    returns (seconds, stderr). The process is killed if this one is
+    stopped first."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "ctrlvio_tpu_torch",
+                             *map(str, args)], cwd=ROOT, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    (CLI_DIR / f"{args[0]}.log").write_text(out + err)
+    if proc.returncode != 0:
+        raise SystemExit(f"`python -m ctrlvio_tpu_torch {args[0]}` exited "
+                         f"with {proc.returncode}:\n{err[-3000:]}")
+    return time.perf_counter() - t0, err
+
+
+def phase_cli():
+    """The port's command line on the card, as a user runs the
+    reference's full operating mode: `bench.py --mode image`'s blobs
+    scene (1280x1024 Kannala-Brandt, seed 3, 1500 landmarks, clutter) for
+    10 s at 0.4x its motion (`CLI_SPEED`), rendered and written as a
+    rosbag with a three-file config, then
+    `convert`, `run --bootstrap visual --out traj.tum --check-syncs` (the
+    card, f32, stream on: FusedTracker with the 2-level K1 track, the
+    visual bootstrap, 40 warmup frames, then the megastep) and `viz`
+    (HTML). Gates on the trajectory the user gets: stamps increasing,
+    quaternions unit; ATE against ground truth < 0.15 m, yaw-aligned, over
+    the TUM samples from the bootstrap frame on; line-delay error < 5 us
+    (`run`'s line_delay= line); >= 10 megasteps and no synchronizing call
+    inside any; one 2-level K1 track launch a frame, no other K1 launch
+    and no plain LK call (`run`'s stats line, counted in its process)."""
+    from ctrlvio_tpu_torch.utils.viz import load_tum
+
+    CLI_DIR.mkdir(parents=True, exist_ok=True)
+    cam = tumrs_camera()
+    t0 = time.perf_counter()
+    sim = image_sim(CLI_S, 1500, speed=CLI_SPEED)
+    imgs = render.render_sequence(sim, 1024, 1280, camera=cam, seed=1,
+                                  big_every=6, texture=6.0)
+    t_render = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    base = CLI_T0_S * 1_000_000_000
+    msgs = [(0, "/imu0", "sensor_msgs/Imu", base + int(t),
+             imu_message(base + int(t), g, a))
+            for t, g, a in zip(sim.imu_t_ns, sim.gyro, sim.accel)]
+    msgs += [(1, "/cam0/image_raw", "sensor_msgs/Image", base + fr.t_ns,
+              image_message(base + fr.t_ns, imgs[i]))
+             for i, fr in enumerate(sim.frames)]
+    msgs.sort(key=lambda m: m[3])
+    bag, npz = CLI_DIR / "seq.bag", CLI_DIR / "seq.npz"
+    tum, html = CLI_DIR / "traj.tum", CLI_DIR / "traj.html"
+    write_bag(bag, [msgs[i:i + 400] for i in range(0, len(msgs), 400)])
+    main_yaml = write_cli_config(CLI_DIR, sim, cam)
+    t_bag = time.perf_counter() - t0
+    del imgs, msgs
+
+    convert_s, _ = cli("convert", bag, npz, timeout=300)
+    run_s, err = cli("run", main_yaml, npz, "--bootstrap", "visual",
+                     "--out", tum, "--check-syncs", timeout=900)
+    viz_s, _ = cli("viz", tum, "-o", html, timeout=120)
+    stats = json.loads(next(ln for ln in err.splitlines()
+                            if ln.startswith("[run] stats "))[12:])
+    ld = float(re.search(r"line_delay=([-\d.]+) us", err).group(1)) * 1e-6
+
+    if stats["init_t_ns"] is None:
+        raise SystemExit(f"cli: the visual bootstrap never initialized: "
+                         f"{stats}")
+    t, p, q = load_tum(str(tum))
+    t_rel = t - CLI_T0_S
+    after = t_rel >= (stats["init_t_ns"] - base) * 1e-9
+    gt = np.stack([sim.pose_at(x)[1] for x in t_rel[after]])
+    ate = ate_rmse(p[after], gt, align="yaw")
+    ld_err = abs(ld - sim.cfg.line_delay)
+    c = stats["counts"]
+    frames = stats["frames"]
+    rec = {"phase": "cli", "duration_s": CLI_S, "frames": frames,
+           "render_s": t_render, "bag_s": t_bag,
+           "bag_mb": bag.stat().st_size / 2**20, "convert_s": convert_s,
+           "run_s": run_s, "viz_s": viz_s, "run_wall_s": stats["wall_s"],
+           "poses": stats["poses"], "bootstrap_frame": stats["init_frame"],
+           "tum_rows": len(t), "ate_rows": int(after.sum()), "ate_m": ate,
+           "line_delay_s": ld, "line_delay_true_s": sim.cfg.line_delay,
+           "ld_err_s": ld_err, "megasteps": c.get("megastep", 0),
+           "megastep_syncs": c.get("megastep_syncs", 0),
+           "sync_solves": c.get("sync_solve", 0),
+           "sync_solves_after_handoff": c.get("sync_solve_after_handoff", 0),
+           "bootstrap_visual": c.get("bootstrap_visual", 0),
+           "bootstrap_rejected": c.get("bootstrap_rejected", 0),
+           "marg_overflows": c.get("marg_overflow", 0),
+           "frontend_dispatch_syncs": stats["frontend_dispatch_syncs"],
+           "frame_ms_median": stats["frame_ms_median"],
+           "sustained_fps": stats["sustained_fps"],
+           "k1_track_launches": stats["k1_track_launches"],
+           "k1_track_launches_by_levels": stats["k1_track_launches_by_levels"],
+           "k1_level_launches": stats["k1_level_launches"],
+           "plain_lk_track_calls": stats["plain_lk_track_calls"],
+           "plain_lk_level_calls": stats["plain_lk_level_calls"],
+           "html_bytes": html.stat().st_size,
+           "card": card_name_and_power_limit()}
+    steps = np.diff(t)
+    unit = np.abs(np.linalg.norm(q, axis=1) - 1.0).max()
+    if not (len(t) > 100 and bool((steps > 0).all()) and unit < 1e-6
+            and np.isfinite(p).all()):
+        raise SystemExit(f"cli: the TUM trajectory is malformed (stamps "
+                         f"increasing, unit quaternions): {rec}")
+    if not (ate < 0.15 and ld_err < 5e-6):
+        raise SystemExit(f"cli fails its accuracy gates (ATE < 0.15 m, "
+                         f"line-delay error < 5 us): {rec}")
+    if not (rec["megasteps"] >= 10 and rec["megastep_syncs"] == 0):
+        raise SystemExit(f"cli did not stream (>= 10 megasteps, no "
+                         f"synchronizing call inside one): {rec}")
+    if not (rec["k1_track_launches"] == frames
+            and rec["k1_track_launches_by_levels"] == {"2": frames}
+            and rec["k1_level_launches"] == 0
+            and rec["plain_lk_track_calls"] == 0
+            and rec["plain_lk_level_calls"] == 0):
+        raise SystemExit(f"cli did not run through one 2-level K1 track "
+                         f"launch a frame: {rec}")
+    for f in (bag, npz):
+        f.unlink()
+    return rec
+
+
+def side_phases(conn, names):
+    """Child process: run the named phases in order. Sends ("ok", their
+    records) or ("failed", message) through `conn`. SIGTERM from the
+    parent becomes SystemExit, so that a phase's subprocesses are
+    stopped with it."""
+    import signal
+
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
     pin_f32_matmuls()
     try:
-        conn.send(("ok", (phase_serve(), phase_batch())))
+        conn.send(("ok", [globals()[n]() for n in names]))
     except SystemExit as e:
         conn.send(("failed", str(e)))
     except Exception:  # the boundary of the child: report, the parent fails
@@ -1272,57 +1579,66 @@ def batched_phases(conn):
         conn.close()
 
 
-def start_batched_phases():
-    """Run the serve and batch phases in a spawned process beside the image
-    phases. Every phase is the host's dispatch of small kernels with the
-    card idle ~95 % of the time, so two processes dispatch side by side
-    and the script stays inside its time limit; both sides' host times
-    are taken under that contention. Returns (process, receiving end)."""
+def start_side(*names):
+    """Run phases in a spawned process beside the image phases. Every
+    phase is the host's dispatch of small kernels with the card idle ~95 %
+    of the time, so processes dispatch side by side and the script stays
+    inside its time limit; every side's host times are taken under that
+    contention. Returns (process, receiving end)."""
     import multiprocessing
 
     ctx = multiprocessing.get_context("spawn")
     recv_end, send_end = ctx.Pipe(duplex=False)
-    proc = ctx.Process(target=batched_phases, args=(send_end,), daemon=True)
+    proc = ctx.Process(target=side_phases, args=(send_end, names),
+                       daemon=True)
     proc.start()
     send_end.close()
     return proc, recv_end
 
 
+def side_result(side):
+    """The records of a side process's phases; fails if it failed."""
+    proc, recv = side
+    try:
+        status, result = recv.recv()
+    except EOFError:
+        proc.join()
+        raise SystemExit(f"a side process died (exit code {proc.exitcode})")
+    if status != "ok":
+        raise SystemExit(result)
+    return result
+
+
 def main():
     phase_device()
     render_proc = start_render()
-    batched_proc = None
+    sides = []
     try:
         phase_build()
         level = phase_k1_level()
         k1 = phase_k1_track()
         # the kernel checks above have the card to themselves
-        batched_proc, batched_recv = start_batched_phases()
+        sides = [start_side("phase_serve", "phase_batch"),
+                 start_side("phase_cli")]
         launches = phase_main()["k1_track_launches"]
         e2e = phase_e2e()
         textured = phase_image_textured(render_proc)
-        try:
-            status, result = batched_recv.recv()
-        except EOFError:
-            batched_proc.join()
-            raise SystemExit(f"the serve and batch process died (exit code "
-                             f"{batched_proc.exitcode})")
-        if status != "ok":
-            raise SystemExit(result)
-        serve, batched = result
+        serve, batched = side_result(sides[0])
+        (cli_rec,) = side_result(sides[1])
     finally:
         if render_proc.is_alive():
             render_proc.terminate()
         render_proc.join()
-        if batched_proc is not None:
+        for proc, _ in sides:
             # it has sent its result, or the script is failing: 30 s to end
-            batched_proc.join(timeout=30)
-            if batched_proc.is_alive():
-                batched_proc.terminate()
-                batched_proc.join()
+            proc.join(timeout=30)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join()
     check_serve_device_ops(serve, e2e["profile_streamed_frame"]["device_ops"])
     emit(serve)
     emit(batched)
+    emit(cli_rec)
     kernels = [{
         "name": "K1 lk_track", "route": "cuda",
         "source": "ctrlvio_tpu_torch/csrc/lk.cu",
@@ -1334,12 +1650,14 @@ def main():
         "level_ms": level["ms"], "level_device_ms": level["device_ms"],
         "level_max_abs_err": level["max_abs_err"],
         "four_levels": k1["four_levels"],
+        "two_levels": k1["two_levels"],
         "e2e_launches": e2e["k1_launches"],
         "textured_launches": textured["k1_track_launches_by_levels"],
         "classic_launches": textured["classic"][
             "k1_track_launches_by_levels"],
         "serve_launches": serve["k1_launches"],
-        "batch_launches": batched["k1_launches"]}]
+        "batch_launches": batched["k1_launches"],
+        "cli_launches": cli_rec["k1_track_launches_by_levels"]}]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -34,8 +34,9 @@ Raw images enter through `attach_frontend` and `process_image`, with the
 slot-identity `FusedTracker` or the classic `FeatureTracker` (the latter
 whenever the F-RANSAC gate is asked for, as in the JAX package). B
 streaming instances serve in lockstep behind `parallel.stream_batch.
-BatchedStream`, which sets their `_dispatch_hook`. Not ported yet:
-`residual_summary`.
+BatchedStream`, which sets their `_dispatch_hook`. `residual_summary`
+re-linearizes the current window in f64 for the per-factor-type report
+(`VIOConfig.debug_residual_summary` prints it every frame).
 """
 
 from __future__ import annotations
@@ -137,6 +138,10 @@ class VIOConfig:
     imu_overflow: str = "raise"
     # a frame is solved once the IMU buffer covers t + 0.04 s by this margin
     imu_lookahead: float = 0.06
+    # print the per-factor-type residual report after every frame
+    # (≙ ResidualSummary, `trajectory_estimator.cpp:69-95`); a streamed
+    # frame prints the RMS its megastep summary carries, when consumed
+    debug_residual_summary: bool = False
     # a self-bootstrap is rejected (and retried on a later window) when the
     # first-window f64 BA ends above this RMS weighted residual per image
     # observation coordinate (1.0 = residuals at the measurement sigma)
@@ -165,11 +170,12 @@ class CtrlVIO:
     synchronous schedule), "sync_solve_after_handoff", "megastep" (this
     instance's streamed frames, alone or as a lane of a batched call),
     "bootstrap_static" / "bootstrap_visual" (initial states produced),
-    "bootstrap_rejected", "marg_overflow" (stream summaries reporting a
-    marginalization cap overflow) and, with `check_dispatch_syncs` set on a CUDA
-    device, "megastep_syncs": synchronizing CUDA calls inside the streamed
-    dispatch (`torch.cuda.set_sync_debug_mode("warn")`), whose messages
-    collect in `sync_warnings`."""
+    "bootstrap_rejected", "marg_overflow" (the bootstrap prior and stream
+    summaries reporting a marginalization cap overflow) and, with
+    `check_dispatch_syncs` set on a CUDA device, "megastep_syncs":
+    synchronizing CUDA calls inside the streamed dispatch
+    (`torch.cuda.set_sync_debug_mode("warn")`), whose messages collect in
+    `sync_warnings`."""
 
     def __init__(self, cfg: VIOConfig, q_CtoI, p_CinI, device="cuda"):
         self.device = resolve_device(device)
@@ -535,6 +541,8 @@ class CtrlVIO:
         t0 = time.perf_counter()
         self._slide_window()
         self.timing["slide"] += time.perf_counter() - t0
+        if self.cfg.debug_residual_summary:
+            print(self.residual_summary().report(), file=sys.stderr)
         q, p = self.traj.pose(t_ns)
         return q[0], p[0]
 
@@ -555,6 +563,49 @@ class CtrlVIO:
             self._apply_summary_batch(batch)
 
     # ------------------------------------------------------------------
+    def residual_summary(self):
+        """Per-factor-type residual statistics at the current estimate
+        (≙ the reference's per-solve ResidualSummary,
+        `trajectory_estimator.cpp:69-95`, its de-facto regression signal).
+        Re-packs the current window and linearizes it in f64 on the device
+        at the host-mirror state; a diagnostic path, off the hot loop."""
+        from ctrlvio_tpu_torch.solver import assemble
+        from ctrlvio_tpu_torch.utils.summary import ResidualSummary
+
+        self.flush()
+        wc, f64 = self.wc, torch.float64
+        win0 = self.traj.ctrl_idx(self.kf_t_ns[0])
+        kq, kp, _ = self.traj.window(win0, wc.KW, np.float64)
+        if self.use_native:
+            img, dinv0, _ = self.features.pack_image_factors(
+                self.kf_t_ns, self.traj.dt, win0, wc, np.float64)
+        else:
+            img, dinv0, _ = packing.pack_image_factors(
+                list(self.features.tracks.values()), self.kf_t_ns,
+                self.traj.dt, win0, wc, np.float64)
+        imu = packing.pack_imu_factors(
+            self.imu_t_ns, self.imu_gyro, self.imu_accel, self.kf_t_ns,
+            win0 * int(self.traj.dt_ns), self.traj.max_time_ns, self.traj.dt,
+            win0, wc, np.float64, on_overflow="subsample")
+        bias = packing.bias_sqrt_info(self.imu_t_ns, self.kf_t_ns,
+                                      self.cfg.sigma_bg, self.cfg.sigma_ba,
+                                      wc, np.float64)
+        prior = self.prior
+        if self.cfg.stream and self._dev_state is not None:
+            prior = self._dev_state.prior
+        prior = (empty_prior(wc, f64, self.device) if prior is None
+                 else to_dtype(prior, f64))
+        params = WindowParams(
+            knots_q=self._t(kq, f64), knots_p=self._t(kp, f64),
+            bg=self._t(self.bg, f64), ba=self._t(self.ba, f64),
+            dinv=self._t(dinv0, f64), ld=self._t(self.traj.line_delay, f64))
+        lin = assemble.linearize(
+            params, self._dev(img, f64), self._dev(imu, f64),
+            self._dev(bias, f64), prior, to_dtype(self._ext, f64),
+            self._t(self.gravity, f64), self._imu_info.to(f64),
+            self._sqrt_info_img.to(f64), wc, self._ba_opts)
+        return ResidualSummary.from_linearization(lin, wc)
+
     def _forecast_pose(self, t_ns: int):
         """Online pose at t_ns: midpoint IMU integration from the newest
         image-constrained spline state."""
@@ -723,11 +774,12 @@ class CtrlVIO:
                                            params.knots_q[0],
                                            params.knots_p[0], 0, 0)
         p_out = p_out._replace(knots_q=q_new, knots_p=p_new)
-        prior64 = marginalize.build_prior_sqrt(
+        prior64, ovf = marginalize.build_prior_sqrt(
             p_out, img_t, imu_t, bias_t, empty_prior(wc, f64, self.device),
             self._t(drop), ext64, grav64, info64, w64, wc,
             opts._replace(cauchy_c=1.0), knot_shift=k1, bias_shift=1,
-            caps=cfg.marg_caps, n_drop_knots=k1)
+            return_overflow=True, caps=cfg.marg_caps, n_drop_knots=k1)
+        self._count_marg_overflow(ovf.cpu().numpy())
 
         self.last_solve_stats = SimpleNamespace(
             cost0=float(stats.cost0), cost=float(stats.cost),
@@ -1149,24 +1201,33 @@ class CtrlVIO:
         self.last_solve_stats = SimpleNamespace(
             cost0=s["cost0"], cost=s["cost"], accepted=s["accepted"],
             rms=s["rms"])  # per type [image, imu, bias, prior]
-        ovf = s["marg_ovf"]
-        if float(ovf.sum()) > 0:
-            # the marginalization subset exceeded its compacted caps: the
-            # overflowed factors were dropped from the prior
-            self.counts["marg_overflow"] += 1
-            what = ", ".join(f"{n}+{int(v)}" for n, v in
-                             zip(("OBS", "IMU", "LM"), ovf) if v > 0)
-            caps = self.cfg.marg_caps or marginalize.marg_caps(self.wc)
-            warnings.warn(
-                f"marginalization subset overflowed its caps ({what}; "
-                f"marg_caps={tuple(caps)}); the excess factors were dropped "
-                "from the prior: raise VIOConfig.marg_caps", RuntimeWarning,
-                stacklevel=2)
+        self._count_marg_overflow(s["marg_ovf"])
+        if self.cfg.debug_residual_summary:
+            r = s["rms"]
+            print(f"[ResidualSummary/stream] image={r[0]:.3f} imu={r[1]:.3f}"
+                  f" bias={r[2]:.3f} prior={r[3]:.3f}", file=sys.stderr)
         for m, _, _ in batch:
             if m["marg_old"]:
                 q, p = self.traj.pose(m["kf0_t_ns"])
                 self.keyframes.append(KeyframePose(m["kf0_t_ns"], q[0], p[0]))
         self.timing["consume_apply"] += time.perf_counter() - t1
+
+    def _count_marg_overflow(self, ovf):
+        """Count and warn when a square-root marginalization (the
+        bootstrap prior or a streamed frame's) exceeded its compacted caps:
+        `ovf` holds the excess [obs, imu, lm], whose factors were dropped
+        from the prior."""
+        if float(np.sum(ovf)) <= 0:
+            return
+        self.counts["marg_overflow"] += 1
+        what = ", ".join(f"{n}+{int(v)}" for n, v in
+                         zip(("OBS", "IMU", "LM"), ovf) if v > 0)
+        caps = self.cfg.marg_caps or marginalize.marg_caps(self.wc)
+        warnings.warn(
+            f"marginalization subset overflowed its caps ({what}; "
+            f"marg_caps={tuple(caps)}); the excess factors were dropped "
+            "from the prior: raise VIOConfig.marg_caps", RuntimeWarning,
+            stacklevel=3)
 
 
 def _empty_image_factors(wc: WindowConfig, dtype) -> ImageFactors:

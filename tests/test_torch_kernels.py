@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import TRACK_CASES, SEARCH_MARGIN, textured_pair, track_case
+from chip_smoke import (CASE_LEVELS, SEARCH_MARGIN, TRACK_CASES,
+                         textured_pair, track_case)
 from ctrlvio_tpu_torch.frontend import klt
 from ctrlvio_tpu_torch.ops import lk
 
@@ -74,8 +75,8 @@ def test_k1_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 def test_k1_track_matches_plain_version(cuda, case):
     """The fused forward-backward track (`chip_smoke.track_case`: three
     levels of a 1280x1024 pair, N=150, 10 iterations; four levels with
-    init = pts, the classic tracker's track) in one launch, counted under
-    its level count: ok as
+    init = pts, the classic tracker's track; two levels, the command
+    line's) in one launch, counted under its level count: ok as
     the plain version's except within 1e-3 px of fb_thresh or of the
     in-bounds edge, or within 1e-4 relative of min_eig; positions within
     1e-3 px where both say ok; min_eig within 1e-4 relative; the known
@@ -85,7 +86,7 @@ def test_k1_track_matches_plain_version(cuda, case):
     cfg = klt.KLTConfig(pred_levels=3)
     args = (pyr0, pyr1, pts, init, 10, lk.HALF, cfg.fb_thresh, cfg.min_eig)
     L = len(pyr0)
-    assert L == (4 if case == "four_levels" else 3)
+    assert L == CASE_LEVELS.get(case, 3)
     launches = lk.lk_track.launches
     by_levels = lk.lk_track.launches_by_levels.get(L, 0)
     out, ok, eig = lk.lk_track(*args)
