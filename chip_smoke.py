@@ -82,7 +82,19 @@ Phases, each printed as one JSON line:
                phases 8 and 9 run in one spawned process and phase 10 in
                another, both from the end of phase 4, beside phases 5-7;
                they print after them;
- 11. kernels - one line listing every kernel with launches, error and times.
+ 11. multichip - the multi-device layer over torch.distributed, in a third
+               spawned process beside them: (a) NCCL at world size 1 on
+               the bench's batch window (f32, 15 LM iterations): the
+               factor-sharded solve timed in turns with the single solve,
+               its synchronizing calls, and, under deterministic
+               algorithms, the sharded solve equal to the single one, the
+               sharded step to an unsharded step and the seq-sharded
+               batch (B = 8) to the batch lane by lane; the megastep
+               chain; (b) `dryrun_multichip(2, backend="gloo")`: two rank
+               processes sharing the card (NCCL takes one rank a card),
+               the fac-sharded solve against the unsharded one under the
+               dry run's 1e-4 gates;
+ 12. kernels - one line listing every kernel with launches, error and times.
 The last line is {"ok": true, "device": {...}}; any failed phase exits
 non-zero without it. Needs a CUDA device; imports nothing of JAX.
 """
@@ -91,16 +103,20 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import re
 import struct
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from collections import defaultdict
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ctrlvio_tpu_torch.estimator import native
 from ctrlvio_tpu_torch.estimator.initializer import bootstrap_from_sim
@@ -110,13 +126,16 @@ from ctrlvio_tpu_torch.frontend.fused import FusedTracker, rotation_flow
 from ctrlvio_tpu_torch.frontend.tracker import FeatureTracker, TrackerConfig
 from ctrlvio_tpu_torch.models.cameras import Equidistant
 from ctrlvio_tpu_torch.ops import lk, so3np
-from ctrlvio_tpu_torch.parallel import batch
+from ctrlvio_tpu_torch.parallel import batch, multihost, sharded_lm
+from ctrlvio_tpu_torch.parallel import mesh as pmesh
 from ctrlvio_tpu_torch.parallel.stream_batch import BatchedStream
 from ctrlvio_tpu_torch.sim import render, synthetic, tiny
-from ctrlvio_tpu_torch.solver import lm
-from ctrlvio_tpu_torch.solver.layout import SolveOptions, WindowConfig
+from ctrlvio_tpu_torch.solver import assemble, lm
+from ctrlvio_tpu_torch.solver.layout import (SolveOptions, WindowConfig,
+                                             column_mask, retract)
 from ctrlvio_tpu_torch.utils import cuda_build
 from ctrlvio_tpu_torch.utils.ate import ate_rmse
+from ctrlvio_tpu_torch.utils.device import recorded_syncs
 from ctrlvio_tpu_torch.utils.precision import pin_f32_matmuls
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and f32 rate outside the
@@ -1187,10 +1206,14 @@ def sim_frames(sims, k):
              s.frames[k].rows) for s in sims]
 
 
-def batch_problem(B, prob):
-    """The first six solve arguments of `prob` stacked B times."""
-    return [batch.stack([x] * B) for x in (prob.params, prob.img, prob.imu,
-                                     prob.bias, prob.prior, prob.fixed)]
+def solve_devs(ref, got):
+    """Each field's largest deviation of `got` (WindowParams, optionally
+    with a leading lane axis) from `ref`: absolute, but relative to the
+    largest entry for the inverse depths."""
+    dev = {k: float((b - a).abs().max())
+           for k, a, b in zip(ref._fields, ref, got)}
+    dev["dinv"] /= max(float(ref.dinv.abs().max()), 1e-30)
+    return dev
 
 
 def time_min(fn, reps=3):
@@ -1233,32 +1256,23 @@ def phase_batch():
         *prob.aux, cfg, opts), reps=1)
     cost0, cost1 = float(s1.cost0), float(s1.cost)
 
-    def lane_dev(pb):
-        """Each field's largest deviation of any lane from the single
-        solve: absolute, but relative to the largest entry for the
-        inverse depths."""
-        dev = {k: float((b - a[None]).abs().max())
-               for k, a, b in zip(p1._fields, p1, pb)}
-        dev["dinv"] /= max(float(p1.dinv.abs().max()), 1e-30)
-        return dev
-
     sweep, wps, results = [], {}, {}
     for B in (1, 2, 4, 8, 16):
         solve = batch.make_batched_solver(cfg, opts)
-        args = batch_problem(B, prob)
+        args = multihost.stacked(prob, B)
         tB, (pb, sb) = time_min(lambda: solve(*args, *prob.aux))
         wps[B] = B / tB
         costs = sb.cost.double().cpu().numpy()
         rec = {"B": B, "ms": tB * 1e3, "windows_per_s": wps[B],
                "efficiency": wps[B] / (B * wps[1]),
-               "max_lane_dev": lane_dev(pb),
+               "max_lane_dev": solve_devs(p1, pb),
                "max_cost_dev_over_cost0":
                    float(np.abs(costs - cost1).max()) / cost0,
                "cost_above_cost0": int((sb.cost > sb.cost0).sum())}
         sweep.append(rec)
         results[B] = costs
     solve_cg = batch.make_batched_solver(cfg, opts._replace(solver="cg"))
-    args8 = batch_problem(8, prob)
+    args8 = multihost.stacked(prob, 8)
     t_cg, (_, s_cg) = time_min(lambda: solve_cg(*args8, *prob.aux))
     cg_costs = s_cg.cost.double().cpu().numpy()
     cg_off = np.abs(cg_costs - results[8])
@@ -1287,6 +1301,185 @@ def phase_batch():
             and rec["k1_launches"] == 0):
         raise SystemExit(f"batch: CG's final costs are not within 1 % of "
                          f"chol's decrease of chol's: {rec}")
+    return rec
+
+
+# the multi-device phase: the bench's batch window, as phase_batch solves it
+MULTICHIP_CFG = WindowConfig(KW=48, NB=11, LM=256, OBS=768, MIMU=512, dt=0.05)
+MULTICHIP_ITERS = 15
+
+
+def solve_agrees(dev, dcost_over_cost0):
+    """phase_batch's gates: knots and biases within 1e-3 absolute, inverse
+    depths within 1e-3 of the largest, the cost within 1e-4 of cost0."""
+    return (max(dev[k] for k in ("knots_q", "knots_p", "bg", "ba", "dinv"))
+            <= 1e-3 and dcost_over_cost0 <= 1e-4)
+
+
+def phase_multichip():
+    """The multi-device layer (`parallel/mesh.py`, `sharded_lm.py`,
+    `batch.py`'s mesh, `multihost.py`) on the one card. (a) The production
+    backend: NCCL at world size 1, mesh (1, 1), on the bench's batch window
+    (`MULTICHIP_CFG`, f32, 15 LM iterations). Times of the single
+    `lm.solve_window_fixed` and of the factor-sharded solve, in turns
+    (single, sharded, sharded, single, single, sharded; min of 3 after a
+    warm call each), and the synchronizing CUDA calls of the sharded
+    solve's first and of a steady call. CUDA's `index_add` sums by atomics
+    in no fixed order, so two runs of the same solve differ by f32
+    rounding, and near this noiseless window's f32 floor an accept can
+    flip: the comparisons run once more under
+    `torch.use_deterministic_algorithms`, where the sharded solve must
+    equal the single one (the same accepted count and phase_batch's
+    gates; a difference of 0 is expected, the all-reduce over one rank
+    being a copy), the factor-sharded step must agree with one unsharded
+    dense step, and the seq-sharded batch at B = 8 lane by lane with
+    `make_batched_solver` without a mesh; then the two-megastep chain's
+    cost must fall. (b) The factor split for real:
+    `multihost.dryrun_multichip(2, backend="gloo")`, two rank processes
+    sharing cuda:0 (NCCL refuses two ranks on one card), their CUDA
+    tensors all-reduced through gloo, on the same window and depth, held
+    to the dry run's gates."""
+    # cuBLAS's deterministic workspace, for the exact comparisons; set
+    # before this process's first cuBLAS call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg, opts = MULTICHIP_CFG, SolveOptions(max_iters=MULTICHIP_ITERS)
+    lk.reset_counts()
+    t_run0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="multichip_") as store:
+        dev = pmesh.init_distributed(0, 1, store, device="cuda")
+        try:
+            backend = str(dist.get_backend())
+            m = pmesh.make_mesh(1, 1)
+            prob = tiny.tiny_problem(torch.float32, cfg, device=dev)
+            args = (prob.params, prob.img, prob.imu, prob.bias, prob.prior,
+                    prob.fixed, *prob.aux)
+            solve_sh = sharded_lm.make_sharded_solve(m, cfg, opts)
+            fns = {"single": lambda: lm.solve_window_fixed(*args, cfg, opts),
+                   "sharded": lambda: solve_sh(*args)}
+            fns["single"]()
+            with recorded_syncs() as syncs_first:
+                fns["sharded"]()
+                torch.cuda.synchronize()
+            with recorded_syncs() as syncs:
+                fns["sharded"]()
+            torch.cuda.synchronize()
+            ts, outs = defaultdict(list), defaultdict(list)
+            for order in (("single", "sharded"), ("sharded", "single"),
+                          ("single", "sharded")):
+                for k in order:
+                    t0 = time.perf_counter()
+                    outs[k].append(fns[k]())
+                    torch.cuda.synchronize()
+                    ts[k].append(time.perf_counter() - t0)
+            (pa, sa), (pb, sb) = outs["single"][:2]
+            p_d, s_d = outs["sharded"][0]
+            cost0 = float(sa.cost0)
+            default_mode = {
+                "single_repeat_dev": solve_devs(pa, pb),
+                "single_repeat_accepted": [int(sa.accepted),
+                                           int(sb.accepted)],
+                "sharded_dev": solve_devs(pa, p_d),
+                "sharded_dcost_over_cost0":
+                    abs(float(s_d.cost) - float(sa.cost)) / cost0,
+                "sharded_accepted": int(s_d.accepted)}
+
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.use_deterministic_algorithms(True, warn_only=True)
+                try:
+                    p1, s1 = fns["single"]()
+                    p_sh, s_sh = fns["sharded"]()
+                    lam = torch.tensor(1e-4, dtype=torch.float32, device=dev)
+                    o1 = SolveOptions(max_iters=1)
+                    p_st, c_st = sharded_lm.make_factor_sharded_step(
+                        m, cfg, o1)(*args, lam)
+                    cmask = column_mask(cfg, o1, prob.fixed, torch.float32)
+                    lin = assemble.linearize(*args[:5], *args[6:], cfg, o1)
+                    dx, dx_lm = lm.schur_solve(
+                        *lm.build_normal_equations(lin, cfg, cmask), lam,
+                        cmask)
+                    p_ref = retract(prob.params, dx, cfg, o1)._replace(
+                        dinv=prob.params.dinv + dx_lm)
+                    args8 = multihost.stacked(prob, 8)
+                    p_b, s_b = batch.make_batched_solver(cfg, opts)(
+                        *args8, *prob.aux)
+                    p_bm, s_bm = batch.make_batched_solver(
+                        cfg, opts, mesh=m)(*args8, *prob.aux)
+                    torch.cuda.synchronize()
+                finally:
+                    torch.use_deterministic_algorithms(False)
+            solve = {"max_dev": solve_devs(p1, p_sh),
+                     "dcost_over_cost0": abs(float(s_sh.cost)
+                                             - float(s1.cost)) / cost0,
+                     "accepted": int(s_sh.accepted),
+                     "accepted_single": int(s1.accepted),
+                     "cost0": cost0, "cost": float(s_sh.cost)}
+            step_rec = {"max_dev": solve_devs(p_ref, p_st),
+                        "dcost_over_cost": abs(float(c_st) - float(lin.cost))
+                        / float(lin.cost)}
+            batch_rec = {
+                "B": 8, "max_lane_dev": solve_devs(p_b, p_bm),
+                "max_cost_dev_over_cost0":
+                    float((s_bm.cost - s_b.cost).abs().max()) / cost0,
+                "accepted_equal": bool(torch.equal(s_bm.accepted,
+                                                   s_b.accepted))}
+            nondeterministic_ops = sorted({
+                str(w.message).split(" does not")[0] for w in caught
+                if "deterministic" in str(w.message)})
+            m1, m2 = multihost.megastep_chain(prob, SolveOptions(max_iters=3))
+        finally:
+            dist.destroy_process_group()
+    world1_s = time.perf_counter() - t_run0
+    t0 = time.perf_counter()
+    two = multihost.dryrun_multichip(2, device="cuda", backend="gloo",
+                                     cfg=cfg, solve_iters=MULTICHIP_ITERS)
+    rec = {"phase": "multichip", "cfg": dict(cfg._asdict()),
+           "max_iters": MULTICHIP_ITERS, "world1_backend": backend,
+           "single_ms": min(ts["single"]) * 1e3,
+           "sharded_world1_ms": min(ts["sharded"]) * 1e3,
+           "single_ms_all": [t * 1e3 for t in ts["single"]],
+           "sharded_world1_ms_all": [t * 1e3 for t in ts["sharded"]],
+           "sharded_2rank_gloo_ms": two["solve"]["ms"],
+           "allreduce_bytes_per_iter":
+               sharded_lm.reduced_bytes_per_iteration(cfg, torch.float32),
+           "allreduce_bytes_H": cfg.C * cfg.C * 4,
+           "sharded_solve_syncs": len(syncs), "sharded_solve_sync_sites":
+               sorted(set(syncs)),
+           "first_call_syncs": len(syncs_first),
+           "first_call_sync_sites": sorted(set(syncs_first)),
+           "default_mode": default_mode,
+           "deterministic": {"solve": solve, "step": step_rec,
+                             "batch": batch_rec,
+                             "ops_without_deterministic_version":
+                                 nondeterministic_ops},
+           "megastep": [m1["cost0"], m1["cost"], m2["cost"]],
+           "two_ranks": two,
+           "k1_launches": lk.lk_track.launches + lk.lk_level.launches,
+           "world1_s": world1_s, "two_ranks_s": time.perf_counter() - t0}
+    if not solve_agrees(default_mode["sharded_dev"],
+                        default_mode["sharded_dcost_over_cost0"]):
+        raise SystemExit(f"multichip: the world-1 sharded solve disagrees "
+                         f"with the single solve: {rec}")
+    if not (solve_agrees(solve["max_dev"], solve["dcost_over_cost0"])
+            and solve["accepted"] == solve["accepted_single"]):
+        raise SystemExit(f"multichip: the world-1 sharded solve disagrees "
+                         f"with the single solve: {rec}")
+    if not solve_agrees(step_rec["max_dev"], step_rec["dcost_over_cost"]):
+        raise SystemExit(f"multichip: the sharded step disagrees with the "
+                         f"unsharded step: {rec}")
+    if not (solve_agrees(batch_rec["max_lane_dev"],
+                         batch_rec["max_cost_dev_over_cost0"])
+            and batch_rec["accepted_equal"]):
+        raise SystemExit(f"multichip: the seq-sharded batch disagrees with "
+                         f"the batch: {rec}")
+    if not (np.isfinite(m2["cost"]) and m1["cost"] < m1["cost0"]):
+        raise SystemExit(f"multichip: the megastep chain's cost did not "
+                         f"fall: {rec}")
+    if not (two["backend"] == "gloo" and two["device"].startswith("cuda")
+            and two["mesh"] == {"seq": 1, "fac": 2}
+            and rec["k1_launches"] == 0):
+        raise SystemExit(f"multichip: the two-rank run is not gloo over "
+                         f"CUDA tensors at fac = 2: {rec}")
     return rec
 
 
@@ -1619,12 +1812,13 @@ def main():
         k1 = phase_k1_track()
         # the kernel checks above have the card to themselves
         sides = [start_side("phase_serve", "phase_batch"),
-                 start_side("phase_cli")]
+                 start_side("phase_cli"), start_side("phase_multichip")]
         launches = phase_main()["k1_track_launches"]
         e2e = phase_e2e()
         textured = phase_image_textured(render_proc)
         serve, batched = side_result(sides[0])
         (cli_rec,) = side_result(sides[1])
+        (multichip,) = side_result(sides[2])
     finally:
         if render_proc.is_alive():
             render_proc.terminate()
@@ -1639,6 +1833,7 @@ def main():
     emit(serve)
     emit(batched)
     emit(cli_rec)
+    emit(multichip)
     kernels = [{
         "name": "K1 lk_track", "route": "cuda",
         "source": "ctrlvio_tpu_torch/csrc/lk.cu",
@@ -1657,7 +1852,8 @@ def main():
             "k1_track_launches_by_levels"],
         "serve_launches": serve["k1_launches"],
         "batch_launches": batched["k1_launches"],
-        "cli_launches": cli_rec["k1_track_launches_by_levels"]}]
+        "cli_launches": cli_rec["k1_track_launches_by_levels"],
+        "multichip_launches": multichip["k1_launches"]}]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -148,16 +148,26 @@ def schur_solve(H, g, h_ll, g_l, H_cl, lam, col_mask, dtype_eps=1e-8,
 def _setup(params: WindowParams, img: ImageFactors, imu: ImuFactors,
            bias: BiasFactors, prior: PriorFactor, fixed_knots, ext, gravity,
            imu_info, sqrt_info_img, cfg: WindowConfig, opts: SolveOptions,
-           ne_mode: str, chunk: Optional[int]):
+           ne_mode: str, chunk: Optional[int], reduce=None):
     """What the iterations share: the column mask, the landmark mask and
-    `ne_at(p) -> (normal equations, cost)`."""
+    `ne_at(p) -> (normal equations, cost)`.
+
+    reduce: None, or a function that sums a tuple of tensors across the
+    ranks holding the other shards of the factors (`parallel/
+    sharded_lm.py`); it is applied to the landmark use count and to the
+    factors' normal equations and cost before the hoisted prior is added,
+    so the prior counts once. Needs ne_mode "chunked"."""
     if ne_mode not in ("chunked", "dense"):
         raise ValueError(f"unknown ne_mode {ne_mode!r}")
+    if reduce is not None and ne_mode != "chunked":
+        raise ValueError("a reduced solve needs ne_mode 'chunked'")
     dtype, dev = params.knots_p.dtype, params.knots_p.device
     cmask = column_mask(cfg, opts, fixed_knots, dtype)
 
     lm_used = torch.zeros((cfg.LM,), dtype=torch.int64, device=dev).index_add(
         0, img.lm_idx, img.valid.to(torch.int64))
+    if reduce is not None:
+        (lm_used,) = reduce((lm_used,))
     lm_mask = (lm_used > 0).to(dtype)
 
     Pm = prior.J * cmask[None, :]
@@ -170,9 +180,12 @@ def _setup(params: WindowParams, img: ImageFactors, imu: ImuFactors,
             lin = assemble.linearize(p, img, imu, bias, prior, ext, gravity,
                                      imu_info, sqrt_info_img, cfg, opts)
             return build_normal_equations(lin, cfg, cmask), lin.cost
-        H, g, h_ll, g_l, H_cl, cost_f = assemble.accumulate_normal_equations(
+        ne_f = assemble.accumulate_normal_equations(
             p, img, imu, bias, ext, gravity, imu_info, sqrt_info_img, cfg,
             opts, chunk)
+        if reduce is not None:
+            ne_f = reduce(ne_f)
+        H, g, h_ll, g_l, H_cl, cost_f = ne_f
         H = H * cmask[:, None] * cmask[None, :] + H_p
         dx0 = boxminus_full(p, prior.knots_q0, prior.knots_p0, prior.bg0,
                             prior.ba0, prior.ld0, cfg)
@@ -241,16 +254,18 @@ def solve_window_fixed(params: WindowParams, img: ImageFactors,
                        fixed_knots, ext, gravity, imu_info, sqrt_info_img,
                        cfg: WindowConfig, opts: SolveOptions,
                        ne_mode: str = "chunked",
-                       chunk: Optional[int] = None):
+                       chunk: Optional[int] = None, reduce=None):
     """`solve_window` with no host exit: exactly `opts.max_iters`
     iterations, each selecting params, normal equations, cost, lambda and
     the accepted count by `torch.where` on a device `accept` that is false
     once `done` (an accepted step with relative decrease below `tol`) is
-    set. Same result as `solve_window`; nothing is read back."""
+    set. Same result as `solve_window`; nothing is read back. So ranks
+    that each hold a shard of the factors issue the same collectives in
+    the same order (`reduce`, see `_setup`)."""
     dtype, dev = params.knots_p.dtype, params.knots_p.device
     cmask, lm_mask, ne_at = _setup(params, img, imu, bias, prior, fixed_knots,
                                    ext, gravity, imu_info, sqrt_info_img, cfg,
-                                   opts, ne_mode, chunk)
+                                   opts, ne_mode, chunk, reduce)
     ne, cost = ne_at(params)
     cost0 = cost
     p = params
