@@ -94,7 +94,16 @@ Phases, each printed as one JSON line:
                processes sharing the card (NCCL takes one rank a card),
                the fac-sharded solve against the unsharded one under the
                dry run's 1e-4 gates;
- 12. kernels - one line listing every kernel with launches, error and times.
+ 12. bench   - the port's measuring entry points, in a fourth spawned
+               process beside them: `python -m ctrlvio_tpu_torch.bench` at
+               the accuracy matrix's lissajous row (e2e, seed 3, 1.0x, cut
+               from 16 s to 12 s; bench.py's keys and gates) and
+               `--mode image --scene blobs --duration 4` (one 3-level K1
+               launch a frame, read from its stats line), then
+               `python -m ctrlvio_tpu_torch.tools.profile_serve --sweep`
+               (ms a batched megastep at B = 1..16), then `entry()` on the
+               card against `entry(device="cpu")`;
+ 13. kernels - one line listing every kernel with launches, error and times.
 The last line is {"ok": true, "device": {...}}; any failed phase exits
 non-zero without it. Needs a CUDA device; imports nothing of JAX.
 """
@@ -118,13 +127,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ctrlvio_tpu_torch.bench import started_vio, tumrs_camera
+from ctrlvio_tpu_torch.entry import entry
 from ctrlvio_tpu_torch.estimator import native
-from ctrlvio_tpu_torch.estimator.initializer import bootstrap_from_sim
 from ctrlvio_tpu_torch.estimator.odometry import CtrlVIO, VIOConfig
 from ctrlvio_tpu_torch.frontend import klt
 from ctrlvio_tpu_torch.frontend.fused import FusedTracker, rotation_flow
 from ctrlvio_tpu_torch.frontend.tracker import FeatureTracker, TrackerConfig
-from ctrlvio_tpu_torch.models.cameras import Equidistant
 from ctrlvio_tpu_torch.ops import lk, so3np
 from ctrlvio_tpu_torch.parallel import batch, multihost, sharded_lm
 from ctrlvio_tpu_torch.parallel import mesh as pmesh
@@ -447,16 +456,6 @@ def phase_k1_track():
             "two_levels": case("two_levels")}
 
 
-def tumrs_camera():
-    """The 1280x1024 Kannala-Brandt camera of `cam_tumrs.yaml`
-    (`bench.py:412-416`)."""
-    return Equidistant(
-        mu=739.1654756101043, mv=739.1438452683457,
-        u0=625.826167006398, v0=517.3370973594253,
-        k2=0.019327620961435945, k3=0.006784242994724914,
-        k4=-0.008658628531456217, k5=0.0051893686731546585)
-
-
 def image_sim(duration, n_landmarks, speed=1.0):
     """`bench.py --mode image`'s sequence: reference IMU noise without the
     simulator's pixel noise (the images carry their own), seed 3; `speed`
@@ -474,20 +473,6 @@ def image_vio_config(stream):
         window_config=WindowConfig(KW=32, NB=11, LM=256, OBS=768, MIMU=256),
         fix_ld=False, ld_init=0.0, ld_upper=3.5e-5, dtype=torch.float32,
         stream=stream)
-
-
-def started_vio(sim, cfg, device="cuda"):
-    """A CtrlVIO with every IMU sample fed and the ground-truth bootstrap
-    set (`bench.py:458-464`)."""
-    vio = CtrlVIO(cfg, so3np.quat_exp(np.asarray(sim.cfg.ext_rot,
-                                                 np.float64)),
-                  np.array(sim.cfg.ext_pos), device=device)
-    init = bootstrap_from_sim(sim)
-    for k in range(len(sim.imu_t_ns)):
-        vio.process_imu(sim.imu_t_ns[k], sim.gyro[k], sim.accel[k])
-    vio.set_initial_state(init.t_ns, init.q, init.p, init.bg, init.ba,
-                          init.gravity, v0=init.v)
-    return vio
 
 
 def device_trace():
@@ -1623,12 +1608,12 @@ T_CtoI: !!opencv-matrix
     return d / "main.yaml"
 
 
-def cli(*args, timeout):
-    """Run `python -m ctrlvio_tpu_torch <args>` from the repository root;
-    returns (seconds, stderr). The process is killed if this one is
-    stopped first."""
+def run_module(module, *args, timeout, log):
+    """Run `python -m <module> <args>` from the repository root; returns
+    (seconds, stdout, stderr), both written to `log`. The process is
+    killed if this one is stopped first."""
     t0 = time.perf_counter()
-    proc = subprocess.Popen([sys.executable, "-m", "ctrlvio_tpu_torch",
+    proc = subprocess.Popen([sys.executable, "-m", module,
                              *map(str, args)], cwd=ROOT, text=True,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE)
     try:
@@ -1637,11 +1622,19 @@ def cli(*args, timeout):
         if proc.poll() is None:
             proc.kill()
             proc.wait()
-    (CLI_DIR / f"{args[0]}.log").write_text(out + err)
+    log.write_text(out + err)
     if proc.returncode != 0:
-        raise SystemExit(f"`python -m ctrlvio_tpu_torch {args[0]}` exited "
-                         f"with {proc.returncode}:\n{err[-3000:]}")
-    return time.perf_counter() - t0, err
+        raise SystemExit(f"`python -m {module} {' '.join(map(str, args))}` "
+                         f"exited with {proc.returncode}:\n{err[-3000:]}")
+    return time.perf_counter() - t0, out, err
+
+
+def cli(*args, timeout):
+    """Run `python -m ctrlvio_tpu_torch <args>` from the repository root;
+    returns (seconds, stderr)."""
+    seconds, _, err = run_module("ctrlvio_tpu_torch", *args, timeout=timeout,
+                                 log=CLI_DIR / f"{args[0]}.log")
+    return seconds, err
 
 
 def phase_cli():
@@ -1751,6 +1744,109 @@ def phase_cli():
     return rec
 
 
+# the bench phase: the port's measuring entry points as a user runs them.
+# e2e at the accuracy matrix's row 7 (lissajous ground truth, seed 3,
+# 1.0x), its 16 s cut to 12 s as the e2e phase's; the blobs image run at
+# 4 s, as the main phase
+BENCH_DIR = ROOT / "build" / "bench"
+BENCH_E2E = ("--mode", "e2e", "--gt", "lissajous", "--seed", 3, "--speed",
+             1.0, "--duration", 12)
+BENCH_IMAGE = ("--mode", "image", "--scene", "blobs", "--duration", 4)
+# the keys of bench.py's e2e line (`bench.py:365-374`)
+BENCH_E2E_KEYS = ["metric", "value", "unit", "vs_baseline", "ate_online_cm",
+                  "ate_posthoc_cm", "ld_err_us", "gt", "seed", "speed"]
+SWEEP_BATCHES = [1, 2, 4, 8, 16]
+
+
+def last_json(out):
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def phase_bench():
+    """The port's measuring entry points on the card, as subprocesses:
+    `python -m ctrlvio_tpu_torch.bench` at the accuracy matrix's lissajous
+    row (e2e, the visual bootstrap, the stream, f32; 12 s), gated on exit
+    code 0, its JSON line with bench.py's keys and `gt == "lissajous"`,
+    and bench.py's gates read from that line (online and post-hoc ATE
+    < 10 cm, line-delay error < 2 us); `--mode image --scene blobs
+    --duration 4` (FusedTracker with lag=1 and K1, the streaming
+    estimator from the ground-truth bootstrap), gated on exit code 0, its
+    JSON line and, from its `[bench-image] stats` line (counts zeroed
+    before its replay and read after), one 3-level K1 launch a frame and
+    no plain LK call; `python -m ctrlvio_tpu_torch.tools.profile_serve
+    --sweep --reps 3`: ms a batched megastep at B = 1..16. Then, in this
+    process, `entry()` on the card: its outputs finite and within f32
+    rounding of `entry(device="cpu")` (knots_p within 1e-5 m, the line
+    delay within 1e-9 s, the cost within 1e-7 of the starting cost). The
+    phase runs at a lower scheduling priority (nice 10, inherited by its
+    subprocesses): it is the fourth process dispatching beside the earlier
+    phases, and they keep the host's cores first, so their host times stay
+    comparable with earlier runs; this phase gates no time."""
+    os.nice(10)
+    BENCH_DIR.mkdir(parents=True, exist_ok=True)
+    t_run0 = time.perf_counter()
+    e2e_s, out, _ = run_module("ctrlvio_tpu_torch.bench", *BENCH_E2E,
+                               timeout=900, log=BENCH_DIR / "e2e.log")
+    e2e = last_json(out)
+    image_s, out, err = run_module("ctrlvio_tpu_torch.bench", *BENCH_IMAGE,
+                                   timeout=600, log=BENCH_DIR / "image.log")
+    image = last_json(out)
+    stats = json.loads(next(ln for ln in err.splitlines()
+                            if ln.startswith("[bench-image] stats "))[20:])
+    sweep_s, out, _ = run_module(
+        "ctrlvio_tpu_torch.tools.profile_serve", "--sweep", "--reps", 3,
+        timeout=600, log=BENCH_DIR / "profile_serve.log")
+    sweep = last_json(out)
+
+    fn, args = entry("cuda")
+    t_entry, got = time_min(lambda: fn(*args))
+    fn_c, args_c = entry("cpu")
+    ref = fn_c(*args_c)
+    prob = tiny.tiny_problem(torch.float32, device="cpu")
+    _, st = lm.solve_window(*args_c, *prob.aux, prob.cfg,
+                            SolveOptions(max_iters=0))
+    got = [x.double().cpu() for x in got]
+    ref = [x.double() for x in ref]
+    entry_rec = {"ms": t_entry * 1e3,
+                 "knots_p_dev_m": float((got[0] - ref[0]).abs().max()),
+                 "ld_dev_s": abs(float(got[1] - ref[1])),
+                 "cost": float(got[2]), "cost_cpu": float(ref[2]),
+                 "cost0": float(st.cost0),
+                 "finite": all(bool(torch.isfinite(x).all()) for x in got)}
+    frames = stats["frames"]
+    rec = {"phase": "bench", "wall_s": time.perf_counter() - t_run0,
+           "e2e": {"argv": list(map(str, BENCH_E2E)), "seconds": e2e_s,
+                   "result": e2e},
+           "image": {"argv": list(map(str, BENCH_IMAGE)), "seconds": image_s,
+                     "result": image, "stats": stats},
+           "profile_serve_sweep": {"seconds": sweep_s, **sweep},
+           "entry": entry_rec, "card": card_name_and_power_limit()}
+    if not (list(e2e) == BENCH_E2E_KEYS and e2e["gt"] == "lissajous"
+            and e2e["ate_online_cm"] < 10 and e2e["ate_posthoc_cm"] < 10
+            and e2e["ld_err_us"] < 2):
+        raise SystemExit(f"bench: the lissajous e2e row's line fails "
+                         f"bench.py's keys or gates: {rec}")
+    if not (image["metric"] == "image_frames_per_sec_per_chip"
+            and stats["k1_track_launches"] == frames
+            and stats["k1_track_launches_by_levels"] == {"3": frames}
+            and stats["k1_level_launches"] == 0
+            and stats["plain_lk_track_calls"] == 0
+            and stats["plain_lk_level_calls"] == 0):
+        raise SystemExit(f"bench: the image run did not go through one "
+                         f"3-level K1 launch a frame: {rec}")
+    if [r["B"] for r in sweep["sweep"]] != SWEEP_BATCHES or not all(
+            np.isfinite(r["ms_per_step"]) and r["ms_per_step"] > 0
+            for r in sweep["sweep"]):
+        raise SystemExit(f"bench: profile_serve's sweep is incomplete: {rec}")
+    if not (entry_rec["finite"] and entry_rec["knots_p_dev_m"] <= 1e-5
+            and entry_rec["ld_dev_s"] <= 1e-9
+            and abs(entry_rec["cost"] - entry_rec["cost_cpu"])
+            <= 1e-7 * entry_rec["cost0"]):
+        raise SystemExit(f"bench: entry() on the card disagrees with the "
+                         f"CPU: {rec}")
+    return rec
+
+
 def side_phases(conn, names):
     """Child process: run the named phases in order. Sends ("ok", their
     records) or ("failed", message) through `conn`. SIGTERM from the
@@ -1812,13 +1908,15 @@ def main():
         k1 = phase_k1_track()
         # the kernel checks above have the card to themselves
         sides = [start_side("phase_serve", "phase_batch"),
-                 start_side("phase_cli"), start_side("phase_multichip")]
+                 start_side("phase_cli"), start_side("phase_multichip"),
+                 start_side("phase_bench")]
         launches = phase_main()["k1_track_launches"]
         e2e = phase_e2e()
         textured = phase_image_textured(render_proc)
         serve, batched = side_result(sides[0])
         (cli_rec,) = side_result(sides[1])
         (multichip,) = side_result(sides[2])
+        (bench,) = side_result(sides[3])
     finally:
         if render_proc.is_alive():
             render_proc.terminate()
@@ -1834,6 +1932,7 @@ def main():
     emit(batched)
     emit(cli_rec)
     emit(multichip)
+    emit(bench)
     kernels = [{
         "name": "K1 lk_track", "route": "cuda",
         "source": "ctrlvio_tpu_torch/csrc/lk.cu",
@@ -1853,7 +1952,10 @@ def main():
         "serve_launches": serve["k1_launches"],
         "batch_launches": batched["k1_launches"],
         "cli_launches": cli_rec["k1_track_launches_by_levels"],
-        "multichip_launches": multichip["k1_launches"]}]
+        "multichip_launches": multichip["k1_launches"],
+        "bench_launches": {
+            "image": bench["image"]["stats"]["k1_track_launches_by_levels"],
+            "image_frames": bench["image"]["stats"]["frames"]}}]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1092,7 +1092,8 @@ class CtrlVIO:
                 self._dev_state, blob_dev, self._ext, self._gravity_j,
                 self._imu_info, self._sqrt_info_img, wc, self._ba_opts,
                 marg_old=marg_old, knot_shift=knot_shift,
-                host_seeds=host_seeds, caps=cfg.marg_caps)
+                host_seeds=host_seeds, caps=cfg.marg_caps,
+                ne_mode=cfg.ne_mode, chunk=cfg.ne_chunk)
             self._enqueue_summary(meta, summary)
         self.counts["megastep"] += 1
         self.timing["megastep"] += time.perf_counter() - t0

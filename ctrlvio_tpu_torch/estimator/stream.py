@@ -273,11 +273,13 @@ def _extend_inertial(params: WindowParams, imu: ImuFactors,
 
 def _merge_solve(state: DevState, blob: torch.Tensor, ext, gravity, imu_info,
                  sqrt_info_img, cfg: WindowConfig, opts: SolveOptions,
-                 host_seeds: Optional[bool]):
+                 host_seeds: Optional[bool], ne_mode: str = "chunked",
+                 chunk: Optional[int] = None):
     """Unpack the blob, merge its seeds into the device window state, solve
-    and restore the gauge. `host_seeds` None selects the seeds by the
-    blob's own flag on the device (both computed). Returns (the unpacked
-    blob, solved params, SolveStats)."""
+    (normal equations by `ne_mode` and `chunk`, as `lm.solve_window_fixed`
+    takes them) and restore the gauge. `host_seeds` None selects the seeds
+    by the blob's own flag on the device (both computed). Returns (the
+    unpacked blob, solved params, SolveStats)."""
     dtype = state.params.knots_p.dtype
     unpacked = unpack_stream_blob(blob, cfg, dtype)
     (img, imu, bias, fixed, seed_q, seed_p, seed_mask, dinv_perm, dinv_seed,
@@ -307,7 +309,8 @@ def _merge_solve(state: DevState, blob: torch.Tensor, ext, gravity, imu_info,
     p_ref = params.knots_p[0]
     p_out, stats = lm.solve_window_fixed(params, img, imu, bias, state.prior,
                                          fixed, ext, gravity, imu_info,
-                                         sqrt_info_img, cfg, opts)
+                                         sqrt_info_img, cfg, opts,
+                                         ne_mode=ne_mode, chunk=chunk)
     q_new, p_new = gauge.restore_gauge(p_out.knots_q, p_out.knots_p,
                                        q_ref, p_ref, 0, 0)
     return unpacked, p_out._replace(knots_q=q_new, knots_p=p_new), stats
@@ -380,13 +383,15 @@ def _summary(state: DevState, p_out: WindowParams, stats, unpacked, dinv_sum,
 def megastep(state: DevState, blob: torch.Tensor, ext, gravity, imu_info,
              sqrt_info_img, cfg: WindowConfig, opts: SolveOptions, *,
              marg_old: bool, knot_shift: int, host_seeds: bool,
-             caps: Optional[Tuple[int, int, int]] = None):
+             caps: Optional[Tuple[int, int, int]] = None,
+             ne_mode: str = "chunked", chunk: Optional[int] = None):
     """One frame on the device. Returns (next state, flat summary).
 
     `marg_old`, `knot_shift` and `host_seeds` are the host's own copies of
     the directives it packed into `blob`: they choose the branches, so
     nothing is read back and only a MARGIN_OLD frame pays the QR.
-    `caps` overrides `marginalize.marg_caps(cfg)`.
+    `caps` overrides `marginalize.marg_caps(cfg)`; `ne_mode` and `chunk`
+    choose how the solve builds its normal equations (`lm.solve_window`).
 
     Order ≙ the reference per-frame pipeline: solve (`UpdateTrajectory`),
     gauge restore (`double2vector`), marginalization (`UpdateVIOPrior`),
@@ -394,7 +399,7 @@ def megastep(state: DevState, blob: torch.Tensor, ext, gravity, imu_info,
     pin_f32_matmuls()
     unpacked, p_out, stats = _merge_solve(state, blob, ext, gravity,
                                           imu_info, sqrt_info_img, cfg, opts,
-                                          host_seeds)
+                                          host_seeds, ne_mode, chunk)
     if marg_old:
         state2, dinv_sum, marg_ovf = _slide_old(
             state, p_out, unpacked, ext, gravity, imu_info, sqrt_info_img,
@@ -417,7 +422,8 @@ def _select(cond, a, b):
 def megastep_branchless(state: DevState, blob: torch.Tensor, ext, gravity,
                         imu_info, sqrt_info_img, cfg: WindowConfig,
                         opts: SolveOptions,
-                        caps: Optional[Tuple[int, int, int]] = None):
+                        caps: Optional[Tuple[int, int, int]] = None,
+                        ne_mode: str = "chunked", chunk: Optional[int] = None):
     """`megastep` with every directive read from the blob's StreamScalars
     on the device (≙ the JAX megastep under `vmap`, where `lax.cond`
     becomes a select): both seed sources and both slides are computed and
@@ -428,7 +434,7 @@ def megastep_branchless(state: DevState, blob: torch.Tensor, ext, gravity,
     pin_f32_matmuls()
     unpacked, p_out, stats = _merge_solve(state, blob, ext, gravity,
                                           imu_info, sqrt_info_img, cfg, opts,
-                                          None)
+                                          None, ne_mode, chunk)
     sc = unpacked[10]
     old = _slide_old(state, p_out, unpacked, ext, gravity, imu_info,
                      sqrt_info_img, cfg, opts, caps, sc.knot_shift)

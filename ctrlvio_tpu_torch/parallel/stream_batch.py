@@ -17,7 +17,8 @@ the device side is one (B, ...) state owned by this coordinator.
 
 The instances share the window configuration and start together
 (lockstep). The extrinsics, gravity and information weights of lane 0
-serve every lane, as in the JAX package.
+serve every lane, as in the JAX package, and so do its solve options
+(`_ba_opts`, `marg_caps`, `ne_mode`, `ne_chunk`).
 """
 
 from __future__ import annotations
@@ -37,13 +38,14 @@ from ctrlvio_tpu_torch.utils.device import recorded_syncs
 from .batch import stack
 
 
-def batched_megastep(cfg, opts, caps=None):
+def batched_megastep(cfg, opts, caps=None, ne_mode="chunked", chunk=None):
     """`megastep(states, blobs, ext, gravity, imu_info, sqrt_info_img) ->
     (states, summaries)` over a leading lane axis of the stacked states
     and the (B, n) blobs, the four constants shared: `torch.func.vmap` of
-    `stream.megastep_branchless`."""
+    `stream.megastep_branchless` (`caps`, `ne_mode`, `chunk` as it takes
+    them)."""
     return vmap(partial(stream.megastep_branchless, cfg=cfg, opts=opts,
-                        caps=caps),
+                        caps=caps, ne_mode=ne_mode, chunk=chunk),
                 in_dims=(0, 0, None, None, None, None))
 
 
@@ -80,7 +82,8 @@ class BatchedStream:
         self.check_dispatch_syncs = False
         self.dispatch_syncs = 0
         self.sync_warnings: List[str] = []
-        self._vmega = batched_megastep(v0.wc, v0._ba_opts, v0.cfg.marg_caps)
+        self._vmega = batched_megastep(v0.wc, v0._ba_opts, v0.cfg.marg_caps,
+                                       v0.cfg.ne_mode, v0.cfg.ne_chunk)
 
     # ------------------------------------------------------------------
     def _on_dispatch(self, vio, blob, host_seeds, meta):
