@@ -26,6 +26,16 @@ Phases, each printed as one JSON line:
                front-end and estimator times, the estimator's phases, and a
                torch.profiler trace of the last frame (device time, busy
                share, device operations, top kernels);
+               then main_marg_dev: the same frames, not rendered again,
+               through the same path with VIOConfig(marg_on_host=False)
+               (the marginalization prior in f32 on the card, not f64):
+               the image gates, every frame after the bootstrap solved,
+               one K1 launch a frame, and the JAX package's run of it
+               (NaN prior from the same solved frame, no LM step
+               accepted after, ATE and line-delay error within 1 mm and
+               0.01 us of its own); the `prior` phase's and the
+               estimator's ms a frame beside main's, and where the f32
+               prior first went non-finite;
   6. e2e     - `bench.py`'s default run: a 12 s synthetic feature sequence
                (reference sensor noise, seed 3) through CtrlVIO with the
                visual bootstrap, the native feature table and the
@@ -467,12 +477,12 @@ def image_sim(duration, n_landmarks, speed=1.0):
         image_w=1280, speed=speed, **noise))
 
 
-def image_vio_config(stream):
+def image_vio_config(stream, marg_on_host=True):
     """`bench.py --mode image`'s estimator (`bench.py:452-455`), f32."""
     return VIOConfig(
         window_config=WindowConfig(KW=32, NB=11, LM=256, OBS=768, MIMU=256),
         fix_ld=False, ld_init=0.0, ld_upper=3.5e-5, dtype=torch.float32,
-        stream=stream)
+        stream=stream, marg_on_host=marg_on_host)
 
 
 def device_trace():
@@ -483,13 +493,14 @@ def device_trace():
         activities=[torch.profiler.ProfilerActivity.CUDA])
 
 
-def replay(sim, imgs, camera, tcfg, vio_cfg, device):
+def replay(sim, imgs, camera, tcfg, vio_cfg, device, probe=None):
     """The image-in main path, as `bench.py --mode image` drives it with
     lag=0 and the synchronous estimator: per frame, the gyro-predicted
     rotation, `FusedTracker.step` and `CtrlVIO.process_frame`. Returns the
     estimated and true positions of the solved frames, the estimator, the
     host times of each frame from the fifth on (as the bench times them)
-    but the last, and a `torch.profiler` trace of the last frame."""
+    but the last, and a `torch.profiler` trace of the last frame.
+    `probe(vio)` runs after each solved frame, outside its timed span."""
     timed_from = 4
     H, W = imgs.shape[1:]
     tracker = FusedTracker(tcfg, camera, (H, W), device=device)
@@ -518,6 +529,8 @@ def replay(sim, imgs, camera, tcfg, vio_cfg, device):
         if out is not None:
             est.append(out[1])
             gt.append(sim.pose_at(feat["t_ns"] * 1e-9)[1])
+            if probe is not None:
+                probe(vio)
         return t1 - t0, t2 - t1
 
     n = len(sim.frames)
@@ -565,7 +578,8 @@ def phase_main():
     Kannala-Brandt (`cam_tumrs.yaml`), 150 features, min_dist 25, CLAHE and
     the FB check on, pred_levels 3, the bench's window; f32 solve and f64
     marginalization on the card. Depth cut: 4 s of imagery (the script's
-    time limit; the bench renders 12 s)."""
+    time limit; the bench renders 12 s). Returns the record and the
+    rendered sequence (sim, images, camera, tracker config)."""
     H, W, duration = 1024, 1280, 4.0
     cam = tumrs_camera()
     t0 = time.perf_counter()
@@ -615,6 +629,97 @@ def phase_main():
     if launches == 0 or launches != run["n_frames"] or plain_calls:
         raise SystemExit(f"main path did not run through the fused K1 "
                          f"track once a frame: {rec}")
+    return rec, (sim, imgs, cam, tcfg)
+
+
+# the JAX package's run of the main phase's path with marg_on_host=False
+# (float32, on the CPU, plain LK; `tests/torch_marg_dev_ref.py`): 26 frames
+# solved, ATE 0.090385 m, line-delay error 0.2109 us; its float32 prior is
+# NaN from the 4th solved frame (index 3) on, and no LM step is accepted
+# after it, so the estimator dead-reckons from there. The image gates
+# cannot tell a right float32 build from a wrong one: the port's run is held
+# to the reference's NaN onset, to no accepted step after it, and to its
+# ATE within 1 mm and its line-delay error within 0.01 us.
+MARG_DEV_REF = {"first_nonfinite_prior": 3, "accepted_from_then": 0,
+                "ate_m": 0.09038535689227546, "ld_err_s": 2.108864795614047e-07}
+def phase_main_marg_dev(main_rec, seq):
+    """The main phase's path again on the same rendered frames, with
+    `VIOConfig(marg_on_host=False)`: the synchronous path's
+    marginalization prior built in the solve dtype (f32) on the card
+    instead of f64. The image gates as in `main`, every frame after the
+    bootstrap solved, finite poses, one K1 launch a frame, and the JAX
+    package's run of the same path (`MARG_DEV_REF`); the `prior` phase's
+    and the estimator's host ms a frame beside the f64 run's, the solved
+    frame whose prior first held a non-finite entry and the LM steps
+    accepted from then on."""
+    sim, imgs, cam, tcfg = seq
+    probes = []
+
+    def probe(vio):
+        probes.append((bool(torch.isfinite(vio.prior.J).all()),
+                       int(vio.last_solve_stats.accepted)))
+
+    lk.reset_counts()
+    t0 = time.perf_counter()
+    run = replay(sim, imgs, cam, tcfg,
+                 image_vio_config(stream=False, marg_on_host=False), "cuda",
+                 probe=probe)
+    wall = time.perf_counter() - t0
+    launches = lk.lk_track.launches
+    plain_calls = lk.lk_level_plain.calls + lk.lk_track_plain.calls
+
+    est, gt, vio = run["est"], run["gt"], run["vio"]
+    ate = ate_rmse(est[10:], gt[10:], align="yaw")
+    ld_err = abs(vio.traj.line_delay - sim.cfg.line_delay)
+    n = len(run["t_feat"])
+    bad = [k for k, (ok, _) in enumerate(probes) if not ok]
+    first_bad = bad[0] if bad else None
+    prior_ms = run["timing"].get("prior", 0.0) / n * 1e3
+    rec = {"phase": "main_marg_dev", "marg_on_host": False,
+           "frames": run["n_frames"], "solved": len(est),
+           "sync_solves": vio.counts["sync_solve"], "wall_s": wall,
+           "ate_m": ate, "ld_err_s": ld_err,
+           "line_delay_s": vio.traj.line_delay,
+           "prior_dtype": str(vio.prior.J.dtype).replace("torch.", ""),
+           "prior64_held": vio._prior64 is not None,
+           "first_nonfinite_prior": first_bad,
+           "accepted_from_then": (None if first_bad is None else
+                                  sum(a for _, a in probes[first_bad + 1:])),
+           "prior_ms_per_frame": prior_ms,
+           "main_prior_ms_per_frame":
+               main_rec["timing_ms_per_frame"].get("prior", 0.0),
+           "estimator_ms_median": float(np.median(run["t_est"])) * 1e3,
+           "estimator_ms_mean": float(np.mean(run["t_est"])) * 1e3,
+           "main_estimator_ms_median": main_rec["estimator_ms_median"],
+           "main_ate_m": main_rec["ate_m"],
+           "k1_track_launches": launches, "plain_lk_calls": plain_calls,
+           "timing_ms_per_frame": {k: v / n * 1e3
+                                   for k, v in run["timing"].items()},
+           "profile_last_frame": device_share(
+               run["prof"], run["prof_s"],
+               float(np.median(run["t_feat"] + run["t_est"])) * 1e3)}
+    emit(rec)
+    finite = bool(np.isfinite(est).all()) and np.isfinite(vio.traj.line_delay)
+    if not (finite and len(est) == main_rec["solved"]
+            and vio.counts["sync_solve"] == len(est) - 1
+            and ate < 0.15 and ld_err < 5e-6):
+        raise SystemExit(f"main path with marg_on_host=False fails its "
+                         f"gates (every frame solved, finite, ATE < 0.15 m, "
+                         f"line-delay error < 5 us): {rec}")
+    ref = MARG_DEV_REF
+    if (first_bad != ref["first_nonfinite_prior"]
+            or rec["accepted_from_then"] != ref["accepted_from_then"]
+            or abs(ate - ref["ate_m"]) > 1e-3
+            or abs(ld_err - ref["ld_err_s"]) > 1e-8):
+        raise SystemExit(f"main path with marg_on_host=False departs from "
+                         f"the JAX package's run (NaN prior from solved "
+                         f"frame 3, no step accepted after, ATE within 1 mm, "
+                         f"line-delay error within 0.01 us of {ref}): {rec}")
+    if rec["prior_dtype"] != "float32" or rec["prior64_held"]:
+        raise SystemExit(f"marg_on_host=False kept the f64 prior: {rec}")
+    if launches != run["n_frames"] or plain_calls:
+        raise SystemExit(f"main path with marg_on_host=False did not run "
+                         f"through the fused K1 track once a frame: {rec}")
     return rec
 
 
@@ -1910,7 +2015,10 @@ def main():
         sides = [start_side("phase_serve", "phase_batch"),
                  start_side("phase_cli"), start_side("phase_multichip"),
                  start_side("phase_bench")]
-        launches = phase_main()["k1_track_launches"]
+        main_rec, seq = phase_main()
+        launches = main_rec["k1_track_launches"]
+        marg_dev = phase_main_marg_dev(main_rec, seq)
+        del seq
         e2e = phase_e2e()
         textured = phase_image_textured(render_proc)
         serve, batched = side_result(sides[0])
@@ -1938,6 +2046,7 @@ def main():
         "source": "ctrlvio_tpu_torch/csrc/lk.cu",
         "replaces": "ctrlvio_tpu/ops/pallas/lk_kernel.py:118",
         "launches": launches, "max_abs_err": k1["max_abs_err"],
+        "marg_dev_launches": marg_dev["k1_track_launches"],
         "ms": k1["ms"], "device_ms": k1["device_ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": None,

@@ -117,6 +117,16 @@ class VIOConfig:
     # visual-inertial alignment)
     bootstrap: str = "external"
     excite_threshold: float = 0.25
+    # precision of the synchronous path's marginalization prior: True = f64
+    # (the safest), False = the solve dtype. Both build on the estimator's
+    # device: the JAX package runs its True branch on the host CPU only
+    # because the TPU has no f64, and the card builds the same f64 prior.
+    # In float32 the Cholesky of the kept block, whose gauge directions
+    # hold only the 1e-7 regularization, fails on most sequences in both
+    # packages: the prior comes out NaN and later solves accept no step.
+    # The bootstrap prior is f64 and the streamed megastep's QR
+    # marginalization is in the solve dtype either way
+    marg_on_host: bool = True
     # streaming pipeline: after `stream_warmup` synchronous frames (f64
     # marginalization through the bootstrap transient), one device call a
     # frame with no host read; summaries reach the host mirror `stream_lag`
@@ -943,9 +953,10 @@ class CtrlVIO:
         self._set_depths(dinv_np, cands)
         self.timing["ba_writeback"] += time.perf_counter() - t0
 
-        # [7] marginalization prior at the gauge-restored state, in f64 on
-        # the device (the Schur complement spans too much dynamic range for
-        # f32), pre-rolled into the post-slide layout
+        # [7] marginalization prior at the gauge-restored state, pre-rolled
+        # into the post-slide layout: in f64 on the device (the Schur
+        # complement spans too much dynamic range for f32) or, with
+        # marg_on_host=False, in the solve dtype
         if self.marg_flag != MARGIN_OLD:
             return
         t0 = time.perf_counter()
@@ -963,18 +974,21 @@ class CtrlVIO:
             ld=self._t(np.float64(ld_np)))
         knot_shift = (self.traj.ctrl_idx(self.kf_t_ns[1])
                       - self.traj.ctrl_idx(self.kf_t_ns[0]))
-        old = self._prior64
+        # marg_on_host=False: the chain stays in the solve dtype (the old
+        # prior is the solve-dtype one) and the f64 chain ends
+        dt = f64 if cfg.marg_on_host else jdt
+        old = self._prior64 if cfg.marg_on_host else None
         if old is None:
-            old = to_dtype(prior, f64)
-        prior64 = marginalize.build_prior(
-            p_marg, self._dev(img_m, f64), self._dev(imu_m, f64),
-            self._dev(bias, f64), old, self._t(drop),
-            to_dtype(self._ext, f64), self._t(self.gravity, f64),
-            self._imu_info.to(f64), self._sqrt_info_img.to(f64), mc,
+            old = to_dtype(prior, dt)
+        built = marginalize.build_prior(
+            to_dtype(p_marg, dt), self._dev(img_m, dt), self._dev(imu_m, dt),
+            self._dev(bias, dt), old, self._t(drop), to_dtype(self._ext, dt),
+            self._t(self.gravity, dt), self._imu_info.to(dt),
+            self._sqrt_info_img.to(dt), mc,
             self._ba_opts._replace(cauchy_c=1.0), knot_shift=knot_shift,
             bias_shift=1)
-        self._prior64 = prior64
-        self.prior = to_dtype(prior64, jdt)
+        self._prior64 = built if cfg.marg_on_host else None
+        self.prior = to_dtype(built, jdt)
         self.timing["prior"] += time.perf_counter() - t0
 
     # ------------------------------------------------------------------

@@ -2,7 +2,7 @@
 (counterpart of `tools/profile_serve.py`).
 
     python -m ctrlvio_tpu_torch.tools.profile_serve [--batch 16] [--reps 5]
-        [--top 40] [--sweep] [--device cuda|cpu]
+        [--logdir DIR] [--top 40] [--sweep] [--device cuda|cpu]
 
 A short streaming replay from the ground-truth bootstrap captures a
 realistic steady state: the device window state and one frame's upload
@@ -12,16 +12,21 @@ makes each frame. Untraced, it times the mean ms a step over `--reps`
 chained steps after 3 warm ones, with a synchronize at each end. Then
 `--reps` steps are traced with `torch.profiler` and the `--top` ops are
 listed by time: on the card the kernels' device time (CUDA
-activity only), on the CPU the ops' host time. `--sweep` times B = 1, 2,
-4, 8, 16 untraced instead. The table goes to stderr; the last line of
-stdout is one JSON object of the results.
+activity only), on the CPU the ops' host time. The trace is written
+under `--logdir` as a Chrome trace (`chrome://tracing`, Perfetto or
+TensorBoard's profiler plugin open it), its path printed to stderr.
+`--sweep` times B = 1, 2, 4, 8, 16 untraced instead, and writes no trace.
+The table goes to stderr; the last line of stdout is one JSON object of
+the results.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -36,6 +41,7 @@ from ctrlvio_tpu_torch.utils.device import resolve_device
 from ctrlvio_tpu_torch.utils.precision import pin_f32_matmuls
 
 SWEEP = (1, 2, 4, 8, 16)
+LOGDIR = os.path.join(tempfile.gettempdir(), "ctrlvio_serve_trace")
 
 
 def capture_state(duration=6.0, warmup=10, device="cuda"):
@@ -100,12 +106,13 @@ def time_steps(mega, st, blobs, consts, reps: int, device, warm: int = 3):
     return (time.perf_counter() - t0) / reps, st, out
 
 
-def op_table(mega, st, blobs, consts, reps: int, device):
+def op_table(mega, st, blobs, consts, reps: int, device, trace_path=None):
     """`reps` steps under torch.profiler; returns [(op name, total ms,
     count)] sorted by time, descending: the kernels' device time on the
     card (CUDA activity only), the ops' self host time on the CPU. Read
     from the profiler's raw events: `key_averages()` takes ~30 s for 1e5
-    events on the host, and one CPU step makes ~3e5."""
+    events on the host, and one CPU step makes ~3e5. With `trace_path`
+    the trace is also written there as a Chrome trace (JSON)."""
     from torch.profiler import ProfilerActivity, profile
 
     on_card = device.type == "cuda"
@@ -116,6 +123,8 @@ def op_table(mega, st, blobs, consts, reps: int, device):
         for _ in range(reps):
             st, _ = mega(st, blobs, *consts)
         sync(device)
+    if trace_path is not None:
+        prof.export_chrome_trace(trace_path)
     events = [e for e in prof.profiler.kineto_results.events()
               if e.device_type() == kind]
     agg = {}
@@ -165,15 +174,27 @@ def sweep(vio, dev_state, blob, reps: int, batches=SWEEP):
     return out
 
 
-def profile_batch(vio, dev_state, blob, B: int, reps: int, top: int):
-    """Untraced ms a step at B, then the traced op table. Returns the
-    result record."""
+def trace_file(logdir: str, B: int) -> str:
+    """A new Chrome-trace path under `logdir` (made if missing) for a
+    traced run at B lanes."""
+    os.makedirs(logdir, exist_ok=True)
+    stamp = time.strftime("%Y%m%d-%H%M%S")
+    return os.path.join(logdir, f"serve_B{B}_{stamp}_{os.getpid()}"
+                                ".pt.trace.json")
+
+
+def profile_batch(vio, dev_state, blob, B: int, reps: int, top: int,
+                  logdir: str = LOGDIR):
+    """Untraced ms a step at B, then the traced op table, its trace
+    written under `logdir`. Returns the result record."""
     mega = lane_megastep(vio)
     st, blobs, consts = batched_inputs(vio, dev_state, blob, B)
     dt, st, _ = time_steps(mega, st, blobs, consts, reps, vio.device)
     print(f"[profile] B={B}: {dt * 1e3:.1f} ms/step untraced "
           f"({B / dt:.1f} frames/s)", file=sys.stderr)
-    rows = op_table(mega, st, blobs, consts, reps, vio.device)
+    path = trace_file(logdir, B)
+    rows = op_table(mega, st, blobs, consts, reps, vio.device, path)
+    print(f"[profile] trace written to {path}", file=sys.stderr)
     what = "device" if vio.device.type == "cuda" else "host (CPU)"
     tot = sum(r[1] for r in rows)
     print(f"[profile] total {what} op time {tot:.1f} ms over {reps} steps "
@@ -182,7 +203,8 @@ def profile_batch(vio, dev_state, blob, B: int, reps: int, top: int):
     for name, ms, cnt in rows[:top]:
         print(f"  {ms / reps:9.3f} ms/step  x{cnt:5d}  {name[:110]}",
               file=sys.stderr)
-    return {"B": B, "reps": reps, "ms_per_step": dt * 1e3, "op_time": what,
+    return {"B": B, "reps": reps, "ms_per_step": dt * 1e3, "trace": path,
+            "op_time": what,
             "op_ms_per_step": tot / reps,
             "ops_per_step": sum(r[2] for r in rows) / reps,
             "top": [{"name": n, "ms_per_step": ms / reps,
@@ -200,6 +222,8 @@ def main(argv=None):
         prog="python -m ctrlvio_tpu_torch.tools.profile_serve")
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--logdir", default=LOGDIR,
+                    help="directory of the traced run's Chrome trace")
     ap.add_argument("--top", type=int, default=40)
     ap.add_argument("--sweep", action="store_true",
                     help="time (untraced) a sweep of batch sizes, no trace")
@@ -217,7 +241,7 @@ def main(argv=None):
         rec["sweep"] = sweep(vio, dev_state, blob, args.reps)
     else:
         rec.update(profile_batch(vio, dev_state, blob, args.batch, args.reps,
-                                 args.top))
+                                 args.top, args.logdir))
     print(json.dumps(rec), flush=True)
 
 
