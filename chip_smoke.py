@@ -113,7 +113,21 @@ Phases, each printed as one JSON line:
                `python -m ctrlvio_tpu_torch.tools.profile_serve --sweep`
                (ms a batched megastep at B = 1..16), then `entry()` on the
                card against `entry(device="cpu")`;
- 13. kernels - one line listing every kernel with launches, error and times.
+ 13. graphs  - in a fifth side process, the same frames run with every
+               program replayed from its captured CUDA graph and eagerly:
+               10 synchronous `main` frames with the front end on every
+               frame, ~20 streamed e2e frames, 10 serve steps at B = 8;
+               positions and summaries within the gpu tests' tolerances,
+               ATE within 1 mm, host ms a frame both ways;
+ 14. kernels - one line listing every kernel with launches, error and times.
+Every path runs as the port runs on the card: each per-frame program (the
+streamed and batched megasteps, the synchronous solve, prior and predict,
+the fused front end) a captured CUDA graph (`utils/graphs.py`). Each
+phase's line lists the graphs it captured (key, seconds, reserved memory
+before and after), their seconds, the shared graph pool's size, the
+replays and the K1 launches made by replays and by the warm-up runs before
+captures; "one K1 launch a frame" counts through replays, and a capture on
+a timed (steady) frame fails the phase.
 The last line is {"ok": true, "device": {...}}; any failed phase exits
 non-zero without it. Needs a CUDA device; imports nothing of JAX.
 """
@@ -139,7 +153,7 @@ import torch.distributed as dist
 
 from ctrlvio_tpu_torch.bench import started_vio, tumrs_camera
 from ctrlvio_tpu_torch.entry import entry
-from ctrlvio_tpu_torch.estimator import native
+from ctrlvio_tpu_torch.estimator import native, odometry
 from ctrlvio_tpu_torch.estimator.odometry import CtrlVIO, VIOConfig
 from ctrlvio_tpu_torch.frontend import klt
 from ctrlvio_tpu_torch.frontend.fused import FusedTracker, rotation_flow
@@ -152,7 +166,7 @@ from ctrlvio_tpu_torch.sim import render, synthetic, tiny
 from ctrlvio_tpu_torch.solver import assemble, lm
 from ctrlvio_tpu_torch.solver.layout import (SolveOptions, WindowConfig,
                                              column_mask, retract)
-from ctrlvio_tpu_torch.utils import cuda_build
+from ctrlvio_tpu_torch.utils import cuda_build, graphs
 from ctrlvio_tpu_torch.utils.ate import ate_rmse
 from ctrlvio_tpu_torch.utils.device import recorded_syncs
 from ctrlvio_tpu_torch.utils.precision import pin_f32_matmuls
@@ -172,6 +186,69 @@ K1_OPS_ITER = 22
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def reset_counts():
+    """Zero K1's launch counts and the captured programs' records, just
+    before a phase drives its path."""
+    lk.reset_counts()
+    graphs.reset_counts()
+
+
+def graph_fields(st=None):
+    """What the captured programs did in a phase (`graphs.stats()` of this
+    process, or `st` from a subprocess's stats line): every capture (its
+    key, warm-up and capture seconds, the reserved device memory before
+    and after), their seconds in all, the shared graph pool's size, the
+    replays, and K1's launches made by replays and by the warm-up runs
+    before captures."""
+    st = st or graphs.stats()
+    return {"graphs_captured": st["graphs_captured"],
+            "graphs_captured_n": len(st["graphs_captured"]),
+            "capture_s": st["capture_s"],
+            "graph_pool_mb": st["graph_pool_mb"], "replays": st["replays"],
+            "k1_launches_replayed": st["launches_replayed"].get("lk_track", 0),
+            "k1_launches_warm_up": st["launches_warm_up"].get("lk_track", 0)}
+
+
+def k1_once_a_frame(launches, g, frames):
+    """One K1 track launch a frame counted through replays, and no other
+    launch than the warm-up runs' before captures."""
+    return (g["k1_launches_replayed"] == frames
+            and launches == frames + g["k1_launches_warm_up"])
+
+
+def replay_times(prog, reps=5):
+    """A captured program replayed `reps` times on the inputs it holds
+    (after one replay): the card's ms a replay by CUDA events, without the
+    profiler, and the host's ms a replay call (the graph's launch). A
+    program that carries state advances it: time it after its run."""
+    prog(*prog.inputs)
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        prog(*prog.inputs)
+    host = (time.perf_counter() - t0) / reps
+    b.record()
+    torch.cuda.synchronize()
+    return {"replay_device_ms": a.elapsed_time(b) / reps,
+            "replay_host_ms": host * 1e3, "program": prog.label}
+
+
+def program(cache, *words):
+    """The program of `cache` whose key holds every one of `words`."""
+    return next(p for p in cache._programs.values()
+                if all(w in p.label for w in words))
+
+
+def captured_once(g, most):
+    """Each program captured once (a key never twice: steady frames replay
+    what the first frames captured), and at most `most` of them."""
+    keys = [c["key"] for c in g["graphs_captured"]]
+    return len(keys) == len(set(keys)) and len(keys) <= most
 
 
 def card_name_and_power_limit():
@@ -497,9 +574,11 @@ def replay(sim, imgs, camera, tcfg, vio_cfg, device, probe=None):
     """The image-in main path, as `bench.py --mode image` drives it with
     lag=0 and the synchronous estimator: per frame, the gyro-predicted
     rotation, `FusedTracker.step` and `CtrlVIO.process_frame`. Returns the
-    estimated and true positions of the solved frames, the estimator, the
-    host times of each frame from the fifth on (as the bench times them)
-    but the last, and a `torch.profiler` trace of the last frame.
+    estimated and true positions of the solved frames, the published
+    features, the estimator, the host times of each frame from the fifth
+    on (as the bench times them) but the last, the programs captured
+    during those timed frames, and a `torch.profiler` trace of the last
+    frame.
     `probe(vio)` runs after each solved frame, outside its timed span."""
     timed_from = 4
     H, W = imgs.shape[1:]
@@ -508,7 +587,7 @@ def replay(sim, imgs, camera, tcfg, vio_cfg, device, probe=None):
         np.asarray(sim.cfg.ext_rot, np.float64))[None])[0]
     vio = started_vio(sim, vio_cfg, device)
     imgs_dev = torch.as_tensor(imgs, device=device)
-    est, gt = [], []
+    est, gt, feats = [], [], []
 
     def frame(i):
         """One frame; returns its front-end and estimator host seconds."""
@@ -520,6 +599,7 @@ def replay(sim, imgs, camera, tcfg, vio_cfg, device, probe=None):
         feat = tracker.step(fr.t_ns, imgs_dev[i], R_rel=M)
         sync(device)
         t1 = time.perf_counter()
+        feats.append(feat)
         out = None
         if feat is not None and len(feat["ids"]) >= 8:
             out = vio.process_frame(feat["t_ns"], feat["ids"], feat["pts"],
@@ -539,16 +619,19 @@ def replay(sim, imgs, camera, tcfg, vio_cfg, device, probe=None):
         if i == timed_from:
             vio.timing.clear()
             tracker.timing.clear()
+            captures = len(graphs.stats()["graphs_captured"])
         times.append(frame(i))
     timing = dict(vio.timing)  # the estimator's phases, unprofiled frames
     fe_timing = dict(tracker.timing)
+    captures = len(graphs.stats()["graphs_captured"]) - captures
     with device_trace() as prof:
         t_last = sum(frame(n - 1))
     vio.flush()
     times = np.asarray(times[timed_from:])
-    return dict(est=np.asarray(est), gt=np.asarray(gt), vio=vio, n_frames=n,
-                t_feat=times[:, 0], t_est=times[:, 1], timing=timing,
-                fe_timing=fe_timing, prof=prof, prof_s=t_last)
+    return dict(est=np.asarray(est), gt=np.asarray(gt), feats=feats,
+                vio=vio, n_frames=n, t_feat=times[:, 0], t_est=times[:, 1],
+                timing=timing, fe_timing=fe_timing, prof=prof,
+                prof_s=t_last, captures_in_timed_frames=captures)
 
 
 def device_share(prof, prof_s, frame_ms):
@@ -592,13 +675,16 @@ def phase_main():
     vio_cfg = image_vio_config(stream=False)
 
     # the counts of the main path's run: zero just before, read just after
-    lk.reset_counts()
+    reset_counts()
     t0 = time.perf_counter()
     run = replay(sim, imgs, cam, tcfg, vio_cfg, "cuda")
     wall = time.perf_counter() - t0
     launches = lk.lk_track.launches
     level_launches = lk.lk_level.launches
     plain_calls = lk.lk_level_plain.calls + lk.lk_track_plain.calls
+    g = graph_fields()
+    replayed = replay_times(program(odometry._SYNC_PROGRAMS, "window_solve",
+                                    "restore=True"))
 
     est, gt, vio = run["est"], run["gt"], run["vio"]
     ate = ate_rmse(est[10:], gt[10:], align="yaw")
@@ -620,15 +706,20 @@ def phase_main():
                k: v / n * 1e3 for k, v in run["fe_timing"].items()},
            "profile_last_frame": device_share(
                run["prof"], run["prof_s"],
-               float(np.median(run["t_feat"] + run["t_est"])) * 1e3)}
+               float(np.median(run["t_feat"] + run["t_est"])) * 1e3),
+           "captures_in_timed_frames": run["captures_in_timed_frames"],
+           "window_solve_replay": replayed, **g}
     emit(rec)
     finite = bool(np.isfinite(est).all()) and np.isfinite(vio.traj.line_delay)
     if not (finite and len(est) > 20 and ate < 0.15 and ld_err < 5e-6):
         raise SystemExit(f"main path fails its accuracy gates "
                          f"(ATE < 0.15 m, line-delay error < 5 us): {rec}")
-    if launches == 0 or launches != run["n_frames"] or plain_calls:
+    if not k1_once_a_frame(launches, g, run["n_frames"]) or plain_calls:
         raise SystemExit(f"main path did not run through the fused K1 "
                          f"track once a frame: {rec}")
+    # the front end's two programs, the window solve, prior and predict
+    if not captured_once(g, 5):
+        raise SystemExit(f"main path captured a program twice: {rec}")
     return rec, (sim, imgs, cam, tcfg)
 
 
@@ -659,7 +750,7 @@ def phase_main_marg_dev(main_rec, seq):
         probes.append((bool(torch.isfinite(vio.prior.J).all()),
                        int(vio.last_solve_stats.accepted)))
 
-    lk.reset_counts()
+    reset_counts()
     t0 = time.perf_counter()
     run = replay(sim, imgs, cam, tcfg,
                  image_vio_config(stream=False, marg_on_host=False), "cuda",
@@ -667,6 +758,7 @@ def phase_main_marg_dev(main_rec, seq):
     wall = time.perf_counter() - t0
     launches = lk.lk_track.launches
     plain_calls = lk.lk_level_plain.calls + lk.lk_track_plain.calls
+    g = graph_fields()
 
     est, gt, vio = run["est"], run["gt"], run["vio"]
     ate = ate_rmse(est[10:], gt[10:], align="yaw")
@@ -697,7 +789,8 @@ def phase_main_marg_dev(main_rec, seq):
                                    for k, v in run["timing"].items()},
            "profile_last_frame": device_share(
                run["prof"], run["prof_s"],
-               float(np.median(run["t_feat"] + run["t_est"])) * 1e3)}
+               float(np.median(run["t_feat"] + run["t_est"])) * 1e3),
+           "captures_in_timed_frames": run["captures_in_timed_frames"], **g}
     emit(rec)
     finite = bool(np.isfinite(est).all()) and np.isfinite(vio.traj.line_delay)
     if not (finite and len(est) == main_rec["solved"]
@@ -717,9 +810,12 @@ def phase_main_marg_dev(main_rec, seq):
                          f"line-delay error within 0.01 us of {ref}): {rec}")
     if rec["prior_dtype"] != "float32" or rec["prior64_held"]:
         raise SystemExit(f"marg_on_host=False kept the f64 prior: {rec}")
-    if launches != run["n_frames"] or plain_calls:
+    if not k1_once_a_frame(launches, g, run["n_frames"]) or plain_calls:
         raise SystemExit(f"main path with marg_on_host=False did not run "
                          f"through the fused K1 track once a frame: {rec}")
+    if not captured_once(g, 5):
+        raise SystemExit(f"main path with marg_on_host=False captured a "
+                         f"program twice: {rec}")
     return rec
 
 
@@ -748,7 +844,7 @@ def phase_e2e():
         stream=True)
     q_CtoI = so3np.quat_exp(np.asarray(sim.cfg.ext_rot, np.float64))
     # the counts of the e2e run: zero just before, read just after
-    lk.reset_counts()
+    reset_counts()
     t_run0 = time.perf_counter()
     vio = CtrlVIO(cfg, q_CtoI, np.array(sim.cfg.ext_pos), device="cuda")
     vio.check_dispatch_syncs = True
@@ -793,6 +889,7 @@ def phase_e2e():
             gt.append(sim.pose_at(fr.t_ns * 1e-9)[1])
         if timed_from is not None and i == timed_from:
             vio.timing.clear()
+            captures = len(graphs.stats()["graphs_captured"])
         if timed_from is not None and i >= timed_from and not trace:
             frame_times.append(dt)
             kinds.append(kind)
@@ -805,6 +902,10 @@ def phase_e2e():
     t_flush = time.perf_counter() - t0
     wall = time.perf_counter() - t_run0
     k1_launches = lk.lk_track.launches + lk.lk_level.launches
+    g = graph_fields()
+    captures = g["graphs_captured_n"] - captures
+    replayed = replay_times(program(vio._programs, "marg_old=True",
+                                    "host_seeds=False"))
 
     est, gt = np.asarray(est), np.asarray(gt)
     err = ate_rmse(est[10:], gt[10:], align="yaw")
@@ -851,7 +952,9 @@ def phase_e2e():
            "profiled_frame": profiled,
            "profile_streamed_frame": device_share(
                prof, prof_s, float(np.median(streamed)) * 1e3)
-           if prof is not None and len(streamed) else None}
+           if prof is not None and len(streamed) else None,
+           "captures_in_timed_frames": captures,
+           "megastep_replay": replayed, **g}
     emit(rec)
     finite = bool(np.isfinite(est).all()) and np.isfinite(vio.traj.line_delay)
     if not (finite and err < 0.10 and err_post < 0.10 and ld_err < 2e-6):
@@ -864,6 +967,11 @@ def phase_e2e():
                          f"(visual bootstrap, >= 40 megasteps, no sync solve "
                          f"after the handoff, no sync inside a megastep, "
                          f"one traced streamed frame): {rec}")
+    # the megastep a slide branch and seed source, the synchronous three
+    if not captured_once(g, 4 + 3) or g["replays"] < c["megastep"]:
+        raise SystemExit(f"e2e did not replay a captured megastep on every "
+                         f"streamed frame, or captured a program twice: "
+                         f"{rec}")
     return rec
 
 
@@ -955,7 +1063,7 @@ def phase_image_textured(render_proc):
         np.asarray(sim.cfg.ext_rot, np.float64))[None])[0]
 
     # the counts of this path's run: zero just before, read just after
-    lk.reset_counts()
+    reset_counts()
     t_run0 = time.perf_counter()
     tracker = FusedTracker(gated_tracker_config(), cam, (H, W), lag=1,
                            device="cuda")
@@ -985,6 +1093,7 @@ def phase_image_textured(render_proc):
         if i == timed_from:
             vio.timing.clear()
             tracker.timing.clear()
+            captures = len(graphs.stats()["graphs_captured"])
         with (device_trace() if trace
               else contextlib.nullcontext()) as p:
             t0 = time.perf_counter()
@@ -1018,6 +1127,8 @@ def phase_image_textured(render_proc):
     by_levels = dict(lk.lk_track.launches_by_levels)
     plain_calls = lk.lk_level_plain.calls + lk.lk_track_plain.calls
     level_launches = lk.lk_level.launches
+    g = graph_fields()
+    captures = g["graphs_captured_n"] - captures
 
     est, gt = np.asarray(est), np.asarray(gt)
     ate = ate_rmse(est[10:], gt[10:], align="yaw")
@@ -1066,16 +1177,19 @@ def phase_image_textured(render_proc):
            "profiled_frame": profiled,
            "profile_streamed_frame": device_share(
                prof, prof_s, float(np.median(streamed)) * 1e3)
-           if prof is not None and len(streamed) else None}
+           if prof is not None and len(streamed) else None,
+           "captures_in_timed_frames": captures, **g}
     emit(rec)
     finite = bool(np.isfinite(est).all()) and np.isfinite(vio.traj.line_delay)
     if not (finite and len(est) > 20 and ate < 0.15 and ld_err < 5e-6):
         raise SystemExit(f"image_textured fails bench.py's gates (ATE < "
                          f"0.15 m, line-delay error < 5 us): {rec}")
-    if not (launches == len(sim.frames) and by_levels == {3: launches}
-            and plain_calls == 0 and level_launches == 0):
+    if not (k1_once_a_frame(launches, g, len(sim.frames))
+            and by_levels == {3: launches} and plain_calls == 0
+            and level_launches == 0 and captured_once(g, 2 + 4 + 3)):
         raise SystemExit(f"image_textured did not run through one 3-level "
-                         f"K1 track launch a frame: {rec}")
+                         f"K1 track launch a frame, or captured a program "
+                         f"twice: {rec}")
     if not (tracker.n_rejected > 0 and c["megastep"] >= 40
             and c["megastep_syncs"] == 0
             and c["sync_solve_after_handoff"] == 0 and prof is not None):
@@ -1098,7 +1212,7 @@ def phase_image_classic(sim, imgs_dev, cam):
     call, 100 or more published features a frame after the first. ATE and
     line-delay error are reported, not gated."""
     H, W = imgs_dev.shape[1:]
-    lk.reset_counts()
+    reset_counts()
     t_run0 = time.perf_counter()
     vio = started_vio(sim, image_vio_config(stream=False))
     vio.attach_frontend(cam, (H, W), gated_tracker_config())
@@ -1138,7 +1252,7 @@ def phase_image_classic(sim, imgs_dev, cam):
            "frame_ms_median": float(np.median(frame_ms[1:])),
            "k1_track_launches": launches,
            "k1_track_launches_by_levels": by_levels,
-           "plain_lk_calls": plain_calls}
+           "plain_lk_calls": plain_calls, **graph_fields()}
     emit(rec)
     if not (len(est) > 0 and bool(np.isfinite(est).all())
             and launches == n - 1 and by_levels == {4: n - 1}
@@ -1182,7 +1296,7 @@ def phase_serve():
         duration=SERVE_S, n_landmarks=300, seed=3 + lane))
         for lane in range(SERVE_LANES)]
     n_frames = min(len(s.frames) for s in sims)
-    lk.reset_counts()
+    reset_counts()
     t_run0 = time.perf_counter()
     vios = [started_vio(sim, VIOConfig(
         window_config=WindowConfig(KW=32, NB=11, LM=256, OBS=768, MIMU=256),
@@ -1200,6 +1314,7 @@ def phase_serve():
                 v.timing.clear()
             coord.timing.clear()
             coord._n_steps = 0
+            captures = len(graphs.stats()["graphs_captured"])
         if k >= timed_from:
             times.append(time.perf_counter() - t0)
     n_timed = max(coord._n_steps, 1)
@@ -1224,6 +1339,8 @@ def phase_serve():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_run0
     k1_launches = lk.lk_track.launches + lk.lk_level.launches
+    g = graph_fields()
+    captures = g["graphs_captured_n"] - captures
 
     lanes = []
     for lane, (vio, sim) in enumerate(zip(vios, sims)):
@@ -1261,7 +1378,8 @@ def phase_serve():
            "dispatch_syncs": coord.dispatch_syncs,
            "sync_messages": sorted(set(coord.sync_warnings))[:5],
            "k1_launches": k1_launches, "profiled_frame": n_frames - 1,
-           "profile_batched_step": profile, "per_lane": lanes}
+           "profile_batched_step": profile, "per_lane": lanes,
+           "captures_in_timed_frames": captures, **g}
     bad = [r for r in lanes if not (r["finite"] and r["ate_m"] < 0.10
                                     and r["ld_err_s"] < 5e-6)]
     if bad:
@@ -1274,6 +1392,227 @@ def phase_serve():
                          f"(>= 30 batched steps, no synchronizing call in "
                          f"the dispatch, no sync solve after the handoff): "
                          f"{rec}")
+    # the batched megastep, the lanes' synchronous three
+    if not captured_once(g, 1 + 3) or g["replays"] < rec["batched_steps"]:
+        raise SystemExit(f"serve did not replay a captured batched megastep "
+                         f"every step, or captured a program twice: {rec}")
+    return rec
+
+
+# the graphs line: frames run graphed and eagerly on the card, both under
+# deterministic algorithms (as the multichip phase compares). In the
+# default mode CUDA's atomic `index_add` sums in another order on each run
+# and the chained windows carry that (1.6-2.1 mm apart after 11-17 frames,
+# ATE within 0.4 mm, on an H100); under them a replay equals its eager
+# call bit for bit (0.0 on both megastep branches, no synchronizing call).
+# Gates: the tolerances of `tests/test_torch_graphs_gpu.py` (positions
+# 1e-3 m) and ATE within 1 mm
+GRAPH_TOL_M = 1e-3
+GRAPH_ATE_M = 1e-3
+GRAPH_TOL_PX = 1e-3
+
+
+@contextlib.contextmanager
+def eager_programs():
+    """For the graphs line only: inside, every program's function runs
+    eagerly on the card (the comparison's other side), by patching the
+    package's rule of which devices run graphs (`graphs.graphed_on`). The
+    package itself has no switch that turns graphs off."""
+    on = graphs.graphed_on
+    graphs.graphed_on = lambda device: False
+    try:
+        yield
+    finally:
+        graphs.graphed_on = on
+
+
+def both_ways(run):
+    """`run()` with its programs replayed, then eagerly."""
+    got = run()
+    with eager_programs():
+        ref = run()
+    return got, ref
+
+
+def graphs_main():
+    """The main path's synchronous frames after its 11-frame window filled
+    (2.5 s of the blobs scene, rendered here as `phase_main` renders it:
+    about 14 solved frames), and the front end on every frame: positions
+    and ATE, the published features."""
+    sim = image_sim(2.5, 1500)
+    cam = tumrs_camera()
+    imgs = render.render_sequence(sim, 1024, 1280, camera=cam, seed=1,
+                                  big_every=6, texture=6.0)
+    tcfg = TrackerConfig(max_cnt=150, min_dist=25, use_clahe=True,
+                         fb_check=True, klt=klt.KLTConfig(pred_levels=3))
+    n = len(sim.frames)
+
+    def run():
+        r = replay(sim, imgs, cam, tcfg, image_vio_config(stream=False),
+                   "cuda")
+        est, gt = r["est"], r["gt"]
+        return dict(est=est, ate=ate_rmse(est, gt, align="yaw"),
+                    feats=r["feats"], vio=r["vio"],
+                    est_ms=float(np.median(r["t_est"][-10:])) * 1e3,
+                    fe_ms=float(np.median(r["t_feat"])) * 1e3)
+
+    g, e = both_ways(run)
+    same_ids = all((a is None and b is None) or np.array_equal(
+        a["ids"], b["ids"]) for a, b in zip(g["feats"], e["feats"]))
+    uv = max((float(np.abs(a["uv"] - b["uv"]).max()) for a, b in
+              zip(g["feats"], e["feats"]) if a is not None and len(a["uv"])
+              and np.array_equal(a["ids"], b["ids"])), default=0.0)
+    return {"frames": n, "solved": len(g["est"]),
+            "frontend_frames": sum(f is not None for f in g["feats"]),
+            "max_pos_dev_m": float(np.abs(g["est"] - e["est"]).max()),
+            "ate_m": g["ate"], "ate_eager_m": e["ate"],
+            "ld_dev_s": abs(g["vio"].traj.line_delay
+                            - e["vio"].traj.line_delay),
+            "features_same_ids": same_ids, "features_max_uv_dev_px": uv,
+            "estimator_ms_median": g["est_ms"],
+            "estimator_ms_median_eager": e["est_ms"],
+            "frontend_ms_median": g["fe_ms"],
+            "frontend_ms_median_eager": e["fe_ms"]}
+
+
+def graphs_e2e():
+    """About 20 streamed frames of the e2e sequence (`phase_e2e`'s: f32,
+    the bench's window, the native table) from the ground-truth bootstrap
+    with 4 warmup frames, so that the stream starts after 15 frames: the
+    forecast poses, the post-hoc trajectory at the frame times, the
+    consumed summaries' statistics, host ms a streamed frame."""
+    sim = synthetic.generate(synthetic.reference_noise(
+        duration=4.0, n_landmarks=300, seed=3, speed=1.0))
+    cfg = VIOConfig(
+        window_config=WindowConfig(KW=32, NB=11, LM=256, OBS=768, MIMU=256),
+        fix_ld=False, ld_init=0.0, dtype=torch.float32, stream=True,
+        stream_warmup=4)
+
+    def run():
+        vio = started_vio(sim, cfg)
+        est, ts, ms = [], [], []
+        for fr in sim.frames:
+            n = vio.counts["megastep"]
+            t0 = time.perf_counter()
+            out = vio.process_frame(fr.t_ns, fr.ids, fr.pts, fr.rows)
+            dt = time.perf_counter() - t0
+            if out is not None:
+                est.append(out[1])
+                ts.append(fr.t_ns)
+            if vio.counts["megastep"] > n:
+                ms.append(dt)
+        vio.flush()
+        torch.cuda.synchronize()
+        base = vio.data_start_ns or 0
+        post = np.stack([vio.traj.pose(t - base)[1][0] for t in ts])
+        gt = np.stack([sim.pose_at(t * 1e-9)[1] for t in ts])
+        return dict(est=np.asarray(est), post=post, vio=vio,
+                    ate=ate_rmse(post, gt, align="yaw"),
+                    ms=float(np.median(ms[2:])) * 1e3)
+
+    g, e = both_ways(run)
+    sg, se = g["vio"].last_solve_stats, e["vio"].last_solve_stats
+    return {"frames": len(sim.frames), "streamed": g["vio"].counts["megastep"],
+            "streamed_eager": e["vio"].counts["megastep"],
+            "max_pos_dev_m": float(np.abs(g["est"] - e["est"]).max()),
+            "max_posthoc_dev_m": float(np.abs(g["post"] - e["post"]).max()),
+            "ate_m": g["ate"], "ate_eager_m": e["ate"],
+            "ld_dev_s": abs(g["vio"].traj.line_delay
+                            - e["vio"].traj.line_delay),
+            "last_summary_cost_rel_dev":
+                abs(sg.cost - se.cost) / max(abs(se.cost), 1e-30),
+            "streamed_ms_median": g["ms"], "streamed_ms_median_eager": e["ms"]}
+
+
+def graphs_serve():
+    """10 or more batched steps of `phase_serve`'s 8 lanes (its sequences
+    cut to 3.2 s: the 11-frame windows, 4 warmup frames, then the steps): each
+    lane's trajectory at its frame times and its ATE, host ms a step."""
+    sims = [synthetic.generate(synthetic.SimConfig(
+        duration=3.2, n_landmarks=300, seed=3 + lane))
+        for lane in range(SERVE_LANES)]
+    n_frames = min(len(s.frames) for s in sims)
+
+    def run():
+        vios = [started_vio(sim, VIOConfig(
+            window_config=WindowConfig(KW=32, NB=11, LM=256, OBS=768,
+                                       MIMU=256),
+            fix_ld=False, ld_init=sim.cfg.line_delay, dtype=torch.float32,
+            stream=True, stream_warmup=SERVE_WARMUP)) for sim in sims]
+        coord = BatchedStream(vios)
+        ms = []
+        for k in range(n_frames):
+            n = coord._n_steps
+            t0 = time.perf_counter()
+            coord.step(sim_frames(sims, k))
+            if coord._n_steps > n:
+                ms.append(time.perf_counter() - t0)
+        coord.flush()
+        torch.cuda.synchronize()
+        pos, ates = [], []
+        for vio, sim in zip(vios, sims):
+            ts = [f.t_ns for f in sim.frames[11:n_frames]]
+            base = vio.data_start_ns or 0
+            p = np.stack([vio.traj.pose(t - base)[1][0] for t in ts])
+            pos.append(p)
+            ates.append(ate_rmse(p, np.stack([sim.pose_at(t * 1e-9)[1]
+                                              for t in ts]), align="yaw"))
+        return dict(pos=np.asarray(pos), ates=ates, steps=coord._n_steps,
+                    ms=float(np.median(ms[2:])) * 1e3)
+
+    g, e = both_ways(run)
+    return {"lanes": SERVE_LANES, "steps": g["steps"],
+            "steps_eager": e["steps"],
+            "max_pos_dev_m": float(np.abs(g["pos"] - e["pos"]).max()),
+            "max_ate_dev_m": float(np.max(np.abs(np.subtract(g["ates"],
+                                                             e["ates"])))),
+            "ate_m": g["ates"], "ate_eager_m": e["ates"],
+            "step_ms_median": g["ms"], "step_ms_median_eager": e["ms"]}
+
+
+def phase_graphs():
+    """The graphs line: the same frames run with every program replayed
+    from its captured graph and with every function run eagerly, on the
+    card, in this (side) process, under deterministic algorithms: 10 or
+    more synchronous `main` frames with the front end on every frame, ~20
+    streamed e2e frames, 10 or more serve steps at B = 8. Gates: the graphed run's positions and summaries within the
+    gpu tests' tolerances of the eager run's (1e-3 m; the line delay within
+    1e-8 s; the last summary's cost within 1e-3 relative), ATE within 1 mm,
+    the front end's published ids equal and points within 1e-3 px, both
+    runs the same frame and step counts. Host ms a frame both ways."""
+    t0 = time.perf_counter()
+    reset_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            rec = {"phase": "graphs", "deterministic": True,
+                   "main": graphs_main(), "e2e": graphs_e2e(),
+                   "serve": graphs_serve()}
+        finally:
+            torch.use_deterministic_algorithms(False)
+    rec.update(graph_fields(), wall_s=time.perf_counter() - t0,
+               ops_without_deterministic_version=sorted({
+                   str(w.message).split(" does not")[0] for w in caught
+                   if "deterministic" in str(w.message)}))
+    m, e2e, sv = rec["main"], rec["e2e"], rec["serve"]
+    ok = (m["max_pos_dev_m"] <= GRAPH_TOL_M
+          and abs(m["ate_m"] - m["ate_eager_m"]) <= GRAPH_ATE_M
+          and m["ld_dev_s"] <= 1e-8 and m["features_same_ids"]
+          and m["features_max_uv_dev_px"] <= GRAPH_TOL_PX
+          and m["solved"] >= 10 and m["frontend_frames"] >= 10
+          and e2e["streamed"] == e2e["streamed_eager"] >= 18
+          and e2e["max_pos_dev_m"] <= GRAPH_TOL_M
+          and e2e["max_posthoc_dev_m"] <= GRAPH_TOL_M
+          and abs(e2e["ate_m"] - e2e["ate_eager_m"]) <= GRAPH_ATE_M
+          and e2e["ld_dev_s"] <= 1e-8
+          and e2e["last_summary_cost_rel_dev"] <= 1e-3
+          and sv["steps"] == sv["steps_eager"] >= 10
+          and sv["max_pos_dev_m"] <= GRAPH_TOL_M
+          and sv["max_ate_dev_m"] <= GRAPH_ATE_M)
+    if not ok:
+        raise SystemExit(f"graphs: the replayed programs depart from the "
+                         f"eager run: {rec}")
     return rec
 
 
@@ -1339,7 +1678,7 @@ def phase_batch():
     cfg = WindowConfig(KW=48, NB=11, LM=256, OBS=768, MIMU=512, dt=0.05)
     prob = tiny.tiny_problem(torch.float32, cfg, device="cuda")
     opts = SolveOptions(max_iters=15)
-    lk.reset_counts()
+    reset_counts()
     t_run0 = time.perf_counter()
     t_single, (p1, s1) = time_min(lambda: lm.solve_window_fixed(
         prob.params, prob.img, prob.imu, prob.bias, prob.prior, prob.fixed,
@@ -1378,7 +1717,7 @@ def phase_batch():
                   "max_diff_over_chol_decrease":
                       float(np.max(cg_off / (cost0 - results[8])))},
            "k1_launches": lk.lk_track.launches + lk.lk_level.launches,
-           "wall_s": wall}
+           "wall_s": wall, **graph_fields()}
     if not all(max(r["max_lane_dev"][k] for k in ("knots_q", "knots_p",
                                                   "bg", "ba", "dinv"))
                <= 1e-3 and r["max_lane_dev"]["ld"] <= 1e-8
@@ -1433,7 +1772,7 @@ def phase_multichip():
     # before this process's first cuBLAS call
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     cfg, opts = MULTICHIP_CFG, SolveOptions(max_iters=MULTICHIP_ITERS)
-    lk.reset_counts()
+    reset_counts()
     t_run0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="multichip_") as store:
         dev = pmesh.init_distributed(0, 1, store, device="cuda")
@@ -1545,7 +1884,8 @@ def phase_multichip():
            "megastep": [m1["cost0"], m1["cost"], m2["cost"]],
            "two_ranks": two,
            "k1_launches": lk.lk_track.launches + lk.lk_level.launches,
-           "world1_s": world1_s, "two_ranks_s": time.perf_counter() - t0}
+           "world1_s": world1_s, "two_ranks_s": time.perf_counter() - t0,
+           **graph_fields()}
     if not solve_agrees(default_mode["sharded_dev"],
                         default_mode["sharded_dcost_over_cost0"]):
         raise SystemExit(f"multichip: the world-1 sharded solve disagrees "
@@ -1824,7 +2164,8 @@ def phase_cli():
            "plain_lk_track_calls": stats["plain_lk_track_calls"],
            "plain_lk_level_calls": stats["plain_lk_level_calls"],
            "html_bytes": html.stat().st_size,
-           "card": card_name_and_power_limit()}
+           "card": card_name_and_power_limit(),
+           **graph_fields(stats["graphs"])}
     steps = np.diff(t)
     unit = np.abs(np.linalg.norm(q, axis=1) - 1.0).max()
     if not (len(t) > 100 and bool((steps > 0).all()) and unit < 1e-6
@@ -1837,8 +2178,9 @@ def phase_cli():
     if not (rec["megasteps"] >= 10 and rec["megastep_syncs"] == 0):
         raise SystemExit(f"cli did not stream (>= 10 megasteps, no "
                          f"synchronizing call inside one): {rec}")
-    if not (rec["k1_track_launches"] == frames
-            and rec["k1_track_launches_by_levels"] == {"2": frames}
+    if not (k1_once_a_frame(rec["k1_track_launches"], rec, frames)
+            and rec["k1_track_launches_by_levels"] == {
+                "2": rec["k1_track_launches"]}
             and rec["k1_level_launches"] == 0
             and rec["plain_lk_track_calls"] == 0
             and rec["plain_lk_level_calls"] == 0):
@@ -1925,15 +2267,18 @@ def phase_bench():
            "image": {"argv": list(map(str, BENCH_IMAGE)), "seconds": image_s,
                      "result": image, "stats": stats},
            "profile_serve_sweep": {"seconds": sweep_s, **sweep},
-           "entry": entry_rec, "card": card_name_and_power_limit()}
+           "entry": entry_rec, "card": card_name_and_power_limit(),
+           "image_graphs": graph_fields(stats["graphs"])}
     if not (list(e2e) == BENCH_E2E_KEYS and e2e["gt"] == "lissajous"
             and e2e["ate_online_cm"] < 10 and e2e["ate_posthoc_cm"] < 10
             and e2e["ld_err_us"] < 2):
         raise SystemExit(f"bench: the lissajous e2e row's line fails "
                          f"bench.py's keys or gates: {rec}")
     if not (image["metric"] == "image_frames_per_sec_per_chip"
-            and stats["k1_track_launches"] == frames
-            and stats["k1_track_launches_by_levels"] == {"3": frames}
+            and k1_once_a_frame(stats["k1_track_launches"],
+                                rec["image_graphs"], frames)
+            and stats["k1_track_launches_by_levels"] == {
+                "3": stats["k1_track_launches"]}
             and stats["k1_level_launches"] == 0
             and stats["plain_lk_track_calls"] == 0
             and stats["plain_lk_level_calls"] == 0):
@@ -2014,7 +2359,7 @@ def main():
         # the kernel checks above have the card to themselves
         sides = [start_side("phase_serve", "phase_batch"),
                  start_side("phase_cli"), start_side("phase_multichip"),
-                 start_side("phase_bench")]
+                 start_side("phase_bench"), start_side("phase_graphs")]
         main_rec, seq = phase_main()
         launches = main_rec["k1_track_launches"]
         marg_dev = phase_main_marg_dev(main_rec, seq)
@@ -2025,6 +2370,7 @@ def main():
         (cli_rec,) = side_result(sides[1])
         (multichip,) = side_result(sides[2])
         (bench,) = side_result(sides[3])
+        (graphs_rec,) = side_result(sides[4])
     finally:
         if render_proc.is_alive():
             render_proc.terminate()
@@ -2041,11 +2387,14 @@ def main():
     emit(cli_rec)
     emit(multichip)
     emit(bench)
+    emit(graphs_rec)
     kernels = [{
         "name": "K1 lk_track", "route": "cuda",
         "source": "ctrlvio_tpu_torch/csrc/lk.cu",
         "replaces": "ctrlvio_tpu/ops/pallas/lk_kernel.py:118",
         "launches": launches, "max_abs_err": k1["max_abs_err"],
+        "launches_replayed": main_rec["k1_launches_replayed"],
+        "launches_warm_up": main_rec["k1_launches_warm_up"],
         "marg_dev_launches": marg_dev["k1_track_launches"],
         "ms": k1["ms"], "device_ms": k1["device_ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],

@@ -15,7 +15,8 @@ the streaming pipeline, or with `--device cpu` in float64 with the
 synchronous one; `--stream` forces the stream on. It ends with two stderr
 lines: `[run] frames=...` and `[run] stats {...}`, a JSON object of the
 run's counts (solves, megasteps, bootstraps, K1 launches, synchronizing
-calls with `--check-syncs`) and per-frame times.
+calls with `--check-syncs`), the captured programs (`graphs`: on the
+card, `utils/graphs.py::stats`) and per-frame times.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ def _cmd_run(args):
     from ctrlvio_tpu_torch.io import dataset
     from ctrlvio_tpu_torch.io.config import load_config
     from ctrlvio_tpu_torch.ops import lk
+    from ctrlvio_tpu_torch.utils import graphs
     from ctrlvio_tpu_torch.utils.device import resolve_device
     from ctrlvio_tpu_torch.utils.export import export_vio_trajectory
 
@@ -75,6 +77,7 @@ def _cmd_run(args):
             vio.tracker.check_dispatch_syncs = args.check_syncs
 
     lk.reset_counts()
+    graphs.reset_counts()
     frame_s = []
     t0 = time.perf_counter()
     out = dataset.replay(seq, vio, frame_s=frame_s)
@@ -100,6 +103,7 @@ def _cmd_run(args):
         "k1_level_launches": lk.lk_level.launches,
         "plain_lk_track_calls": lk.lk_track_plain.calls,
         "plain_lk_level_calls": lk.lk_level_plain.calls,
+        "graphs": graphs.stats(),
         "frame_ms_median": float(np.median(frame_s)) * 1e3
         if frame_s else None,
         "sustained_fps": len(frame_s) / max(wall, 1e-9)}

@@ -332,12 +332,15 @@ def bench_image(args):
     the stream, `lag=1`, K1, the frames resident on the card; on the CPU:
     f64, synchronous, `lag=0`, the plain LK. Gates: ATE < 0.15 m, line-delay
     error < 5 us. Its stderr ends with `[bench-image] stats {json}`: K1
-    launches by level count and plain LK calls, counted over the replay."""
+    launches by level count, plain LK calls and the captured programs
+    (`utils/graphs.py::stats`: on the card every capture, its replays and
+    the K1 launches they made), counted over the replay."""
     from ctrlvio_tpu_torch.frontend.fused import FusedTracker, rotation_flow
     from ctrlvio_tpu_torch.frontend.klt import KLTConfig
     from ctrlvio_tpu_torch.frontend.tracker import TrackerConfig
     from ctrlvio_tpu_torch.ops import lk
     from ctrlvio_tpu_torch.sim import render
+    from ctrlvio_tpu_torch.utils import graphs
 
     device = preset_device(args.preset)
     on_card = device.type == "cuda"
@@ -373,6 +376,7 @@ def bench_image(args):
         reject_wf=(args.scene == "textured"), f_threshold=1.0,
         klt=KLTConfig(pred_levels=3))
     lk.reset_counts()
+    graphs.reset_counts()
     tracker = FusedTracker(tcfg, cam, (H, W), lag=1 if on_card else 0,
                            device=device)
     cfg = VIOConfig(window_config=BENCH_WINDOW, fix_ld=False, ld_init=0.0,
@@ -435,7 +439,7 @@ def bench_image(args):
              "plain_lk_track_calls": lk.lk_track_plain.calls,
              "plain_lk_level_calls": lk.lk_level_plain.calls,
              "n_rejected": tracker.n_rejected,
-             "counts": dict(vio.counts)}
+             "counts": dict(vio.counts), "graphs": graphs.stats()}
     print("[bench-image] stats " + json.dumps(stats), file=sys.stderr)
 
     if len(est) <= 10:

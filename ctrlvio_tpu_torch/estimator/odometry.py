@@ -13,13 +13,21 @@ Per frame (after initialization):
 
 Two schedules run steps 5-8:
 - synchronous (`stream=False`, and the first `stream_warmup` frames of a
-  stream): one window solve with host round trips, the marginalization in
-  f64 on the device;
-- streaming (`stream=True` after the warmup): one device call a frame
+  stream): per frame, one program solves the window and restores the
+  gauge (one upload, one pull), and on a MARGIN_OLD frame a second one
+  builds the marginalization prior in f64 on the device;
+- streaming (`stream=True` after the warmup): one device program a frame
   (`stream.megastep`: solve, gauge, square-root marginalization in the
   solve dtype, slide) chained through a device-resident state with no host
   read; the host mirror consumes the solve summaries `stream_lag` frames
   later, pulling every `stream_consume_every`-th asynchronously.
+
+On the card each program is a captured CUDA graph (`utils/graphs.py`, the
+counterpart of the JAX package's `jax.jit`): the streamed megastep one per
+slide branch and seed source, held by the estimator with its state in
+place; the synchronous solve, prior build and predict solve shared by
+every estimator of the process with the same configuration
+(`_SYNC_PROGRAMS`). The first window's bootstrap solve runs eagerly.
 
 Initialization: external (`set_initial_state`, e.g. from
 `initializer.bootstrap_from_sim`), static (stillness, with the IMU
@@ -58,9 +66,11 @@ from ctrlvio_tpu_torch.ops import factors as F
 from ctrlvio_tpu_torch.ops import so3np
 from ctrlvio_tpu_torch.solver import gauge, lm, marginalize
 from ctrlvio_tpu_torch.solver.layout import (BiasFactors, ImageFactors,
-                                             PriorFactor, SolveOptions,
-                                             WindowConfig, WindowParams,
-                                             empty_params, empty_prior)
+                                             ImuFactors, PriorFactor,
+                                             SolveOptions, WindowConfig,
+                                             WindowParams, empty_params,
+                                             empty_prior)
+from ctrlvio_tpu_torch.utils import graphs
 from ctrlvio_tpu_torch.utils.convert import from_numpy, tensor, to_dtype
 from ctrlvio_tpu_torch.utils.device import (SYNC_WARNING,  # noqa: F401
                                             recorded_syncs, resolve_device)
@@ -74,6 +84,11 @@ from .initializer import (ActiveInitializer, InitialState, StaticInitializer,
 S_TO_NS = 1_000_000_000
 MARGIN_OLD = 0
 MARGIN_SECOND_NEW = 1
+
+# the synchronous path's programs (window solve, prior build, predict
+# solve): one per window configuration, options, dtype and device, shared
+# by every CtrlVIO of the process, as `jax.jit`'s cache is
+_SYNC_PROGRAMS = graphs.ProgramCache()
 
 
 @dataclass
@@ -169,6 +184,118 @@ class KeyframePose:
 
 def _np_dtype(dtype: torch.dtype):
     return np.float64 if dtype == torch.float64 else np.float32
+
+
+# ---------------------------------------------------------------------------
+# the synchronous path's programs (≙ `_ba_fused`, `_blob_pack`,
+# `_blob_unpack`, `_build_prior_cpu` / `_build_prior_dev` and
+# `_solve_predict` of `ctrlvio_tpu/estimator/odometry.py`)
+# ---------------------------------------------------------------------------
+
+
+def blob_pack(img: ImageFactors, imu: ImuFactors, bias: BiasFactors, kq, kp,
+              bg, ba, dinv, ld, knots, dtype, tail=()) -> np.ndarray:
+    """Every host-produced input of a window program in one flat buffer
+    (one upload): the factors, the window parameters, a (KW,) knot mask
+    (the fixed knots of a solve, the dropped ones of a prior build) and
+    `tail`, further values. Integers and booleans are float-encoded (all
+    values << 2^24, exact in f32). The prior stays on the device and is
+    not packed, unlike the JAX package's blob."""
+    parts = [np.asarray(f, dtype).ravel() for t in (img, imu, bias)
+             for f in t]
+    parts += [np.asarray(a, dtype).ravel() for a in (kq, kp, bg, ba, dinv)]
+    parts += [np.asarray([ld], dtype), np.asarray(knots, dtype),
+              np.asarray(tail, dtype)]
+    return np.concatenate(parts)
+
+
+def blob_unpack(blob: torch.Tensor, cfg: WindowConfig):
+    """Inverse of `blob_pack` on the device, at static offsets: (img, imu,
+    bias, WindowParams, the knot mask, the tail)."""
+    OBS, M, NB, KW, LM = cfg.OBS, cfg.MIMU, cfg.NB, cfg.KW, cfg.LM
+    o = [0]
+
+    def take(shape, dt=None):
+        n = int(np.prod(shape))
+        x = blob[o[0] : o[0] + n].reshape(shape)
+        o[0] += n
+        if dt is torch.bool:
+            return x != 0
+        return x if dt is None else x.to(dt)
+
+    i64, b = torch.int64, torch.bool
+    img = ImageFactors(
+        i0_i=take((OBS,), i64), f_i=take((OBS,)), row_i=take((OBS,)),
+        pt_i=take((OBS, 3)), i0_j=take((OBS,), i64), f_j=take((OBS,)),
+        row_j=take((OBS,)), pt_j=take((OBS, 3)),
+        lm_idx=take((OBS,), i64), valid=take((OBS,), b),
+        marg_drop=take((OBS,), b))
+    imu = ImuFactors(
+        i0=take((M,), i64), u=take((M,)), gyro=take((M, 3)),
+        accel=take((M, 3)), bias_idx=take((M,), i64),
+        valid=take((M,), b), marg_drop=take((M,), b))
+    bias = BiasFactors(sqrt_info=take((NB - 1, 6)),
+                       valid=take((NB - 1,), b))
+    params = WindowParams(knots_q=take((KW, 4)), knots_p=take((KW, 3)),
+                          bg=take((NB, 3)), ba=take((NB, 3)),
+                          dinv=take((LM,)), ld=take(()))
+    knots = take((KW,), b)
+    return img, imu, bias, params, knots, blob[o[0]:]
+
+
+def window_solve(blob, prior: PriorFactor, ext, gravity, imu_info,
+                 sqrt_info_img, *, cfg: WindowConfig, opts: SolveOptions,
+                 ne_mode: str, chunk: Optional[int], restore: bool):
+    """The synchronous window solve as one program (≙ `_ba_fused`): the
+    blob's factors and parameters, `opts.max_iters` LM iterations that
+    freeze once converged (`lm.solve_window_fixed`, equal to the host-exit
+    loop), with `restore` the 4-DoF gauge restore; one flat vector out
+    [knots_q, knots_p, bg, ba, dinv, ld, cost0, cost, accepted]
+    (`unpack_solved`)."""
+    img, imu, bias, params, fixed, _ = blob_unpack(blob, cfg)
+    p_out, stats = lm.solve_window_fixed(
+        params, img, imu, bias, prior, fixed, ext, gravity, imu_info,
+        sqrt_info_img, cfg, opts, ne_mode=ne_mode, chunk=chunk)
+    q_new, p_new = p_out.knots_q, p_out.knots_p
+    if restore:
+        q_new, p_new = gauge.restore_gauge(q_new, p_new, params.knots_q[0],
+                                           params.knots_p[0], 0, 0)
+    return torch.cat([
+        q_new.reshape(-1), p_new.reshape(-1), p_out.bg.reshape(-1),
+        p_out.ba.reshape(-1), p_out.dinv, p_out.ld.reshape(1),
+        torch.stack([stats.cost0, stats.cost,
+                     stats.accepted.to(q_new.dtype)])])
+
+
+def unpack_solved(host: np.ndarray, cfg: WindowConfig) -> dict:
+    """`window_solve`'s vector, pulled to the host, split into numpy
+    views."""
+    K, B, L = cfg.KW, cfg.NB, cfg.LM
+    o = np.cumsum([0, 4 * K, 3 * K, 3 * B, 3 * B, L, 1, 1, 1, 1])
+    return dict(knots_q=host[o[0]:o[1]].reshape(K, 4),
+                knots_p=host[o[1]:o[2]].reshape(K, 3),
+                bg=host[o[2]:o[3]].reshape(B, 3),
+                ba=host[o[3]:o[4]].reshape(B, 3), dinv=host[o[4]:o[5]],
+                ld=host[o[5]], cost0=host[o[6]], cost=host[o[7]],
+                accepted=host[o[8]])
+
+
+def marg_prior(blob, old_prior: PriorFactor, ext, imu_info, sqrt_info_img,
+               *, cfg: WindowConfig, opts: SolveOptions) -> PriorFactor:
+    """A MARGIN_OLD frame's normal-equation prior as one program (≙
+    `_build_prior_cpu` / `_build_prior_dev`), in the blob's dtype: the
+    compacted marg subset and the linearization point from the blob, whose
+    knot mask is the dropped knots and whose tail is [gravity (3),
+    knot_shift, bias_shift], so the shifts are device tensors and one
+    program serves every shift; ext, imu_info and sqrt_info_img are cast
+    to the blob's dtype inside."""
+    dt = blob.dtype
+    img, imu, bias, params, drop, tail = blob_unpack(blob, cfg)
+    return marginalize.build_prior(
+        params, img, imu, bias, old_prior, drop, to_dtype(ext, dt),
+        tail[:3], imu_info.to(dt), sqrt_info_img.to(dt), cfg, opts,
+        knot_shift=tail[3].to(torch.int64),
+        bias_shift=tail[4].to(torch.int64))
 
 
 class CtrlVIO:
@@ -269,12 +396,14 @@ class CtrlVIO:
             max_iters=cfg.predict_iters, lock_bias=True, fix_ld=True)
         # the IMU-only predict touches no image factors or landmarks
         self._predict_cfg = wc._replace(OBS=8, LM=8)
-        self._predict_img = self._dev(
-            _empty_image_factors(self._predict_cfg, _np_dtype(jdt)))
-        self._predict_bias = self._dev(BiasFactors(
+        self._predict_img = _empty_image_factors(self._predict_cfg,
+                                                 _np_dtype(jdt))
+        self._predict_bias = BiasFactors(
             sqrt_info=np.zeros((wc.NB - 1, 6), _np_dtype(jdt)),
-            valid=np.zeros(wc.NB - 1, bool)))
+            valid=np.zeros(wc.NB - 1, bool))
         self._predict_prior = empty_prior(self._predict_cfg, jdt, self.device)
+        # the streamed megastep's programs (their state is this estimator's)
+        self._programs = graphs.ProgramCache()
         # the marg subset keeps its image factors but compacts landmarks
         # into dense slots
         self._marg_cfg = wc._replace(OBS=min(wc.OBS, 512),
@@ -300,6 +429,12 @@ class CtrlVIO:
                                self._t(fixed), ext, gravity, imu_info,
                                sqrt_info, cfg, opts, ne_mode=self.cfg.ne_mode,
                                chunk=self.cfg.ne_chunk)
+
+    def _sync_program(self, fn, *args, **static):
+        """`fn(*args, **static)` as the process's shared program of that key
+        on this estimator's device (eager on the CPU); returns its output,
+        which the program's next call overwrites."""
+        return _SYNC_PROGRAMS.get(fn, args, self.device, static)(*args)
 
     # ------------------------------------------------------------------
     # ingest
@@ -836,25 +971,25 @@ class CtrlVIO:
             return
 
         pc = self._predict_cfg
-        jdt = self.jdt
+        npdt = _np_dtype(self.jdt)
         kq, kp, n_active = self.traj.window(self.win_knot0, pc.KW, np.float64)
-        params = WindowParams(
-            knots_q=self._t(kq, jdt), knots_p=self._t(kp, jdt),
-            bg=self._t(self.bg, jdt), ba=self._t(self.ba, jdt),
-            dinv=torch.full((pc.LM,), 0.2, dtype=jdt, device=self.device),
-            ld=self._t(self.traj.line_delay, jdt))
         imu = packing.pack_imu_factors(
             self.imu_t_ns, self.imu_gyro, self.imu_accel, self.kf_t_ns,
             0, max_aft_ns, self.traj.dt, self.win_knot0, pc,
-            _np_dtype(jdt), on_overflow=self.cfg.imu_overflow)
+            npdt, on_overflow=self.cfg.imu_overflow)
         fixed = np.ones(wc.KW, bool)
         fixed[4:n_active] = False
-        p_out, _ = self._solve(params, self._predict_img, self._dev(imu),
-                               self._predict_bias, self._predict_prior, fixed,
-                               self._ext, self._gravity_j, self._imu_info,
-                               self._sqrt_info_img, pc, self._predict_opts)
-        self.traj.write_back(self.win_knot0, p_out.knots_q.cpu().numpy(),
-                             p_out.knots_p.cpu().numpy(), n_active)
+        blob = blob_pack(self._predict_img, imu, self._predict_bias, kq, kp,
+                         self.bg, self.ba, np.full(pc.LM, 0.2),
+                         self.traj.line_delay, fixed, npdt)
+        host = self._sync_program(
+            window_solve, self._upload(blob), self._predict_prior, self._ext,
+            self._gravity_j, self._imu_info, self._sqrt_info_img, cfg=pc,
+            opts=self._predict_opts, ne_mode=self.cfg.ne_mode,
+            chunk=self.cfg.ne_chunk, restore=False).cpu().numpy()
+        s = unpack_solved(host, pc)
+        self.traj.write_back(self.win_knot0, s["knots_q"], s["knots_p"],
+                             n_active)
 
     # ------------------------------------------------------------------
     def _deadreckon_extension(self, max_bef_ns: int, max_bef_idx: int,
@@ -908,41 +1043,27 @@ class CtrlVIO:
         # space and the post-solve restore re-anchors yaw + position
         fixed = np.ones(wc.KW, bool)
         fixed[:n_active] = False
-        params = WindowParams(
-            knots_q=self._t(kq.astype(npdt)), knots_p=self._t(kp.astype(npdt)),
-            bg=self._t(self.bg.astype(npdt)), ba=self._t(self.ba.astype(npdt)),
-            dinv=self._t(dinv0.astype(npdt)),
-            ld=self._t(np.asarray(self.traj.line_delay, npdt)))
+        blob = blob_pack(img, imu, bias, kq, kp, self.bg, self.ba, dinv0,
+                         self.traj.line_delay, fixed, npdt)
         prior = self.prior if self.prior is not None else \
             empty_prior(wc, jdt, self.device)
-        img_t, imu_t, bias_t = self._dev(img), self._dev(imu), self._dev(bias)
         self.timing["ba_pack"] += time.perf_counter() - t_pack0
 
+        # [5+6] the solve and the gauge restore as one program: one upload,
+        # one pull (≙ `_ba_fused`)
         t0 = time.perf_counter()
-        p_out, stats = self._solve(params, img_t, imu_t, bias_t, prior, fixed,
-                                   self._ext, self._gravity_j, self._imu_info,
-                                   self._sqrt_info_img, wc, self._ba_opts)
-        q_new, p_new = gauge.restore_gauge(p_out.knots_q, p_out.knots_p,
-                                           params.knots_q[0],
-                                           params.knots_p[0], 0, 0)
-        packed = torch.cat([
-            q_new.reshape(-1), p_new.reshape(-1), p_out.bg.reshape(-1),
-            p_out.ba.reshape(-1), p_out.dinv, p_out.ld.reshape(1),
-            torch.stack([stats.cost0, stats.cost,
-                         stats.accepted.to(q_new.dtype)])]).cpu().numpy()
-        host = packed.astype(np.float64)
+        host = self._sync_program(
+            window_solve, self._upload(blob), prior, self._ext,
+            self._gravity_j, self._imu_info, self._sqrt_info_img, cfg=wc,
+            opts=self._ba_opts, ne_mode=cfg.ne_mode, chunk=cfg.ne_chunk,
+            restore=True).cpu().numpy().astype(np.float64)
         self.timing["ba_solve"] += time.perf_counter() - t0
-
-        K, B, L = wc.KW, wc.NB, wc.LM
-        o = 0
-        kq_np = host[o : o + 4 * K].reshape(K, 4); o += 4 * K
-        kp_np = host[o : o + 3 * K].reshape(K, 3); o += 3 * K
-        bg_np = host[o : o + 3 * B].reshape(B, 3); o += 3 * B
-        ba_np = host[o : o + 3 * B].reshape(B, 3); o += 3 * B
-        dinv_np = host[o : o + L]; o += L
-        ld_np = host[o]; o += 1
+        s = unpack_solved(host, wc)
+        kq_np, kp_np, bg_np, ba_np = (s["knots_q"], s["knots_p"], s["bg"],
+                                      s["ba"])
+        dinv_np, ld_np = s["dinv"], s["ld"]
         self.last_solve_stats = SimpleNamespace(
-            cost0=host[o], cost=host[o + 1], accepted=host[o + 2])
+            cost0=s["cost0"], cost=s["cost"], accepted=s["accepted"])
 
         t0 = time.perf_counter()
         self.traj.write_back(self.win_knot0, kq_np, kp_np, n_active)
@@ -956,11 +1077,11 @@ class CtrlVIO:
         # [7] marginalization prior at the gauge-restored state, pre-rolled
         # into the post-slide layout: in f64 on the device (the Schur
         # complement spans too much dynamic range for f32) or, with
-        # marg_on_host=False, in the solve dtype
+        # marg_on_host=False, in the solve dtype; a program of its own,
+        # one per dtype, the shifts riding in its upload
         if self.marg_flag != MARGIN_OLD:
             return
         t0 = time.perf_counter()
-        f64 = torch.float64
         k1 = self.traj.ctrl_idx(self.kf_t_ns[1]) - self.win_knot0
         drop = np.zeros(wc.KW, bool)
         drop[:k1] = True
@@ -968,25 +1089,21 @@ class CtrlVIO:
         img_m = _compact_factors(img, img.valid & img.marg_drop, mc.OBS)
         imu_m = _compact_factors(imu, imu.valid & imu.marg_drop, mc.MIMU)
         img_m, dinv_m = _compact_landmarks(img_m, dinv_np, mc.LM)
-        p_marg = WindowParams(
-            knots_q=self._t(kq_np), knots_p=self._t(kp_np),
-            bg=self._t(bg_np), ba=self._t(ba_np), dinv=self._t(dinv_m),
-            ld=self._t(np.float64(ld_np)))
         knot_shift = (self.traj.ctrl_idx(self.kf_t_ns[1])
                       - self.traj.ctrl_idx(self.kf_t_ns[0]))
         # marg_on_host=False: the chain stays in the solve dtype (the old
         # prior is the solve-dtype one) and the f64 chain ends
-        dt = f64 if cfg.marg_on_host else jdt
+        dt = torch.float64 if cfg.marg_on_host else jdt
         old = self._prior64 if cfg.marg_on_host else None
         if old is None:
             old = to_dtype(prior, dt)
-        built = marginalize.build_prior(
-            to_dtype(p_marg, dt), self._dev(img_m, dt), self._dev(imu_m, dt),
-            self._dev(bias, dt), old, self._t(drop), to_dtype(self._ext, dt),
-            self._t(self.gravity, dt), self._imu_info.to(dt),
-            self._sqrt_info_img.to(dt), mc,
-            self._ba_opts._replace(cauchy_c=1.0), knot_shift=knot_shift,
-            bias_shift=1)
+        blob = blob_pack(img_m, imu_m, bias, kq_np, kp_np, bg_np, ba_np,
+                         dinv_m, ld_np, drop, _np_dtype(dt),
+                         tail=(*self.gravity, knot_shift, 1))
+        built = graphs.clone(self._sync_program(
+            marg_prior, self._upload(blob), old, self._ext, self._imu_info,
+            self._sqrt_info_img, cfg=mc,
+            opts=self._ba_opts._replace(cauchy_c=1.0)))
         self._prior64 = built if cfg.marg_on_host else None
         self.prior = to_dtype(built, jdt)
         self.timing["prior"] += time.perf_counter() - t0
@@ -1100,14 +1217,18 @@ class CtrlVIO:
             # warmup handoff: the synchronous warmup's f64 prior (cast,
             # post-slide) seeds the device chain
             self._dev_state = self._initial_dev_state()
+        # one program a slide branch and seed source, the window roll read
+        # from the blob on the device; captured (first use) before the
+        # check, which counts the host reads of staging and replay
+        args = (self._dev_state, self._upload(blob), self._ext,
+                self._gravity_j, self._imu_info, self._sqrt_info_img)
+        step = self._programs.get(
+            stream.megastep, args, self.device,
+            dict(cfg=wc, opts=self._ba_opts, marg_old=marg_old,
+                 host_seeds=host_seeds, caps=cfg.marg_caps,
+                 ne_mode=cfg.ne_mode, chunk=cfg.ne_chunk), carry=True)
         with self._sync_check():
-            blob_dev = self._upload(blob)
-            self._dev_state, summary = stream.megastep(
-                self._dev_state, blob_dev, self._ext, self._gravity_j,
-                self._imu_info, self._sqrt_info_img, wc, self._ba_opts,
-                marg_old=marg_old, knot_shift=knot_shift,
-                host_seeds=host_seeds, caps=cfg.marg_caps,
-                ne_mode=cfg.ne_mode, chunk=cfg.ne_chunk)
+            self._dev_state, summary = step(*args)
             self._enqueue_summary(meta, summary)
         self.counts["megastep"] += 1
         self.timing["megastep"] += time.perf_counter() - t0
@@ -1123,15 +1244,16 @@ class CtrlVIO:
         self.sync_warnings.extend(msgs)
 
     def _upload(self, blob: np.ndarray) -> torch.Tensor:
-        """The frame's blob on the device: one non-blocking copy from a
-        fresh pinned buffer (the caching host allocator does not hand the
-        buffer out again before its copy has completed)."""
+        """A blob as a program takes it: on the card a fresh pinned host
+        buffer, which the program copies into its static buffer without
+        waiting (the caching host allocator does not hand the buffer out
+        again before that copy has completed); on the CPU the tensor."""
         src = torch.from_numpy(blob)
         if self.device.type != "cuda":
             return src.to(self.device)
         buf = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
         buf.copy_(src)
-        return buf.to(self.device, non_blocking=True)
+        return buf
 
     def _initial_dev_state(self) -> stream.DevState:
         """Device-resident state for the first dispatch (a batched-serving
@@ -1146,13 +1268,14 @@ class CtrlVIO:
         return stream.DevState(params=p0, prior=to_dtype(prior0, jdt))
 
     def _enqueue_summary(self, meta, summary):
-        """Queue a dispatched frame's summary; every k-th is pulled to
-        pinned host memory right away, without waiting (it has landed long
-        before it is consumed)."""
+        """Queue a copy of a dispatched frame's summary (the program's
+        output, or a lane's row of the batched one, is overwritten by the
+        next replay); every k-th is copied to pinned host memory right
+        away, without waiting (it has landed long before it is
+        consumed), the others on the device."""
         self._dispatch_no += 1
         fetch = (self._dispatch_no % max(self.cfg.stream_consume_every, 1)
                  == 0)
-        obj = summary
         if fetch and summary.device.type == "cuda":
             host = torch.empty(summary.shape, dtype=summary.dtype,
                                pin_memory=True)
@@ -1160,11 +1283,14 @@ class CtrlVIO:
             done = torch.cuda.Event()
             done.record()
             obj = (host, done)
+        else:
+            obj = summary.clone()
         self._stream_pending.append((meta, obj, fetch))
 
     def _stream_complete(self, summary, meta):
         """Batched-serving path: the coordinator hands back this lane's
-        summary (its row of the batched megastep's output)."""
+        summary (its row of the batched megastep's output, which
+        `_enqueue_summary` copies)."""
         self.counts["megastep"] += 1
         self._enqueue_summary(meta, summary)
 

@@ -382,14 +382,18 @@ def _summary(state: DevState, p_out: WindowParams, stats, unpacked, dinv_sum,
 
 def megastep(state: DevState, blob: torch.Tensor, ext, gravity, imu_info,
              sqrt_info_img, cfg: WindowConfig, opts: SolveOptions, *,
-             marg_old: bool, knot_shift: int, host_seeds: bool,
+             marg_old: bool, host_seeds: bool,
+             knot_shift: Optional[int] = None,
              caps: Optional[Tuple[int, int, int]] = None,
              ne_mode: str = "chunked", chunk: Optional[int] = None):
     """One frame on the device. Returns (next state, flat summary).
 
-    `marg_old`, `knot_shift` and `host_seeds` are the host's own copies of
-    the directives it packed into `blob`: they choose the branches, so
-    nothing is read back and only a MARGIN_OLD frame pays the QR.
+    `marg_old` and `host_seeds` are the host's own copies of the
+    directives it packed into `blob`: they choose the branches, so nothing
+    is read back and only a MARGIN_OLD frame pays the QR. The window roll
+    `knot_shift` is a host int or, by default, the blob's own on the device
+    (the same numbers, `roll_prior`): so one captured program a branch
+    serves every shift (`CtrlVIO._stream_dispatch`).
     `caps` overrides `marginalize.marg_caps(cfg)`; `ne_mode` and `chunk`
     choose how the solve builds its normal equations (`lm.solve_window`).
 
@@ -401,6 +405,8 @@ def megastep(state: DevState, blob: torch.Tensor, ext, gravity, imu_info,
                                           imu_info, sqrt_info_img, cfg, opts,
                                           host_seeds, ne_mode, chunk)
     if marg_old:
+        if knot_shift is None:
+            knot_shift = unpacked[10].knot_shift
         state2, dinv_sum, marg_ovf = _slide_old(
             state, p_out, unpacked, ext, gravity, imu_info, sqrt_info_img,
             cfg, opts, caps, knot_shift)

@@ -14,7 +14,11 @@ On the card a step reads nothing back: the gyro rotation and the kill mask
 go up in one non-blocking copy from pinned memory, and the packed array
 comes down the same way, behind a CUDA event that only `_consume` waits
 on. With `lag=1` a frame is consumed one step later, so its pull overlaps
-the next frame's work.
+the next frame's work. The preprocessing of the first frame and each
+step's device work are captured programs (`utils/graphs.py`, ≙ the JAX
+package's `_jit_pre` and `_jit_step`), one each for the tracker's pyramid,
+K1 inside the step's; the pyramid, points and live mask are carried in
+place from step to step.
 
 With `reject_wf` the host runs the epipolar F-RANSAC gate
 (`frontend/fransac.py`) on each consumed frame: a feature that violates
@@ -33,6 +37,7 @@ import numpy as np
 import torch
 
 from ctrlvio_tpu_torch.ops import so3np
+from ctrlvio_tpu_torch.utils import graphs
 from ctrlvio_tpu_torch.utils.device import recorded_syncs, resolve_device
 from ctrlvio_tpu_torch.utils.precision import pin_f32_matmuls
 
@@ -105,16 +110,25 @@ class FusedTracker:
         self.sync_warnings = []
         self.timing = defaultdict(float)
 
-        # device-resident state: (pyramid list, pts (N,2) f32, live (N,))
+        # device-resident state: (pyramid tuple, pts (N,2) f32, live (N,))
         self._dev = None
         self._pending = None  # (t_ns, packed, event) awaiting consume
+        self._programs = graphs.ProgramCache()
 
     # ------------------------------------------------------------------
     def _preprocess(self, img):
         img = img.to(self.device, torch.float32)
         if self.cfg.use_clahe:
             img = clahe_mod.clahe(img)
-        return klt.pyramid(img, self.cfg.klt.levels)
+        return tuple(klt.pyramid(img, self.cfg.klt.levels))
+
+    def _step(self, state, img, mk):
+        """The step's program: `_megastep` on the carried state (pyramid,
+        pts, live), with the rotation and kill mask as one uploaded vector
+        (M_rel's 9 entries, then the N kill flags)."""
+        pyr_prev, pts, live = state
+        return self._megastep(img, pyr_prev, pts, live, mk[:9].reshape(3, 3),
+                              mk[9:] > 0.5)
 
     def _megastep(self, img, pyr_prev, pts, live, M_rel, kill):
         """track -> refill free slots -> lift; returns the new device state
@@ -165,7 +179,7 @@ class FusedTracker:
             refilled[:, None].to(torch.float32),
             torch.zeros((self.N, 1), dtype=torch.float32, device=self.device),
         ], dim=1)
-        return (pyr_cur, pts_out, live_out), packed
+        return (tuple(pyr_cur), pts_out, live_out), packed
 
     # ------------------------------------------------------------------
     def step(self, t_ns: int, img, R_rel=None):
@@ -181,21 +195,22 @@ class FusedTracker:
 
         imgd = torch.as_tensor(img, device=self.device)
         if self._dev is None:
-            self._dev = (self._preprocess(imgd),
+            pre = self._programs.get(self._preprocess, (imgd,), self.device)
+            self._dev = (pre(imgd),
                          torch.full((self.N, 2), -1.0, dtype=torch.float32,
                                     device=self.device),
                          torch.zeros((self.N,), dtype=torch.bool,
                                      device=self.device))
         M = np.eye(3, dtype=np.float32) if R_rel is None \
             else np.asarray(R_rel, np.float32)
-        pyr, pts, live = self._dev
-        # dispatch with the kills of the previous consume, then clear them
+        # dispatch with the kills of the previous consume, then clear them;
+        # the program is captured (first use) before the check
         t0 = time.perf_counter()
+        args = (self._dev, imgd, self._upload(M, self._kill))
+        step = self._programs.get(self._step, args, self.device, carry=True)
         with recorded_syncs(self.check_dispatch_syncs
                             and self.device.type == "cuda") as msgs:
-            M_rel, kill = self._upload(M, self._kill)
-            self._dev, packed = self._megastep(imgd, pyr, pts, live, M_rel,
-                                               kill)
+            self._dev, packed = step(*args)
             pulled = (t_ns, *self._pull(packed))
         self.dispatch_syncs += len(msgs)
         self.sync_warnings.extend(msgs)
@@ -231,21 +246,24 @@ class FusedTracker:
 
     # ------------------------------------------------------------------
     def _upload(self, M, kill):
-        """(M (3, 3) f32, kill (N,) bool) on the device: one copy of both,
-        non-blocking from a fresh pinned buffer on the card."""
+        """M (3, 3) f32 and kill (N,) bool as one (9 + N,) f32 vector, as
+        the step's program takes it: on the card a fresh pinned buffer
+        (the program copies it in without waiting), on the CPU the
+        tensor."""
         src = torch.from_numpy(np.concatenate([M.reshape(-1),
                                                kill.astype(np.float32)]))
         if self.device.type == "cuda":
             buf = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
             buf.copy_(src)
-            src = buf.to(self.device, non_blocking=True)
-        return src[:9].reshape(3, 3), src[9:] > 0.5
+            return buf
+        return src.to(self.device)
 
     def _pull(self, packed):
-        """Start the packed array's copy to the host: (host tensor, CUDA
+        """Start a copy of the packed array to the host (the program's
+        output, which its next replay overwrites): (host tensor, CUDA
         event to wait on, or None on the CPU)."""
         if packed.device.type != "cuda":
-            return packed, None
+            return packed.clone(), None
         host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
         host.copy_(packed, non_blocking=True)
         done = torch.cuda.Event()

@@ -21,6 +21,8 @@ levels tracked (the fused tracker's gyro-predicted track takes
 `pred_levels`, the classic tracker's every level). `lk_track_plain.calls`
 and `lk_level_plain.calls` count runs of the plain versions, so a run can
 show that they stayed off the path. `reset_counts` sets all of them to 0.
+The counts are registered with `utils/graphs.py`: a launch recorded into a
+captured graph counts when the graph replays it, once a replay.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ import ctypes
 import functools
 
 import torch
+
+from ctrlvio_tpu_torch.utils import graphs
 
 HALF = 10                     # patch half-size -> 21x21 window
 PATCH = 2 * HALF + 1
@@ -264,4 +268,32 @@ def reset_counts():
     lk_track_plain.calls = 0
 
 
+def _counts():
+    """Every count of this module by name (what a graph replay adds to)."""
+    out = {"lk_level": lk_level.launches, "lk_track": lk_track.launches,
+           "lk_level_plain": lk_level_plain.calls,
+           "lk_track_plain": lk_track_plain.calls}
+    out.update({f"lk_track/{L}": n
+                for L, n in lk_track.launches_by_levels.items()})
+    return out
+
+
+def _add_counts(delta):
+    for k, v in delta.items():
+        if k.startswith("lk_track/"):
+            L = int(k.split("/")[1])
+            n = lk_track.launches_by_levels.get(L, 0) + v
+            if n:
+                lk_track.launches_by_levels[L] = n
+            else:
+                lk_track.launches_by_levels.pop(L, None)
+        elif k.endswith("_plain"):
+            fn = lk_level_plain if k == "lk_level_plain" else lk_track_plain
+            fn.calls += v
+        else:
+            fn = lk_level if k == "lk_level" else lk_track
+            fn.launches += v
+
+
 reset_counts()
+graphs.register_counter(_counts, _add_counts)

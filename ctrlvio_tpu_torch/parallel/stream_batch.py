@@ -6,7 +6,9 @@ frame, and every frame runs ONE batched streaming megastep over their
 stacked device states: `torch.func.vmap` of
 `stream.megastep_branchless`, which reads each lane's slide directives
 from its own blob, so lanes that keyframe on different frames share the
-call. The host side stays per sequence (feature tables, packing, mirrors);
+call. On the card the call is one captured program (`utils/graphs.py`) a
+lane count, the stacked state updated in place (≙ `jit(vmap(megastep))`).
+The host side stays per sequence (feature tables, packing, mirrors);
 the device side is one (B, ...) state owned by this coordinator.
 
     vios = [CtrlVIO(cfg, q_CtoI, p_CinI) for _ in range(B)]  # cfg.stream
@@ -33,6 +35,7 @@ import torch
 from torch.func import vmap
 
 from ctrlvio_tpu_torch.estimator import stream
+from ctrlvio_tpu_torch.utils import graphs
 from ctrlvio_tpu_torch.utils.device import recorded_syncs
 
 from .batch import stack
@@ -52,9 +55,11 @@ def batched_megastep(cfg, opts, caps=None, ne_mode="chunked", chunk=None):
 class BatchedStream:
     """The lockstep coordinator. `timing` holds cumulative host seconds of
     each step's parts: "host_lanes" (every lane's `process_frame`, which
-    packs its blob), "stack_upload" (the B blobs as one pinned
-    non-blocking copy), "dispatch" (the batched megastep) and "complete"
-    (each lane queues its summary row). `_n_steps` counts batched steps.
+    packs its blob), "stack_upload" (the B blobs in one pinned buffer),
+    "dispatch" (the batched megastep: the blobs' non-blocking copy and
+    the program's replay, and on the first step its capture) and
+    "complete" (each lane queues a copy of its summary row). `_n_steps`
+    counts batched steps.
     With `check_dispatch_syncs` on a CUDA device, `dispatch_syncs` counts
     the synchronizing CUDA calls inside the coordinator's part of a step
     (upload, megastep, completion), their messages in `sync_warnings`."""
@@ -84,20 +89,28 @@ class BatchedStream:
         self.sync_warnings: List[str] = []
         self._vmega = batched_megastep(v0.wc, v0._ba_opts, v0.cfg.marg_caps,
                                        v0.cfg.ne_mode, v0.cfg.ne_chunk)
+        self._programs = graphs.ProgramCache()
 
     # ------------------------------------------------------------------
     def _on_dispatch(self, vio, blob, host_seeds, meta):
         self._slots[self._lane[id(vio)]] = (blob, meta)
 
     def _upload(self, blobs: List[np.ndarray]) -> torch.Tensor:
-        """The B blobs as one (B, n) tensor on the device: one
-        non-blocking copy from a fresh pinned buffer."""
+        """The B blobs as one (B, n) tensor, as the program takes it: on
+        the card a fresh pinned buffer (copied into the program without
+        waiting), on the CPU the tensor."""
         src = torch.from_numpy(np.stack(blobs))
         if self.device.type != "cuda":
             return src.to(self.device)
         buf = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
         buf.copy_(src)
-        return buf.to(self.device, non_blocking=True)
+        return buf
+
+    def _program(self, args):
+        """The batched megastep for these arguments' lane count: captured
+        on first use on the card, eager on the CPU."""
+        return self._programs.get(self._vmega, args, self.device, carry=True,
+                                  label=f"batched_megastep(B={self.B})")
 
     # ------------------------------------------------------------------
     def step(self, frames):
@@ -125,20 +138,26 @@ class BatchedStream:
             self._stacked = stack([v._initial_dev_state()
                                    for v in self.vios])
             t1 = time.perf_counter()
+        blobs = self._upload([s[0] for s in self._slots])
+        v0 = self.vios[0]
+        args = (self._stacked, blobs, v0._ext, v0._gravity_j, v0._imu_info,
+                v0._sqrt_info_img)
+        t2 = time.perf_counter()
+        self.timing["stack_upload"] += t2 - t1
+        step = self._program(args)  # captured before the check
         with recorded_syncs(self.check_dispatch_syncs
                             and self.device.type == "cuda") as msgs:
-            blobs = self._upload([s[0] for s in self._slots])
-            v0 = self.vios[0]
-            self._last_args = (self._stacked, blobs, v0._ext, v0._gravity_j,
-                               v0._imu_info, v0._sqrt_info_img)
-            t2 = time.perf_counter()
-            self.timing["stack_upload"] += t2 - t1
-            self._stacked, summaries = self._vmega(*self._last_args)
+            self._stacked, summaries = step(*args)
             t3 = time.perf_counter()
             self.timing["dispatch"] += t3 - t2
             for i, v in enumerate(self.vios):
                 v._stream_complete(summaries[i], self._slots[i][1])
             self.timing["complete"] += time.perf_counter() - t3
+        # the state after this step and the blobs on the device, for
+        # device_steady_ms and cost_analysis
+        on_dev = (step.inputs[1] if isinstance(step, graphs.Program)
+                  else blobs.to(self.device))
+        self._last_args = (self._stacked, on_dev, *args[2:])
         self.dispatch_syncs += len(msgs)
         self.sync_warnings.extend(msgs)
         self._n_steps += 1
@@ -151,27 +170,33 @@ class BatchedStream:
 
     def device_steady_ms(self, reps: int = 20):
         """Steady-state ms of one batched megastep without the host feed:
-        the last step's blobs chained through the megastep `reps` times
-        (state fed back on the device), one synchronize at the end. The
-        eager megastep is dispatch-bound, so this reads the host's
-        dispatch of the batched call, not the card's busy time (a profiled
-        step gives that). None before the first batched step."""
+        the last step's blobs chained through the program `reps` times
+        (state fed back on the device), one synchronize at the end: the
+        replays' time on the card plus one launch each. The live state is
+        saved first and put back after, so the lanes go on from where they
+        were. None before the first batched step."""
         if self._last_args is None:
             return None
+        saved = graphs.clone(self._stacked)
+        step = self._program(self._last_args)
         st, blobs, *rest = self._last_args
         self._sync()
         t0 = time.perf_counter()
         for _ in range(reps):
-            st, _ = self._vmega(st, blobs, *rest)
+            st, _ = step(st, blobs, *rest)
         self._sync()
-        return (time.perf_counter() - t0) / reps * 1e3
+        dt = (time.perf_counter() - t0) / reps * 1e3
+        self._stacked = saved
+        self._last_args = (saved, blobs, *rest)
+        return dt
 
     def cost_analysis(self):
         """Floating-point operations of ONE batched megastep (all B lanes)
         on the last step's arguments, as `torch.utils.flop_counter.
-        FlopCounterMode` counts them: matrix products only, elementwise
-        work and factorizations uncounted, so a lower bound. Returns
-        {"flops": n} or None before the first batched step."""
+        FlopCounterMode` counts them in an eager run of the function (which
+        changes no state): matrix products only, elementwise work and
+        factorizations uncounted, so a lower bound. Returns {"flops": n}
+        or None before the first batched step."""
         if self._last_args is None:
             return None
         from torch.utils.flop_counter import FlopCounterMode

@@ -6,10 +6,11 @@
 
 A short streaming replay from the ground-truth bootstrap captures a
 realistic steady state: the device window state and one frame's upload
-blob. The state is stacked B times and run through
-`parallel/stream_batch.py::batched_megastep`, the call `BatchedStream`
-makes each frame. Untraced, it times the mean ms a step over `--reps`
-chained steps after 3 warm ones, with a synchronize at each end. Then
+blob. The state is copied, stacked B times and run through
+`parallel/stream_batch.py::batched_megastep` as `BatchedStream` runs it
+each frame: on the card its captured program (`utils/graphs.py`),
+replayed. Untraced, it times the mean ms a step over `--reps` chained
+steps after 3 warm ones, with a synchronize at each end. Then
 `--reps` steps are traced with `torch.profiler` and the `--top` ops are
 listed by time: on the card the kernels' device time (CUDA
 activity only), on the CPU the ops' host time. The trace is written
@@ -37,6 +38,7 @@ from ctrlvio_tpu_torch.estimator.odometry import VIOConfig
 from ctrlvio_tpu_torch.parallel.batch import stack
 from ctrlvio_tpu_torch.parallel.stream_batch import batched_megastep
 from ctrlvio_tpu_torch.sim import synthetic
+from ctrlvio_tpu_torch.utils import graphs
 from ctrlvio_tpu_torch.utils.device import resolve_device
 from ctrlvio_tpu_torch.utils.precision import pin_f32_matmuls
 
@@ -47,9 +49,10 @@ LOGDIR = os.path.join(tempfile.gettempdir(), "ctrlvio_serve_trace")
 def capture_state(duration=6.0, warmup=10, device="cuda"):
     """A short streaming run (noiseless, seed 3, 300 landmarks, f32, the
     bench's window, the ground-truth bootstrap, the line delay started at
-    its true value, `warmup` synchronous frames). The stream dispatch's
-    upload is wrapped to keep the host blob it sends; returns
-    (vio, the final device state, the last dispatched frame's blob)."""
+    its true value, `warmup` synchronous frames). The estimator's upload
+    is wrapped to keep the host blob a streamed frame sends; returns
+    (vio, a copy of the final device state, the last dispatched frame's
+    blob)."""
     sim = synthetic.generate(synthetic.SimConfig(
         duration=duration, n_landmarks=300, seed=3))
     cfg = VIOConfig(window_config=BENCH_WINDOW, fix_ld=False,
@@ -60,7 +63,8 @@ def capture_state(duration=6.0, warmup=10, device="cuda"):
     upload = vio._upload
 
     def keep(blob):
-        grabbed["blob"] = np.array(blob)
+        if vio._stream_frame_no > cfg.stream_warmup:
+            grabbed["blob"] = np.array(blob)
         return upload(blob)
 
     vio._upload = keep
@@ -73,7 +77,7 @@ def capture_state(duration=6.0, warmup=10, device="cuda"):
     if "blob" not in grabbed:
         raise RuntimeError("the stream never dispatched: lengthen the "
                            "capture or shorten its warmup")
-    return vio, vio._dev_state, grabbed["blob"]
+    return vio, graphs.clone(vio._dev_state), grabbed["blob"]
 
 
 def batched_inputs(vio, dev_state, blob, B: int):
@@ -89,6 +93,15 @@ def lane_megastep(vio):
     configuration."""
     return batched_megastep(vio.wc, vio._ba_opts, vio.cfg.marg_caps,
                             vio.cfg.ne_mode, vio.cfg.ne_chunk)
+
+
+def lane_program(vio, st, blobs, consts):
+    """`lane_megastep(vio)` for these arguments as `BatchedStream` runs
+    it: on the card the program captured for them, on the CPU the
+    function."""
+    return graphs.ProgramCache().get(
+        lane_megastep(vio), (st, blobs, *consts), vio.device, carry=True,
+        label=f"batched_megastep(B={blobs.shape[0]})")
 
 
 def time_steps(mega, st, blobs, consts, reps: int, device, warm: int = 3):
@@ -161,10 +174,10 @@ def self_times(events):
 def sweep(vio, dev_state, blob, reps: int, batches=SWEEP):
     """Untraced ms a step for each B: [{B, ms_per_step, frames_per_s,
     ms_per_lane}]."""
-    mega = lane_megastep(vio)
     out = []
     for B in batches:
         st, blobs, consts = batched_inputs(vio, dev_state, blob, B)
+        mega = lane_program(vio, st, blobs, consts)
         dt, _, _ = time_steps(mega, st, blobs, consts, reps, vio.device)
         out.append({"B": B, "ms_per_step": dt * 1e3,
                     "frames_per_s": B / dt, "ms_per_lane": dt / B * 1e3})
@@ -187,8 +200,8 @@ def profile_batch(vio, dev_state, blob, B: int, reps: int, top: int,
                   logdir: str = LOGDIR):
     """Untraced ms a step at B, then the traced op table, its trace
     written under `logdir`. Returns the result record."""
-    mega = lane_megastep(vio)
     st, blobs, consts = batched_inputs(vio, dev_state, blob, B)
+    mega = lane_program(vio, st, blobs, consts)
     dt, st, _ = time_steps(mega, st, blobs, consts, reps, vio.device)
     print(f"[profile] B={B}: {dt * 1e3:.1f} ms/step untraced "
           f"({B / dt:.1f} frames/s)", file=sys.stderr)
