@@ -6,8 +6,9 @@ Phases, each printed as one JSON line:
   1. device  - CUDA present; the card's name and power limit (nvidia-smi);
                then the textured frames of phase 7 start rendering in a
                separate process (host numpy, minutes) beside phases 2-6;
-  2. build   - every hand-written kernel compiled from the repo's sources,
-               and the native feature table's host library (g++);
+  2. build   - every hand-written kernel compiled from the repo's sources
+               (K1, and the LM exit node's set kernel), and the native
+               feature table's host library (g++);
   3. k1_level - the LK kernel's one-level case against its plain PyTorch
                version at the main path's shapes (each of the three pyramid
                levels of a 1280x1024 pair);
@@ -18,6 +19,8 @@ Phases, each printed as one JSON line:
                kernel's staged windows; four levels with init = pts, the
                classic tracker's track; two levels, the command line's
                track (`KLTConfig`'s default pred_levels);
+               then if_node: the LM's exit node (`graphs.run_if`, the set
+               kernel of `csrc/graph_cond.cu`) against its plain select;
   5. main    - the image-in path of `bench.py --mode image --scene blobs`:
                4 s of rendered 1280x1024 Kannala-Brandt rolling-shutter frames
                through the port's FusedTracker, rotation_flow and the
@@ -59,8 +62,9 @@ Phases, each printed as one JSON line:
                sustained fps, render time, the front end's synchronizing
                calls and a torch.profiler trace of one streamed frame;
                then image_textured_classic: the first 4 s through
-               CtrlVIO.process_image with the classic FeatureTracker
-               (one 4-level K1 launch a frame, >= 100 features);
+               CtrlVIO.process_image with the classic FeatureTracker, its
+               four stages captured programs (one 4-level K1 launch a
+               frame by replays, >= 100 features);
   8. serve   - `bench.py --mode serve` at its default width, cut from 12 s
                to 6 s: 8 streaming CtrlVIOs behind one BatchedStream, one
                batched megastep (torch.func.vmap) a frame for all lanes;
@@ -71,7 +75,8 @@ Phases, each printed as one JSON line:
                frame's; step times, aggregate frames/s, the host split;
   9. batch   - `bench.py --mode batch`'s sweep: make_batched_solver over
                B = 1, 2, 4, 8, 16 copies of the bench's window against the
-               single solve, and the CG Schur path beside chol at B = 8;
+               single solve, and the CG Schur path beside chol at B = 8,
+               each B one captured program, timed by replays;
  10. cli     - the command line as a user runs it, in subprocesses of
                `python -m ctrlvio_tpu_torch` on the card: 10 s of
                `bench.py --mode image`'s 1280x1024 blobs scene (seed 3) at
@@ -111,23 +116,34 @@ Phases, each printed as one JSON line:
                `--mode image --scene blobs --duration 4` (one 3-level K1
                launch a frame, read from its stats line), then
                `python -m ctrlvio_tpu_torch.tools.profile_serve --sweep`
-               (ms a batched megastep at B = 1..16), then `entry()` on the
-               card against `entry(device="cpu")`;
+               (ms a batched megastep at B = 1..16), `tools.ne_ab` (dense
+               against chunked normal equations, each variant's program
+               replayed), then `entry()` on the card against
+               `entry(device="cpu")`;
  13. graphs  - in a fifth side process, the same frames run with every
                program replayed from its captured CUDA graph and eagerly:
                10 synchronous `main` frames with the front end on every
-               frame, ~20 streamed e2e frames, 10 serve steps at B = 8;
-               positions and summaries within the gpu tests' tolerances,
-               ATE within 1 mm, host ms a frame both ways;
+               frame, ~20 streamed e2e frames, 10 serve steps at B = 8,
+               12 frames of the classic tracker, the batched solver at
+               B = 8; `main` and `e2e` (LM exit nodes inside) and the
+               batched solver bit for bit, the rest within the gpu tests'
+               tolerances, ATE within 1 mm, host ms a frame both ways;
  14. kernels - one line listing every kernel with launches, error and times.
 Every path runs as the port runs on the card: each per-frame program (the
 streamed and batched megasteps, the synchronous solve, prior and predict,
-the fused front end) a captured CUDA graph (`utils/graphs.py`). Each
+the f64 bootstrap BA, the fused front end, the classic tracker's four
+stages, the batched solver, NCCL's sharded solve and step) a captured
+CUDA graph (`utils/graphs.py`), the LM's iterations after the first
+behind IF nodes that skip them once the solve is done. Each
 phase's line lists the graphs it captured (key, seconds, reserved memory
 before and after), their seconds, the shared graph pool's size, the
 replays and the K1 launches made by replays and by the warm-up runs before
 captures; "one K1 launch a frame" counts through replays, and a capture on
-a timed (steady) frame fails the phase.
+a timed (steady) frame fails the phase. The estimator lines add each
+solve kind's histogram of LM iterations (`lm_iters_hist`), the iterations
+needed, executed (the IF bodies the card ran, counted on the card) and
+those a fixed count would run; the IF bodies run must equal what the
+histograms need. `e2e` and `cli` add the bootstrap's timing keys.
 The last line is {"ok": true, "device": {...}}; any failed phase exits
 non-zero without it. Needs a CUDA device; imports nothing of JAX.
 """
@@ -154,8 +170,10 @@ import torch.distributed as dist
 from ctrlvio_tpu_torch.bench import started_vio, tumrs_camera
 from ctrlvio_tpu_torch.entry import entry
 from ctrlvio_tpu_torch.estimator import native, odometry
-from ctrlvio_tpu_torch.estimator.odometry import CtrlVIO, VIOConfig
+from ctrlvio_tpu_torch.estimator.odometry import (CtrlVIO, VIOConfig,
+                                                  iters_histogram)
 from ctrlvio_tpu_torch.frontend import klt
+from ctrlvio_tpu_torch.frontend import tracker as tracker_mod
 from ctrlvio_tpu_torch.frontend.fused import FusedTracker, rotation_flow
 from ctrlvio_tpu_torch.frontend.tracker import FeatureTracker, TrackerConfig
 from ctrlvio_tpu_torch.ops import lk, so3np
@@ -208,7 +226,65 @@ def graph_fields(st=None):
             "capture_s": st["capture_s"],
             "graph_pool_mb": st["graph_pool_mb"], "replays": st["replays"],
             "k1_launches_replayed": st["launches_replayed"].get("lk_track", 0),
-            "k1_launches_warm_up": st["launches_warm_up"].get("lk_track", 0)}
+            "k1_launches_warm_up": st["launches_warm_up"].get("lk_track", 0),
+            "if_nodes": st["if_nodes"], "if_bodies_run": st["if_bodies_run"],
+            "if_node_launches_replayed":
+                st["launches_replayed"].get("if_node_set", 0)}
+
+
+# the bootstrap's timing keys of `CtrlVIO.timing`: the visual SfM and
+# initializer, the IMU-only predict fit, the f64 BA and its prior
+BOOT_KEYS = ("vio_init", "boot_predict", "boot_solve", "boot_prior")
+# `CtrlVIO.timing`'s keys that no other key holds
+RUN_TOP_KEYS = BOOT_KEYS + ("consume", "predict", "triangulate", "dispatch",
+                            "slide", "ba")
+
+
+def iters_fields(records, g, batched_stream=False):
+    """The LM iteration counts of a phase's estimators
+    (`CtrlVIO.lm_iters_record`, one a lane): each kind's histogram
+    {iterations: solves} and `max_iters`, and over every solve the
+    iterations needed (the histograms' sum), those the card executed and
+    those a fixed count runs (`max_iters` each, as before the exit
+    node). A solve of a program with exit nodes executes its first
+    iteration and the bodies the IF nodes ran (`if_bodies_run`, counted
+    on the card); the batched megastep (`batched_stream`) runs all
+    `max_iters`. `if_bodies_expected` is what the histograms say the
+    nodes must have run."""
+    needed = fixed = node_solves = expected = batched = 0
+    for r in records:
+        for kind, h in r["hist"].items():
+            most = r["max_iters"][kind]
+            for k, n in h.items():
+                needed += int(k) * n
+                fixed += most * n
+                if batched_stream and kind == "stream":
+                    batched += most * n
+                else:
+                    node_solves += n
+                    expected += (int(k) - 1) * n
+    return {"lm_iters_hist": [r["hist"] for r in records]
+            if len(records) > 1 else records[0]["hist"],
+            "lm_max_iters": records[0]["max_iters"],
+            "lm_iters_needed": needed,
+            "lm_iters_executed": node_solves + g["if_bodies_run"] + batched,
+            "lm_iters_fixed_count": fixed,
+            "if_bodies_expected": expected}
+
+
+def lanes_done_early(lane_iters, most):
+    """Of the lockstep batched steps (each lane's streamed solves in
+    order), how many had every lane done before `most` iterations: the
+    steps a node on "any lane not done" would have cut short."""
+    steps = min(len(x) for x in lane_iters)
+    early = sum(max(x[i] for x in lane_iters) < most for i in range(steps))
+    return {"lm_batched_steps": steps, "lm_steps_all_lanes_done_early": early,
+            "lm_steps_all_lanes_done_early_share": early / max(steps, 1)}
+
+
+def iters_exact(rec):
+    """The IF nodes ran exactly the iterations the solves needed."""
+    return rec["if_bodies_run"] == rec["if_bodies_expected"]
 
 
 def k1_once_a_frame(launches, g, frames):
@@ -268,12 +344,16 @@ def phase_device():
     pin_f32_matmuls()
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": card,
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          # whether torch offers CUDA-graph IF nodes itself (it does not
+          # in 2.11; `graphs.run_if` takes `csrc/graph_cond.cu`'s)
+          "torch_if_node": hasattr(torch.cuda.CUDAGraph,
+                                   "begin_capture_to_if_node")})
 
 
 def phase_build():
     t0 = time.perf_counter()
-    names = ["lk"]
+    names = ["lk", "graph_cond"]
     paths = cuda_build.build(names)
     for n in names:
         cuda_build.load(n)
@@ -445,6 +525,65 @@ def phase_k1_level():
             "ms": mean("ms"), "device_ms": mean("device_ms"),
             "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
             "bound_by": levels[0]["bound_by"]}
+
+
+IF_NODES_TIMED = 100
+
+
+def phase_if_node():
+    """The LM's exit node (`graphs.run_if`: the set kernel of
+    `csrc/graph_cond.cu` and a CUDA-graph IF node) at the LM's shapes: a
+    0-dim device bool and a body that updates its carry in place, held to
+    its plain version, `torch.where(pred, body(carry), carry)`, for both
+    values of the bool. Times by CUDA events over one replay of a graph of
+    `IF_NODES_TIMED` nodes whose bool is false (the set kernel and the
+    node, the body skipped), beside the plain select captured the same
+    way; the bound is one byte read over the HBM rate."""
+    dev = torch.device("cuda")
+    carry0 = torch.linspace(-1.0, 1.0, 16, device=dev)
+
+    def body(c):
+        c.mul_(2.0).add_(1.0)
+
+    def node(x, p):
+        y = x.clone()
+        graphs.run_if(p, body, y)
+        return y
+
+    def plain(x, p):
+        return torch.where(p, x * 2.0 + 1.0, x)
+
+    def nodes(x, p):
+        y = x.clone()
+        for _ in range(IF_NODES_TIMED):
+            graphs.run_if(p, body, y)
+        return y
+
+    def plains(x, p):
+        y = x.clone()
+        for _ in range(IF_NODES_TIMED):
+            y = plain(y, p)
+        return y
+
+    cache = graphs.ProgramCache()
+    err = 0.0
+    for v in (True, False):
+        p = torch.tensor(v, device=dev)
+        got = cache.get(node, (carry0, p), dev)(carry0, p).clone()
+        err = max(err, float((got - plain(carry0, p)).abs().max()))
+    off = torch.tensor(False, device=dev)
+    t_node = replay_times(cache.get(nodes, (carry0, off), dev), reps=20)
+    t_plain = replay_times(cache.get(plains, (carry0, off), dev), reps=20)
+    rec = {"phase": "if_node", "max_abs_err": err,
+           "ms": t_node["replay_device_ms"] / IF_NODES_TIMED,
+           "plain_ms": t_plain["replay_device_ms"] / IF_NODES_TIMED,
+           "bound_ms": 1 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "library_ms": None}
+    emit(rec)
+    if err != 0.0:
+        raise SystemExit(f"the IF node disagrees with its plain version: "
+                         f"{rec}")
+    return rec
 
 
 def phase_k1_track():
@@ -683,6 +822,7 @@ def phase_main():
     level_launches = lk.lk_level.launches
     plain_calls = lk.lk_level_plain.calls + lk.lk_track_plain.calls
     g = graph_fields()
+    its = iters_fields([run["vio"].lm_iters_record()], g)
     replayed = replay_times(program(odometry._SYNC_PROGRAMS, "window_solve",
                                     "restore=True"))
 
@@ -708,7 +848,7 @@ def phase_main():
                run["prof"], run["prof_s"],
                float(np.median(run["t_feat"] + run["t_est"])) * 1e3),
            "captures_in_timed_frames": run["captures_in_timed_frames"],
-           "window_solve_replay": replayed, **g}
+           "window_solve_replay": replayed, **its, **g}
     emit(rec)
     finite = bool(np.isfinite(est).all()) and np.isfinite(vio.traj.line_delay)
     if not (finite and len(est) > 20 and ate < 0.15 and ld_err < 5e-6):
@@ -717,9 +857,13 @@ def phase_main():
     if not k1_once_a_frame(launches, g, run["n_frames"]) or plain_calls:
         raise SystemExit(f"main path did not run through the fused K1 "
                          f"track once a frame: {rec}")
-    # the front end's two programs, the window solve, prior and predict
-    if not captured_once(g, 5):
+    # the front end's two programs, the window solve, prior and predict,
+    # the f64 bootstrap BA
+    if not captured_once(g, 6):
         raise SystemExit(f"main path captured a program twice: {rec}")
+    if not (iters_exact(rec) and g["if_node_launches_replayed"] > 0):
+        raise SystemExit(f"main path: the LM's exit nodes did not run "
+                         f"exactly the iterations its solves needed: {rec}")
     return rec, (sim, imgs, cam, tcfg)
 
 
@@ -813,7 +957,7 @@ def phase_main_marg_dev(main_rec, seq):
     if not k1_once_a_frame(launches, g, run["n_frames"]) or plain_calls:
         raise SystemExit(f"main path with marg_on_host=False did not run "
                          f"through the fused K1 track once a frame: {rec}")
-    if not captured_once(g, 5):
+    if not captured_once(g, 6):
         raise SystemExit(f"main path with marg_on_host=False captured a "
                          f"program twice: {rec}")
     return rec
@@ -888,6 +1032,7 @@ def phase_e2e():
             t_est_ns.append(fr.t_ns)
             gt.append(sim.pose_at(fr.t_ns * 1e-9)[1])
         if timed_from is not None and i == timed_from:
+            boot_s = {k: vio.timing.get(k, 0.0) for k in BOOT_KEYS}
             vio.timing.clear()
             captures = len(graphs.stats()["graphs_captured"])
         if timed_from is not None and i >= timed_from and not trace:
@@ -903,6 +1048,7 @@ def phase_e2e():
     wall = time.perf_counter() - t_run0
     k1_launches = lk.lk_track.launches + lk.lk_level.launches
     g = graph_fields()
+    its = iters_fields([vio.lm_iters_record()], g)
     captures = g["graphs_captured_n"] - captures
     replayed = replay_times(program(vio._programs, "marg_old=True",
                                     "host_seeds=False"))
@@ -954,7 +1100,8 @@ def phase_e2e():
                prof, prof_s, float(np.median(streamed)) * 1e3)
            if prof is not None and len(streamed) else None,
            "captures_in_timed_frames": captures,
-           "megastep_replay": replayed, **g}
+           "bootstrap_s": boot_s,
+           "megastep_replay": replayed, **its, **g}
     emit(rec)
     finite = bool(np.isfinite(est).all()) and np.isfinite(vio.traj.line_delay)
     if not (finite and err < 0.10 and err_post < 0.10 and ld_err < 2e-6):
@@ -967,11 +1114,14 @@ def phase_e2e():
                          f"(visual bootstrap, >= 40 megasteps, no sync solve "
                          f"after the handoff, no sync inside a megastep, "
                          f"one traced streamed frame): {rec}")
-    # the megastep a slide branch and seed source, the synchronous three
-    if not captured_once(g, 4 + 3) or g["replays"] < c["megastep"]:
+    # the megastep a slide branch and seed source, the synchronous four
+    if not captured_once(g, 4 + 4) or g["replays"] < c["megastep"]:
         raise SystemExit(f"e2e did not replay a captured megastep on every "
                          f"streamed frame, or captured a program twice: "
                          f"{rec}")
+    if not iters_exact(rec):
+        raise SystemExit(f"e2e: the LM's exit nodes did not run exactly the "
+                         f"iterations its solves needed: {rec}")
     return rec
 
 
@@ -1128,6 +1278,7 @@ def phase_image_textured(render_proc):
     plain_calls = lk.lk_level_plain.calls + lk.lk_track_plain.calls
     level_launches = lk.lk_level.launches
     g = graph_fields()
+    its = iters_fields([vio.lm_iters_record()], g)
     captures = g["graphs_captured_n"] - captures
 
     est, gt = np.asarray(est), np.asarray(gt)
@@ -1178,7 +1329,7 @@ def phase_image_textured(render_proc):
            "profile_streamed_frame": device_share(
                prof, prof_s, float(np.median(streamed)) * 1e3)
            if prof is not None and len(streamed) else None,
-           "captures_in_timed_frames": captures, **g}
+           "captures_in_timed_frames": captures, **its, **g}
     emit(rec)
     finite = bool(np.isfinite(est).all()) and np.isfinite(vio.traj.line_delay)
     if not (finite and len(est) > 20 and ate < 0.15 and ld_err < 5e-6):
@@ -1186,7 +1337,7 @@ def phase_image_textured(render_proc):
                          f"0.15 m, line-delay error < 5 us): {rec}")
     if not (k1_once_a_frame(launches, g, len(sim.frames))
             and by_levels == {3: launches} and plain_calls == 0
-            and level_launches == 0 and captured_once(g, 2 + 4 + 3)):
+            and level_launches == 0 and captured_once(g, 2 + 4 + 4)):
         raise SystemExit(f"image_textured did not run through one 3-level "
                          f"K1 track launch a frame, or captured a program "
                          f"twice: {rec}")
@@ -1198,6 +1349,9 @@ def phase_image_textured(render_proc):
                          f"megasteps, no sync inside a megastep, no sync "
                          f"solve after the handoff, one traced streamed "
                          f"frame): {rec}")
+    if not iters_exact(rec):
+        raise SystemExit(f"image_textured: the LM's exit nodes did not run "
+                         f"exactly the iterations its solves needed: {rec}")
     rec["classic"] = phase_image_classic(sim, imgs_dev, cam)
     return rec
 
@@ -1207,10 +1361,13 @@ def phase_image_classic(sim, imgs_dev, cam):
     frames through `CtrlVIO.process_image` with `attach_frontend` and the
     gated tracker config, which routes to `FeatureTracker` (all 4 levels,
     no initial flow); the synchronous estimator from the ground-truth
-    bootstrap. Gates: finite poses, one 4-level K1 track launch a frame
-    from the second on (the first has no previous pyramid) and no plain LK
-    call, 100 or more published features a frame after the first. ATE and
-    line-delay error are reported, not gated."""
+    bootstrap. The tracker's four stages run as captured programs (the
+    preprocessing, the track with K1 inside, the corner detection, the
+    lift). Gates: finite poses, one 4-level K1 track launch a frame from
+    the second on (the first has no previous pyramid), counted through
+    replays, and no plain LK call; each program captured once; 100 or
+    more published features a frame after the first. ATE and line-delay
+    error are reported, not gated."""
     H, W = imgs_dev.shape[1:]
     reset_counts()
     t_run0 = time.perf_counter()
@@ -1222,12 +1379,16 @@ def phase_image_classic(sim, imgs_dev, cam):
                          f"{type(tracker).__name__}, not FeatureTracker")
     est, gt, n_pub = [], [], []
     frame_ms = []
+    est_ms = []
     for i, fr in enumerate(sim.frames[:CLASSIC_FRAMES]):
         pub = tracker._pub_count
+        est0 = sum(vio.timing.get(k, 0.0) for k in RUN_TOP_KEYS)
         t0 = time.perf_counter()
         out = vio.process_image(fr.t_ns, imgs_dev[i])
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
+        est_ms.append((sum(vio.timing.get(k, 0.0) for k in RUN_TOP_KEYS)
+                       - est0) * 1e3)
         if tracker._pub_count > pub:
             n_pub.append(int((tracker.ids >= 0).sum()))
         if out is not None:
@@ -1240,6 +1401,7 @@ def phase_image_classic(sim, imgs_dev, cam):
     by_levels = dict(lk.lk_track.launches_by_levels)
     plain_calls = lk.lk_level_plain.calls + lk.lk_track_plain.calls
     est, gt = np.asarray(est), np.asarray(gt)
+    g = graph_fields()
     rec = {"phase": "image_textured_classic", "frames": n,
            "solved": len(est), "published": len(n_pub),
            "wall_s": time.perf_counter() - t_run0,
@@ -1250,18 +1412,33 @@ def phase_image_classic(sim, imgs_dev, cam):
            if len(est) > 12 else None,
            "ld_err_s": abs(vio.traj.line_delay - sim.cfg.line_delay),
            "frame_ms_median": float(np.median(frame_ms[1:])),
+           "frame_ms_median_steady": float(np.median(frame_ms[12:])),
+           # the estimator's share of a steady frame (its timed phases),
+           # the rest the classic tracker's and process_image's own
+           "estimator_ms_median_steady": float(np.median(est_ms[12:])),
+           "frontend_ms_median_steady": float(np.median(
+               np.subtract(frame_ms, est_ms)[12:])),
            "k1_track_launches": launches,
            "k1_track_launches_by_levels": by_levels,
-           "plain_lk_calls": plain_calls, **graph_fields()}
+           "plain_lk_calls": plain_calls,
+           "tracker_programs": sorted(p.label for p in
+                                      tracker_mod._PROGRAMS._programs
+                                      .values()), **g}
     emit(rec)
     if not (len(est) > 0 and bool(np.isfinite(est).all())
-            and launches == n - 1 and by_levels == {4: n - 1}
+            and k1_once_a_frame(launches, g, n - 1)
+            and by_levels == {4: launches}
             and plain_calls == 0 and lk.lk_level.launches == 0
             and rec["features_min_after_first"] is not None
             and rec["features_min_after_first"] >= 100):
         raise SystemExit(f"the classic tracker's check failed (finite "
                          f"poses, one 4-level K1 launch a frame after the "
-                         f"first, no plain LK call, >= 100 features): {rec}")
+                         f"first through replays, no plain LK call, >= 100 "
+                         f"features): {rec}")
+    # the tracker's four programs, the synchronous estimator's four
+    if not (captured_once(g, 4 + 4) and len(rec["tracker_programs"]) == 4):
+        raise SystemExit(f"the classic tracker did not run as four captured "
+                         f"programs, or captured one twice: {rec}")
     return rec
 
 
@@ -1340,6 +1517,10 @@ def phase_serve():
     wall = time.perf_counter() - t_run0
     k1_launches = lk.lk_track.launches + lk.lk_level.launches
     g = graph_fields()
+    its = iters_fields([v.lm_iters_record() for v in vios], g,
+                       batched_stream=True)
+    its.update(lanes_done_early([v.lm_iters()["stream"] for v in vios],
+                                vios[0].cfg.ba_iters))
     captures = g["graphs_captured_n"] - captures
 
     lanes = []
@@ -1379,7 +1560,7 @@ def phase_serve():
            "sync_messages": sorted(set(coord.sync_warnings))[:5],
            "k1_launches": k1_launches, "profiled_frame": n_frames - 1,
            "profile_batched_step": profile, "per_lane": lanes,
-           "captures_in_timed_frames": captures, **g}
+           "captures_in_timed_frames": captures, **its, **g}
     bad = [r for r in lanes if not (r["finite"] and r["ate_m"] < 0.10
                                     and r["ld_err_s"] < 5e-6)]
     if bad:
@@ -1392,10 +1573,13 @@ def phase_serve():
                          f"(>= 30 batched steps, no synchronizing call in "
                          f"the dispatch, no sync solve after the handoff): "
                          f"{rec}")
-    # the batched megastep, the lanes' synchronous three
-    if not captured_once(g, 1 + 3) or g["replays"] < rec["batched_steps"]:
+    # the batched megastep, the lanes' synchronous four
+    if not captured_once(g, 1 + 4) or g["replays"] < rec["batched_steps"]:
         raise SystemExit(f"serve did not replay a captured batched megastep "
                          f"every step, or captured a program twice: {rec}")
+    if not iters_exact(rec):
+        raise SystemExit(f"serve: the lanes' synchronous solves' exit nodes "
+                         f"did not run exactly the iterations needed: {rec}")
     return rec
 
 
@@ -1434,11 +1618,12 @@ def both_ways(run):
     return got, ref
 
 
-def graphs_main():
+def graphs_main(seq):
     """The main path's synchronous frames after its 11-frame window filled
     (2.5 s of the blobs scene, rendered here as `phase_main` renders it:
     about 14 solved frames), and the front end on every frame: positions
-    and ATE, the published features."""
+    and ATE, the published features, each solve's LM iterations. The
+    rendered sequence is left in `seq` (sim, images, camera)."""
     sim = image_sim(2.5, 1500)
     cam = tumrs_camera()
     imgs = render.render_sequence(sim, 1024, 1280, camera=cam, seed=1,
@@ -1457,6 +1642,7 @@ def graphs_main():
                     fe_ms=float(np.median(r["t_feat"])) * 1e3)
 
     g, e = both_ways(run)
+    seq[:] = [sim, imgs, cam]
     same_ids = all((a is None and b is None) or np.array_equal(
         a["ids"], b["ids"]) for a, b in zip(g["feats"], e["feats"]))
     uv = max((float(np.abs(a["uv"] - b["uv"]).max()) for a, b in
@@ -1468,6 +1654,8 @@ def graphs_main():
             "ate_m": g["ate"], "ate_eager_m": e["ate"],
             "ld_dev_s": abs(g["vio"].traj.line_delay
                             - e["vio"].traj.line_delay),
+            "lm_iters": g["vio"].lm_iters_record()["hist"],
+            "lm_iters_equal": g["vio"].lm_iters() == e["vio"].lm_iters(),
             "features_same_ids": same_ids, "features_max_uv_dev_px": uv,
             "estimator_ms_median": g["est_ms"],
             "estimator_ms_median_eager": e["est_ms"],
@@ -1519,6 +1707,8 @@ def graphs_e2e():
             "ate_m": g["ate"], "ate_eager_m": e["ate"],
             "ld_dev_s": abs(g["vio"].traj.line_delay
                             - e["vio"].traj.line_delay),
+            "lm_iters": g["vio"].lm_iters_record()["hist"],
+            "lm_iters_equal": g["vio"].lm_iters() == e["vio"].lm_iters(),
             "last_summary_cost_rel_dev":
                 abs(sg.cost - se.cost) / max(abs(se.cost), 1e-30),
             "streamed_ms_median": g["ms"], "streamed_ms_median_eager": e["ms"]}
@@ -1570,6 +1760,54 @@ def graphs_serve():
             "step_ms_median": g["ms"], "step_ms_median_eager": e["ms"]}
 
 
+def graphs_classic(sim, imgs, cam, frames=12):
+    """The classic `FeatureTracker` (the gated config, all 4 levels) on
+    the first frames of `graphs_main`'s sequence: its four stages
+    replayed against run eagerly; the published ids and points, host ms a
+    frame."""
+    H, W = imgs.shape[1:]
+    imgs_dev = torch.as_tensor(imgs[:frames], device="cuda")
+
+    def run():
+        tr = FeatureTracker(gated_tracker_config(), cam, (H, W),
+                            device="cuda")
+        outs, ms = [], []
+        for i in range(frames):
+            t0 = time.perf_counter()
+            outs.append(tr.process(sim.frames[i].t_ns, imgs_dev[i]))
+            torch.cuda.synchronize()
+            ms.append(time.perf_counter() - t0)
+        return outs, float(np.median(ms[2:])) * 1e3
+
+    (g, g_ms), (e, e_ms) = both_ways(run)
+    pub = [(a, b) for a, b in zip(g, e) if a is not None or b is not None]
+    same = all(a is not None and b is not None
+               and np.array_equal(a["ids"], b["ids"]) for a, b in pub)
+    uv = max((float(np.abs(a["uv"] - b["uv"]).max()) for a, b in pub
+              if same and len(a["uv"])), default=0.0)
+    return {"frames": frames, "published": len(pub),
+            "features_same_ids": same, "features_max_uv_dev_px": uv,
+            "frame_ms_median": g_ms, "frame_ms_median_eager": e_ms}
+
+
+def graphs_batch(B=8):
+    """`phase_batch`'s window (f32, 15 LM iterations) solved B times by
+    the batched solver's program and by the same vmapped solve run
+    eagerly: lane by lane equal bit for bit."""
+    cfg = WindowConfig(KW=48, NB=11, LM=256, OBS=768, MIMU=512, dt=0.05)
+    prob = tiny.tiny_problem(torch.float32, cfg, device="cuda")
+    args = (*multihost.stacked(prob, B), *prob.aux)
+    solve = batch.make_batched_solver(cfg, SolveOptions(max_iters=15))
+    g, e = both_ways(lambda: graphs.clone(solve(*args)))
+    torch.cuda.synchronize()
+    return {"B": B, "bit_equal": all(torch.equal(a, b) for a, b in zip(
+        graphs.leaves(g), graphs.leaves(e))),
+        "max_abs_dev": max(float((a.double() - b.double()).abs().max())
+                           for a, b in zip(graphs.leaves(g),
+                                           graphs.leaves(e))),
+        "lm_iters": iters_histogram(g[1].iters.cpu().numpy())}
+
+
 def phase_graphs():
     """The graphs line: the same frames run with every program replayed
     from its captured graph and with every function run eagerly, on the
@@ -1579,16 +1817,23 @@ def phase_graphs():
     gpu tests' tolerances of the eager run's (1e-3 m; the line delay within
     1e-8 s; the last summary's cost within 1e-3 relative), ATE within 1 mm,
     the front end's published ids equal and points within 1e-3 px, both
-    runs the same frame and step counts. Host ms a frame both ways."""
+    runs the same frame and step counts; the synchronous solves and the
+    streamed megasteps, whose LM exit nodes skip what the eager run
+    freezes, equal bit for bit (`main`, `e2e`), with the same LM
+    iteration counts; the classic tracker's ids equal and points within
+    1e-4 px; the batched solver's lanes equal bit for bit. Host ms a frame
+    both ways."""
     t0 = time.perf_counter()
     reset_counts()
+    seq = []
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.use_deterministic_algorithms(True, warn_only=True)
         try:
             rec = {"phase": "graphs", "deterministic": True,
-                   "main": graphs_main(), "e2e": graphs_e2e(),
-                   "serve": graphs_serve()}
+                   "main": graphs_main(seq), "e2e": graphs_e2e(),
+                   "serve": graphs_serve(), "classic": graphs_classic(*seq),
+                   "batch": graphs_batch()}
         finally:
             torch.use_deterministic_algorithms(False)
     rec.update(graph_fields(), wall_s=time.perf_counter() - t0,
@@ -1596,7 +1841,13 @@ def phase_graphs():
                    str(w.message).split(" does not")[0] for w in caught
                    if "deterministic" in str(w.message)}))
     m, e2e, sv = rec["main"], rec["e2e"], rec["serve"]
-    ok = (m["max_pos_dev_m"] <= GRAPH_TOL_M
+    cl, bt = rec["classic"], rec["batch"]
+    ok = (m["max_pos_dev_m"] == 0.0 and e2e["max_pos_dev_m"] == 0.0
+          and e2e["max_posthoc_dev_m"] == 0.0
+          and m["lm_iters_equal"] and e2e["lm_iters_equal"]
+          and cl["features_same_ids"] and cl["published"] >= 6
+          and cl["features_max_uv_dev_px"] <= 1e-4 and bt["bit_equal"]
+          and m["max_pos_dev_m"] <= GRAPH_TOL_M
           and abs(m["ate_m"] - m["ate_eager_m"]) <= GRAPH_ATE_M
           and m["ld_dev_s"] <= 1e-8 and m["features_same_ids"]
           and m["features_max_uv_dev_px"] <= GRAPH_TOL_PX
@@ -1665,7 +1916,9 @@ def phase_batch():
     (KW=48, NB=11, LM=256, OBS=768, MIMU=512; `sim/tiny.py`), f32, 15 LM
     iterations, solved B times by one `make_batched_solver` call for B in
     1, 2, 4, 8, 16: min of 3 after a warm call, windows/s and per-window
-    efficiency. Then B = 8 with the CG Schur path (48 iterations) beside
+    efficiency; each B's solve is one captured program (`batch.
+    batched_solve`, captured by the warm call), so the times are replays.
+    Then B = 8 with the CG Schur path (48 iterations) beside
     chol. The window is noiseless (its cost falls from ~1e3 to the f32
     floor, ~1e-9 of cost0), so lanes are compared in each field's own
     units and CG's cost against chol's decrease. Gates: every lane of
@@ -1692,8 +1945,11 @@ def phase_batch():
         tB, (pb, sb) = time_min(lambda: solve(*args, *prob.aux))
         wps[B] = B / tB
         costs = sb.cost.double().cpu().numpy()
+        iters = sb.iters.cpu().numpy()
         rec = {"B": B, "ms": tB * 1e3, "windows_per_s": wps[B],
                "efficiency": wps[B] / (B * wps[1]),
+               "lm_iters": iters_histogram(iters),
+               "all_lanes_done_early": bool(iters.max() < opts.max_iters),
                "max_lane_dev": solve_devs(p1, pb),
                "max_cost_dev_over_cost0":
                    float(np.abs(costs - cost1).max()) / cost0,
@@ -1718,6 +1974,15 @@ def phase_batch():
                       float(np.max(cg_off / (cost0 - results[8])))},
            "k1_launches": lk.lk_track.launches + lk.lk_level.launches,
            "wall_s": wall, **graph_fields()}
+    rec["calls_all_lanes_done_early"] = sum(r["all_lanes_done_early"]
+                                            for r in sweep)
+    # one program a B and the CG one, captured once each, replayed by
+    # every timed call
+    if not (captured_once(rec, len(sweep) + 1)
+            and rec["graphs_captured_n"] == len(sweep) + 1
+            and rec["replays"] >= 4 * (len(sweep) + 1)):
+        raise SystemExit(f"batch: the solves did not run as one captured "
+                         f"program a B: {rec}")
     if not all(max(r["max_lane_dev"][k] for k in ("knots_q", "knots_p",
                                                   "bg", "ba", "dinv"))
                <= 1e-3 and r["max_lane_dev"]["ld"] <= 1e-8
@@ -1783,8 +2048,10 @@ def phase_multichip():
             args = (prob.params, prob.img, prob.imu, prob.bias, prob.prior,
                     prob.fixed, *prob.aux)
             solve_sh = sharded_lm.make_sharded_solve(m, cfg, opts)
+            # the sharded solve is a captured program on NCCL: its outputs
+            # are kept as copies
             fns = {"single": lambda: lm.solve_window_fixed(*args, cfg, opts),
-                   "sharded": lambda: solve_sh(*args)}
+                   "sharded": lambda: graphs.clone(solve_sh(*args))}
             fns["single"]()
             with recorded_syncs() as syncs_first:
                 fns["sharded"]()
@@ -1859,6 +2126,7 @@ def phase_multichip():
         finally:
             dist.destroy_process_group()
     world1_s = time.perf_counter() - t_run0
+    world1_graphs = graph_fields()
     t0 = time.perf_counter()
     two = multihost.dryrun_multichip(2, device="cuda", backend="gloo",
                                      cfg=cfg, solve_iters=MULTICHIP_ITERS)
@@ -1885,7 +2153,7 @@ def phase_multichip():
            "two_ranks": two,
            "k1_launches": lk.lk_track.launches + lk.lk_level.launches,
            "world1_s": world1_s, "two_ranks_s": time.perf_counter() - t0,
-           **graph_fields()}
+           **world1_graphs}
     if not solve_agrees(default_mode["sharded_dev"],
                         default_mode["sharded_dcost_over_cost0"]):
         raise SystemExit(f"multichip: the world-1 sharded solve disagrees "
@@ -1894,6 +2162,15 @@ def phase_multichip():
             and solve["accepted"] == solve["accepted_single"]):
         raise SystemExit(f"multichip: the world-1 sharded solve disagrees "
                          f"with the single solve: {rec}")
+    # the solve captured in the default mode and under deterministic
+    # algorithms, the step under them; 6 solves, a step, a batch replayed
+    keys = [c["key"] for c in world1_graphs["graphs_captured"]]
+    if not (backend == "nccl"
+            and sorted(k for k in keys if k.startswith(("solve(", "step(")))
+            == ["solve()", "solve(deterministic)", "step(deterministic)"]
+            and world1_graphs["replays"] >= 6 + 1 + 1):
+        raise SystemExit(f"multichip: the world-1 NCCL sharded solve and "
+                         f"step did not run as captured programs: {rec}")
     if not solve_agrees(step_rec["max_dev"], step_rec["dcost_over_cost"]):
         raise SystemExit(f"multichip: the sharded step disagrees with the "
                          f"unsharded step: {rec}")
@@ -2165,7 +2442,19 @@ def phase_cli():
            "plain_lk_level_calls": stats["plain_lk_level_calls"],
            "html_bytes": html.stat().st_size,
            "card": card_name_and_power_limit(),
+           "timing_s": stats["timing_s"],
+           "bootstrap_s": {k: stats["timing_s"].get(k, 0.0)
+                           for k in BOOT_KEYS},
            **graph_fields(stats["graphs"])}
+    rec.update(iters_fields([stats["lm_iters"]], rec))
+    # where `run`'s wall time went: the estimator's top-level phases (the
+    # bootstrap's among them; the captures happen inside them) and the
+    # front end's
+    top = {k: stats["timing_s"].get(k, 0.0) for k in RUN_TOP_KEYS}
+    fe = stats["frontend_timing_s"]
+    top["frontend"] = fe.get("dispatch", 0.0) + fe.get("consume", 0.0)
+    rec["run_attributed_s"] = top
+    rec["run_unattributed_s"] = stats["wall_s"] - sum(top.values())
     steps = np.diff(t)
     unit = np.abs(np.linalg.norm(q, axis=1) - 1.0).max()
     if not (len(t) > 100 and bool((steps > 0).all()) and unit < 1e-6
@@ -2178,6 +2467,11 @@ def phase_cli():
     if not (rec["megasteps"] >= 10 and rec["megastep_syncs"] == 0):
         raise SystemExit(f"cli did not stream (>= 10 megasteps, no "
                          f"synchronizing call inside one): {rec}")
+    if not (iters_exact(rec) and "window_solve(bootstrap, float64)" in [
+            c["key"] for c in rec["graphs_captured"]]):
+        raise SystemExit(f"cli: the f64 bootstrap BA did not run as a "
+                         f"program, or the LM's exit nodes did not run "
+                         f"exactly the iterations its solves needed: {rec}")
     if not (k1_once_a_frame(rec["k1_track_launches"], rec, frames)
             and rec["k1_track_launches_by_levels"] == {
                 "2": rec["k1_track_launches"]}
@@ -2221,7 +2515,11 @@ def phase_bench():
     JSON line and, from its `[bench-image] stats` line (counts zeroed
     before its replay and read after), one 3-level K1 launch a frame and
     no plain LK call; `python -m ctrlvio_tpu_torch.tools.profile_serve
-    --sweep --reps 3`: ms a batched megastep at B = 1..16. Then, in this
+    --sweep --reps 3`: ms a batched megastep at B = 1..16; `python -m
+    ctrlvio_tpu_torch.tools.ne_ab` at its defaults (dense against
+    chunked/128 normal equations at B = 1 and 16, each variant's batched
+    megastep a captured program, replayed: the verdict from the card's
+    time, not the host's dispatch). Then, in this
     process, `entry()` on the card: its outputs finite and within f32
     rounding of `entry(device="cpu")` (knots_p within 1e-5 m, the line
     delay within 1e-9 s, the cost within 1e-7 of the starting cost). The
@@ -2244,6 +2542,9 @@ def phase_bench():
         "ctrlvio_tpu_torch.tools.profile_serve", "--sweep", "--reps", 3,
         timeout=600, log=BENCH_DIR / "profile_serve.log")
     sweep = last_json(out)
+    ne_ab_s, out, _ = run_module("ctrlvio_tpu_torch.tools.ne_ab",
+                                 timeout=600, log=BENCH_DIR / "ne_ab.log")
+    ne_ab = last_json(out)
 
     fn, args = entry("cuda")
     t_entry, got = time_min(lambda: fn(*args))
@@ -2267,6 +2568,7 @@ def phase_bench():
            "image": {"argv": list(map(str, BENCH_IMAGE)), "seconds": image_s,
                      "result": image, "stats": stats},
            "profile_serve_sweep": {"seconds": sweep_s, **sweep},
+           "ne_ab": {"seconds": ne_ab_s, **ne_ab},
            "entry": entry_rec, "card": card_name_and_power_limit(),
            "image_graphs": graph_fields(stats["graphs"])}
     if not (list(e2e) == BENCH_E2E_KEYS and e2e["gt"] == "lissajous"
@@ -2288,6 +2590,11 @@ def phase_bench():
             np.isfinite(r["ms_per_step"]) and r["ms_per_step"] > 0
             for r in sweep["sweep"]):
         raise SystemExit(f"bench: profile_serve's sweep is incomplete: {rec}")
+    if not (len(ne_ab["results"]) == 4 and all(
+            r["graphed"] and np.isfinite(r["ms_per_step"])
+            and r["ms_per_step"] > 0 for r in ne_ab["results"])):
+        raise SystemExit(f"bench: ne_ab did not time its four variants' "
+                         f"programs: {rec}")
     if not (entry_rec["finite"] and entry_rec["knots_p_dev_m"] <= 1e-5
             and entry_rec["ld_dev_s"] <= 1e-9
             and abs(entry_rec["cost"] - entry_rec["cost_cpu"])
@@ -2356,6 +2663,7 @@ def main():
         phase_build()
         level = phase_k1_level()
         k1 = phase_k1_track()
+        if_node = phase_if_node()
         # the kernel checks above have the card to themselves
         sides = [start_side("phase_serve", "phase_batch"),
                  start_side("phase_cli"), start_side("phase_multichip"),
@@ -2413,7 +2721,17 @@ def main():
         "multichip_launches": multichip["k1_launches"],
         "bench_launches": {
             "image": bench["image"]["stats"]["k1_track_launches_by_levels"],
-            "image_frames": bench["image"]["stats"]["frames"]}}]
+            "image_frames": bench["image"]["stats"]["frames"]}}, {
+        "name": "LM exit: IF node set kernel", "route": "cuda",
+        "source": "ctrlvio_tpu_torch/csrc/graph_cond.cu",
+        "replaces": "ctrlvio_tpu/solver/lm.py:247",
+        "launches": main_rec["if_node_launches_replayed"],
+        "max_abs_err": if_node["max_abs_err"], "ms": if_node["ms"],
+        "plain_ms": if_node["plain_ms"], "bound_ms": if_node["bound_ms"],
+        "bound_by": if_node["bound_by"], "library_ms": None,
+        "e2e_launches": e2e["if_node_launches_replayed"],
+        "textured_launches": textured["if_node_launches_replayed"],
+        "serve_launches": serve["if_node_launches_replayed"]}]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -104,9 +104,15 @@ def _cmd_run(args):
         "plain_lk_track_calls": lk.lk_track_plain.calls,
         "plain_lk_level_calls": lk.lk_level_plain.calls,
         "graphs": graphs.stats(),
+        "lm_iters": vio.lm_iters_record(),
+        "timing_s": dict(vio.timing),
+        "frontend_timing_s": dict(getattr(vio.tracker, "timing", {})),
         "frame_ms_median": float(np.median(frame_s)) * 1e3
         if frame_s else None,
         "sustained_fps": len(frame_s) / max(wall, 1e-9)}
+    boot = " ".join(f"{k}={vio.timing.get(k, 0.0):.2f}s" for k in (
+        "vio_init", "boot_predict", "boot_solve", "boot_prior"))
+    print(f"[run] bootstrap {boot}", file=sys.stderr)
     print("[run] stats " + json.dumps(stats), file=sys.stderr)
     if args.out:
         export_vio_trajectory(args.out, vio)

@@ -27,7 +27,10 @@ counterpart of the JAX package's `jax.jit`): the streamed megastep one per
 slide branch and seed source, held by the estimator with its state in
 place; the synchronous solve, prior build and predict solve shared by
 every estimator of the process with the same configuration
-(`_SYNC_PROGRAMS`). The first window's bootstrap solve runs eagerly.
+(`_SYNC_PROGRAMS`), the first window's f64 bootstrap solve among them.
+Each solve leaves its LM loop on the device once it has converged (a
+CUDA-graph IF node a later iteration, `lm.solve_window_fixed`); `lm_iters`
+lists every solve's iteration count.
 
 Initialization: external (`set_initial_state`, e.g. from
 `initializer.bootstrap_from_sim`), static (stillness, with the IMU
@@ -248,9 +251,10 @@ def window_solve(blob, prior: PriorFactor, ext, gravity, imu_info,
                  ne_mode: str, chunk: Optional[int], restore: bool):
     """The synchronous window solve as one program (≙ `_ba_fused`): the
     blob's factors and parameters, `opts.max_iters` LM iterations that
-    freeze once converged (`lm.solve_window_fixed`, equal to the host-exit
-    loop), with `restore` the 4-DoF gauge restore; one flat vector out
-    [knots_q, knots_p, bg, ba, dinv, ld, cost0, cost, accepted]
+    freeze once converged and that a captured program skips from then on
+    (`lm.solve_window_fixed`, equal to the host-exit loop), with `restore`
+    the 4-DoF gauge restore; one flat vector out
+    [knots_q, knots_p, bg, ba, dinv, ld, cost0, cost, accepted, iters]
     (`unpack_solved`)."""
     img, imu, bias, params, fixed, _ = blob_unpack(blob, cfg)
     p_out, stats = lm.solve_window_fixed(
@@ -264,20 +268,28 @@ def window_solve(blob, prior: PriorFactor, ext, gravity, imu_info,
         q_new.reshape(-1), p_new.reshape(-1), p_out.bg.reshape(-1),
         p_out.ba.reshape(-1), p_out.dinv, p_out.ld.reshape(1),
         torch.stack([stats.cost0, stats.cost,
-                     stats.accepted.to(q_new.dtype)])])
+                     stats.accepted.to(q_new.dtype),
+                     stats.iters.to(q_new.dtype)])])
 
 
-def unpack_solved(host: np.ndarray, cfg: WindowConfig) -> dict:
-    """`window_solve`'s vector, pulled to the host, split into numpy
-    views."""
+def unpack_solved(host, cfg: WindowConfig) -> dict:
+    """`window_solve`'s vector split into views: numpy views of the
+    vector pulled to the host, or tensor views of it on the device."""
     K, B, L = cfg.KW, cfg.NB, cfg.LM
-    o = np.cumsum([0, 4 * K, 3 * K, 3 * B, 3 * B, L, 1, 1, 1, 1])
+    o = np.cumsum([0, 4 * K, 3 * K, 3 * B, 3 * B, L, 1, 1, 1, 1, 1])
     return dict(knots_q=host[o[0]:o[1]].reshape(K, 4),
                 knots_p=host[o[1]:o[2]].reshape(K, 3),
                 bg=host[o[2]:o[3]].reshape(B, 3),
                 ba=host[o[3]:o[4]].reshape(B, 3), dinv=host[o[4]:o[5]],
                 ld=host[o[5]], cost0=host[o[6]], cost=host[o[7]],
-                accepted=host[o[8]])
+                accepted=host[o[8]], iters=host[o[9]])
+
+
+def iters_histogram(iters) -> dict:
+    """{iteration count: solves} of a list of LM iteration counts, the
+    counts as strings (JSON keys), in increasing order."""
+    vals, n = np.unique(np.asarray(iters, np.int64), return_counts=True)
+    return {str(v): int(c) for v, c in zip(vals, n)}
 
 
 def marg_prior(blob, old_prior: PriorFactor, ext, imu_info, sqrt_info_img,
@@ -339,6 +351,9 @@ class CtrlVIO:
         self.gravity = np.array([0.0, 0.0, cfg.gravity_mag])
 
         self.timing = defaultdict(float)  # per-phase cumulative seconds
+        # solve kind -> each solve's LM iteration count, in order: an int,
+        # or a streamed summary's device scalar not read yet (`lm_iters`)
+        self._iters_log = defaultdict(list)
         self.counts = defaultdict(int)
         self.check_dispatch_syncs = False
         self.sync_warnings: List[str] = []
@@ -423,18 +438,39 @@ class CtrlVIO:
             return NativeFeatureTable(self.wc.NB - 1, self.cfg.min_parallax)
         return FeatureTable(self.wc.NB - 1, self.cfg.min_parallax)
 
-    def _solve(self, params, img, imu, bias, prior, fixed, ext, gravity,
-               imu_info, sqrt_info, cfg, opts):
-        return lm.solve_window(params, img, imu, bias, prior,
-                               self._t(fixed), ext, gravity, imu_info,
-                               sqrt_info, cfg, opts, ne_mode=self.cfg.ne_mode,
-                               chunk=self.cfg.ne_chunk)
-
-    def _sync_program(self, fn, *args, **static):
+    def _sync_program(self, fn, *args, label=None, **static):
         """`fn(*args, **static)` as the process's shared program of that key
-        on this estimator's device (eager on the CPU); returns its output,
-        which the program's next call overwrites."""
-        return _SYNC_PROGRAMS.get(fn, args, self.device, static)(*args)
+        on this estimator's device (eager on the CPU), named `label` in the
+        records if given; returns its output, which the program's next
+        call overwrites."""
+        return _SYNC_PROGRAMS.get(fn, args, self.device, static,
+                                  label=label)(*args)
+
+    def lm_iters(self) -> dict:
+        """Every solve's LM iteration count (the iteration at which it was
+        done, or its `max_iters`), in order, by kind: "predict" and
+        "bootstrap" (the first window's IMU-only fit and f64 BA), "sync"
+        (window solves of the synchronous schedule) and "stream" (the
+        streamed frames whose summaries were consumed). Reads the counts of
+        summaries that were not pulled: call it between frames."""
+        out = {}
+        for kind, log in self._iters_log.items():
+            dev = [i for i, v in enumerate(log) if torch.is_tensor(v)]
+            if dev:
+                vals = torch.stack([log[i] for i in dev]).cpu().tolist()
+                for i, v in zip(dev, vals):
+                    log[i] = v
+            out[kind] = [int(v) for v in log]
+        return out
+
+    def lm_iters_record(self) -> dict:
+        """`lm_iters` as a histogram a kind (`iters_histogram`), beside each
+        kind's `max_iters`: what a run's stats report."""
+        its, cfg = self.lm_iters(), self.cfg
+        most = dict(predict=cfg.predict_iters, bootstrap=cfg.init_ba_iters,
+                    sync=cfg.ba_iters, stream=cfg.ba_iters)
+        return {"hist": {k: iters_histogram(v) for k, v in its.items()},
+                "max_iters": {k: most[k] for k in its}}
 
     # ------------------------------------------------------------------
     # ingest
@@ -480,7 +516,9 @@ class CtrlVIO:
                     self.q_CtoI, self.p_CinI, gravity_mag=cfg.gravity_mag,
                     window_size=self.wc.NB - 1,
                     excite_threshold=cfg.excite_threshold)
+            t0 = time.perf_counter()
             self._vio_init.feed_imu(t_ns, gyro, accel)
+            self.timing["vio_init"] += time.perf_counter() - t0
 
     def _boot_feed_frame(self, t_ns, ids, pts) -> bool:
         """True once the bootstrap produced an initial state (and
@@ -491,7 +529,9 @@ class CtrlVIO:
             if st is not None:
                 st.t_ns = t_ns  # anchor at this frame
         elif self.cfg.bootstrap == "visual" and self._vio_init is not None:
+            t0 = time.perf_counter()
             st = self._vio_init.feed_frame(t_ns, ids, pts)
+            self.timing["vio_init"] += time.perf_counter() - t0
         if st is None:
             return False
         self.counts["bootstrap_" + self.cfg.bootstrap] += 1
@@ -794,7 +834,9 @@ class CtrlVIO:
                                    self.imu_accel, self._init_state)
         self.traj.knots_q[: self.traj.n] = kq
         self.traj.knots_p[: self.traj.n] = kp
+        t0 = time.perf_counter()
         self._extend_and_predict(t_ns, from_start=True)
+        self.timing["boot_predict"] += time.perf_counter() - t0
         self._triangulate()
         n_img_obs = self._init_solve_f64()
         # quality gate in measurement units: the RMS weighted residual per
@@ -888,7 +930,12 @@ class CtrlVIO:
     def _init_solve_f64(self):
         """One-time f64 bootstrap BA + square-root marginalization prior on
         the device (≙ the first UpdateTrajectory after SetInitialState).
-        Returns the number of image observations of the window."""
+        The solve is one program (`window_solve` in f64, `init_ba_iters`
+        iterations at tol 0, so no iteration is skipped), replayed by a
+        retried bootstrap; the prior is built eagerly from its output on
+        the device. Returns the number of image observations of the
+        window. Times "boot_solve" and "boot_prior"."""
+        t0 = time.perf_counter()
         wc, cfg = self.wc, self.cfg
         f64 = torch.float64
         self.win_knot0 = self.traj.ctrl_idx(self.kf_t_ns[0])
@@ -896,47 +943,51 @@ class CtrlVIO:
         img, dinv0, _, imu, bias = self._pack_window(np.float64)
         fixed = np.ones(wc.KW, bool)
         fixed[:n_active] = False
-        params = WindowParams(
-            knots_q=self._t(kq, f64), knots_p=self._t(kp, f64),
-            bg=self._t(self.bg, f64), ba=self._t(self.ba, f64),
-            dinv=self._t(dinv0, f64), ld=self._t(self.traj.line_delay, f64))
         ext64 = F.CamExtrinsics(q_CtoI=self._t(self.q_CtoI, f64),
                                 p_CinI=self._t(self.p_CinI, f64))
         grav64 = self._t(self.gravity, f64)
         info64 = self._imu_info.to(f64)
         w64 = self._sqrt_info_img.to(f64)
-        img_t, imu_t, bias_t = (self._dev(img, f64), self._dev(imu, f64),
-                                self._dev(bias, f64))
         opts = self._init_opts
+        blob = blob_pack(img, imu, bias, kq, kp, self.bg, self.ba, dinv0,
+                         self.traj.line_delay, fixed, np.float64)
+        # a copy: the prior keeps views of it as its linearization point,
+        # and another estimator's bootstrap replays the same program
+        solved = unpack_solved(self._sync_program(
+            window_solve, self._upload(blob), empty_prior(wc, f64,
+                                                          self.device),
+            ext64, grav64, info64, w64, cfg=wc, opts=opts,
+            ne_mode=cfg.ne_mode, chunk=cfg.ne_chunk, restore=True,
+            label="window_solve(bootstrap, float64)").clone(), wc)
+        p_out = WindowParams(*(solved[k] for k in WindowParams._fields))
+        host = {k: v.cpu().numpy() for k, v in solved.items()}
+        self._iters_log["bootstrap"].append(int(host["iters"]))
+        t1 = time.perf_counter()
+        self.timing["boot_solve"] += t1 - t0
+
         k1 = self.traj.ctrl_idx(self.kf_t_ns[1]) - self.win_knot0
         drop = np.zeros(wc.KW, bool)
         drop[:k1] = True
-
-        p_out, stats = self._solve(params, img_t, imu_t, bias_t,
-                                   empty_prior(wc, f64, self.device), fixed,
-                                   ext64, grav64, info64, w64, wc, opts)
-        q_new, p_new = gauge.restore_gauge(p_out.knots_q, p_out.knots_p,
-                                           params.knots_q[0],
-                                           params.knots_p[0], 0, 0)
-        p_out = p_out._replace(knots_q=q_new, knots_p=p_new)
         prior64, ovf = marginalize.build_prior_sqrt(
-            p_out, img_t, imu_t, bias_t, empty_prior(wc, f64, self.device),
+            p_out, self._dev(img, f64), self._dev(imu, f64),
+            self._dev(bias, f64), empty_prior(wc, f64, self.device),
             self._t(drop), ext64, grav64, info64, w64, wc,
             opts._replace(cauchy_c=1.0), knot_shift=k1, bias_shift=1,
             return_overflow=True, caps=cfg.marg_caps, n_drop_knots=k1)
         self._count_marg_overflow(ovf.cpu().numpy())
+        self.timing["boot_prior"] += time.perf_counter() - t1
 
         self.last_solve_stats = SimpleNamespace(
-            cost0=float(stats.cost0), cost=float(stats.cost),
-            accepted=float(stats.accepted))
-        self.traj.write_back(self.win_knot0, p_out.knots_q.cpu().numpy(),
-                             p_out.knots_p.cpu().numpy(), n_active)
-        self.bg = p_out.bg.cpu().numpy().astype(np.float64)
-        self.ba = p_out.ba.cpu().numpy().astype(np.float64)
+            cost0=float(host["cost0"]), cost=float(host["cost"]),
+            accepted=float(host["accepted"]), iters=float(host["iters"]))
+        self.traj.write_back(self.win_knot0, host["knots_q"],
+                             host["knots_p"], n_active)
+        self.bg = host["bg"].astype(np.float64)
+        self.ba = host["ba"].astype(np.float64)
         if not cfg.fix_ld:
             self.traj.line_delay = float(np.clip(
-                float(p_out.ld), cfg.ld_lower, cfg.ld_upper))
-        dinv_np = p_out.dinv.cpu().numpy().astype(np.float64)
+                float(host["ld"]), cfg.ld_lower, cfg.ld_upper))
+        dinv_np = host["dinv"].astype(np.float64)
         if self.use_native:
             self.features.set_depths(dinv_np.astype(np.float32))
         else:
@@ -988,6 +1039,7 @@ class CtrlVIO:
             opts=self._predict_opts, ne_mode=self.cfg.ne_mode,
             chunk=self.cfg.ne_chunk, restore=False).cpu().numpy()
         s = unpack_solved(host, pc)
+        self._iters_log["predict"].append(int(s["iters"]))
         self.traj.write_back(self.win_knot0, s["knots_q"], s["knots_p"],
                              n_active)
 
@@ -1063,7 +1115,9 @@ class CtrlVIO:
                                       s["ba"])
         dinv_np, ld_np = s["dinv"], s["ld"]
         self.last_solve_stats = SimpleNamespace(
-            cost0=s["cost0"], cost=s["cost"], accepted=s["accepted"])
+            cost0=s["cost0"], cost=s["cost"], accepted=s["accepted"],
+            iters=s["iters"])
+        self._iters_log["sync"].append(int(s["iters"]))
 
         t0 = time.perf_counter()
         self.traj.write_back(self.win_knot0, kq_np, kp_np, n_active)
@@ -1341,7 +1395,14 @@ class CtrlVIO:
                 fids, s["dinv"][: len(fids)].astype(np.float32))
         self.last_solve_stats = SimpleNamespace(
             cost0=s["cost0"], cost=s["cost"], accepted=s["accepted"],
+            iters=s["iters"],
             rms=s["rms"])  # per type [image, imu, bias, prior]
+        # every frame's count: the pulled summaries' on the host, the
+        # others' (dropped unread) as device scalars, read by `lm_iters`
+        log = self._iters_log["stream"]
+        for _, o, _ in batch[:-1]:
+            log.append(o[0][-1].item() if isinstance(o, tuple) else o[-1])
+        log.append(s["iters"])
         self._count_marg_overflow(s["marg_ovf"])
         if self.cfg.debug_residual_summary:
             r = s["rms"]

@@ -6,8 +6,9 @@ square-root marginalization → window slide (knot roll, bias roll, landmark
 depth handoff) — is one call, `megastep`, chained frame to frame through a
 device-resident `DevState`, with no host read inside it:
 
-- the LM loop issues a fixed number of iterations and freezes its state on
-  the device once it has converged (`lm.solve_window_fixed`);
+- the LM loop freezes its state on the device once it has converged, and
+  a captured megastep skips the iterations after that
+  (`lm.solve_window_fixed`); the batched form runs every iteration;
 - the slide branch (marginalize the oldest keyframe or drop the second
   newest) is chosen on the host, which decided it when it packed the frame,
   and the dropped-knot count rides in as a host int; `megastep_branchless`
@@ -274,12 +275,13 @@ def _extend_inertial(params: WindowParams, imu: ImuFactors,
 def _merge_solve(state: DevState, blob: torch.Tensor, ext, gravity, imu_info,
                  sqrt_info_img, cfg: WindowConfig, opts: SolveOptions,
                  host_seeds: Optional[bool], ne_mode: str = "chunked",
-                 chunk: Optional[int] = None):
+                 chunk: Optional[int] = None, exit_node: bool = True):
     """Unpack the blob, merge its seeds into the device window state, solve
     (normal equations by `ne_mode` and `chunk`, as `lm.solve_window_fixed`
     takes them) and restore the gauge. `host_seeds` None selects the seeds
-    by the blob's own flag on the device (both computed). Returns (the
-    unpacked blob, solved params, SolveStats)."""
+    by the blob's own flag on the device (both computed); `exit_node` as
+    `lm.solve_window_fixed` takes it. Returns (the unpacked blob, solved
+    params, SolveStats)."""
     dtype = state.params.knots_p.dtype
     unpacked = unpack_stream_blob(blob, cfg, dtype)
     (img, imu, bias, fixed, seed_q, seed_p, seed_mask, dinv_perm, dinv_seed,
@@ -310,7 +312,8 @@ def _merge_solve(state: DevState, blob: torch.Tensor, ext, gravity, imu_info,
     p_out, stats = lm.solve_window_fixed(params, img, imu, bias, state.prior,
                                          fixed, ext, gravity, imu_info,
                                          sqrt_info_img, cfg, opts,
-                                         ne_mode=ne_mode, chunk=chunk)
+                                         ne_mode=ne_mode, chunk=chunk,
+                                         exit_node=exit_node)
     q_new, p_new = gauge.restore_gauge(p_out.knots_q, p_out.knots_p,
                                        q_ref, p_ref, 0, 0)
     return unpacked, p_out._replace(knots_q=q_new, knots_p=p_new), stats
@@ -364,7 +367,8 @@ def _summary(state: DevState, p_out: WindowParams, stats, unpacked, dinv_sum,
              cfg: WindowConfig, opts: SolveOptions):
     """The flat summary: this frame's pre-slide window, post-handoff depths,
     the solve statistics, the per-type residual RMS at the solution
-    (≙ the reference's per-solve ResidualSummary) and the overflow counts."""
+    (≙ the reference's per-solve ResidualSummary), the overflow counts and
+    the LM iteration count."""
     dtype = p_out.knots_p.dtype
     img, imu, bias = unpacked[:3]
     rms4 = assemble.residual_rms(p_out, img, imu, bias, state.prior, ext,
@@ -377,6 +381,7 @@ def _summary(state: DevState, p_out: WindowParams, stats, unpacked, dinv_sum,
                      stats.accepted.to(dtype)]).to(dtype),
         rms4.to(dtype),
         marg_ovf,  # > 0: marg subset overflowed [obs, imu, lm]
+        stats.iters.reshape(1).to(dtype),
     ])
 
 
@@ -436,11 +441,14 @@ def megastep_branchless(state: DevState, blob: torch.Tensor, ext, gravity,
     each field is chosen by `torch.where` on `marg_old` / `host_seeds`;
     the knot roll takes `knot_shift` as a tensor. So one call over stacked
     lanes (`torch.func.vmap`, `parallel.stream_batch`) serves lanes whose
-    keyframe decisions differ. Same results as `megastep`."""
+    keyframe decisions differ. Every LM iteration runs (no exit node:
+    under vmap `done` is a lane vector, no scalar predicate). Same results
+    as `megastep`."""
     pin_f32_matmuls()
     unpacked, p_out, stats = _merge_solve(state, blob, ext, gravity,
                                           imu_info, sqrt_info_img, cfg, opts,
-                                          None, ne_mode, chunk)
+                                          None, ne_mode, chunk,
+                                          exit_node=False)
     sc = unpacked[10]
     old = _slide_old(state, p_out, unpacked, ext, gravity, imu_info,
                      sqrt_info_img, cfg, opts, caps, sc.knot_shift)
@@ -452,7 +460,7 @@ def megastep_branchless(state: DevState, blob: torch.Tensor, ext, gravity,
 
 
 def summary_size(cfg: WindowConfig) -> int:
-    return 7 * cfg.KW + 6 * cfg.NB + cfg.LM + 11
+    return 7 * cfg.KW + 6 * cfg.NB + cfg.LM + 12
 
 
 def unpack_summary(host: np.ndarray, cfg: WindowConfig):
@@ -472,4 +480,5 @@ def unpack_summary(host: np.ndarray, cfg: WindowConfig):
         dinv=take(LM), ld=float(take(1)[0]), cost0=float(take(1)[0]),
         cost=float(take(1)[0]), accepted=float(take(1)[0]),
         rms=take(4),  # per-type residual RMS [image, imu, bias, prior]
-        marg_ovf=take(3))  # marg-cap overflow counts [obs, imu, lm]
+        marg_ovf=take(3),  # marg-cap overflow counts [obs, imu, lm]
+        iters=float(take(1)[0]))  # LM iterations until done, or max_iters

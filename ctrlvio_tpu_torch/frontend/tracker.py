@@ -10,9 +10,15 @@ normalized plane -> per-feature velocity; publishes (id, normalized xy,
 pixel uv, velocity) per frame at a controlled rate.
 
 This is the classic multi-dispatch tracker: each stage runs on the
-tracker's device and returns to the host, where the id bookkeeping and the
-fill loop are numpy. `frontend/fused.py::FusedTracker` is the
-single-dispatch front end.
+tracker's device and returns to the host, where the id bookkeeping, the
+fill loop, the F-gate and the publish-rate gate are numpy. On the card
+each stage is a captured program (`utils/graphs.py`, ≙ the JAX package's
+four `jax.jit` stages): the preprocessing (CLAHE + pyramid), the track
+(K1 inside), the corner detection and the lift, keyed by their static
+arguments in one cache shared by every tracker of the process. A stage's
+outputs are overwritten by its next call: the previous pyramid is kept as
+a copy. `frontend/fused.py::FusedTracker` is the single-dispatch front
+end.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ctrlvio_tpu_torch.utils import graphs
 from ctrlvio_tpu_torch.utils.device import resolve_device
 from ctrlvio_tpu_torch.utils.precision import pin_f32_matmuls
 
@@ -30,6 +37,32 @@ from . import clahe as clahe_mod
 from . import corners, klt
 from .fransac import reject_with_f
 from .klt import KLTConfig
+
+
+# the classic tracker's programs, shared by every FeatureTracker of the
+# process (as `jax.jit`'s cache is)
+_PROGRAMS = graphs.ProgramCache()
+
+
+def preprocess(img, *, use_clahe: bool, levels: int):
+    """CLAHE (optional) and the image pyramid of one frame, f32."""
+    img = img.to(torch.float32)
+    if use_clahe:
+        img = clahe_mod.clahe(img)
+    return tuple(klt.pyramid(img, levels))
+
+
+def track(prev_pyr, pyr, pts, *, cfg: KLTConfig):
+    return klt.track(prev_pyr, pyr, pts, cfg)
+
+
+def detect(img0, exclude_yx, *, max_corners: int, min_dist: int):
+    return corners.detect(img0, max_corners=max_corners, min_dist=min_dist,
+                          exclude_yx=exclude_yx)
+
+
+def lift(uv, *, camera):
+    return camera.lift(uv)
 
 
 @dataclass
@@ -69,11 +102,16 @@ class FeatureTracker:
         self._first_t_ns = None
         self._norm_full = None
 
+    def _run(self, fn, *args, **static):
+        """`fn(*args, **static)` as the process's program of that key on
+        the tracker's device (eager on the CPU); its outputs are
+        overwritten by the program's next call."""
+        return _PROGRAMS.get(fn, args, self.device, static)(*args)
+
     def _preprocess(self, img):
-        img = torch.as_tensor(img, device=self.device).to(torch.float32)
-        if self.cfg.use_clahe:
-            img = clahe_mod.clahe(img)
-        return klt.pyramid(img, self.cfg.klt.levels)
+        return self._run(preprocess, torch.as_tensor(img),
+                         use_clahe=self.cfg.use_clahe,
+                         levels=self.cfg.klt.levels)
 
     # ------------------------------------------------------------------
     def process(self, t_ns: int, img):
@@ -90,16 +128,16 @@ class FeatureTracker:
         live = self.ids >= 0
         if self.prev_pyr is not None and live.any():
             pts_in = np.where(live[:, None], self.pts, 0.0)
-            new_pts, ok = klt.track(
-                self.prev_pyr, pyr,
-                torch.as_tensor(pts_in, dtype=torch.float32,
-                                device=self.device), self.cfg.klt)
+            new_pts, ok = self._run(
+                track, self.prev_pyr, pyr,
+                torch.as_tensor(pts_in, dtype=torch.float32),
+                cfg=self.cfg.klt)
             new_pts = new_pts.cpu().numpy().astype(np.float64)
             ok = ok.cpu().numpy() & live
             self.pts = np.where(ok[:, None], new_pts, -1.0)
             self.ids = np.where(ok, self.ids, -1)
             self.track_cnt = np.where(ok, self.track_cnt + 1, 0)
-        self.prev_pyr = pyr
+        self.prev_pyr = graphs.clone(pyr)
 
         # publish-rate gate (≙ `feature_tracker_node.cpp:80-93`)
         if self._first_t_ns is None:
@@ -135,8 +173,9 @@ class FeatureTracker:
         """Normalized coords of ALL slots, in float64 (dead slots give
         values that are never read)."""
         uv = np.where(self.ids[:, None] >= 0, self.pts, 0.0)
-        return self.camera.lift(torch.as_tensor(
-            uv, dtype=torch.float64, device=self.device)).cpu().numpy()
+        # a copy: the next frame's lift overwrites the program's output
+        return self._run(lift, torch.as_tensor(uv, dtype=torch.float64),
+                         camera=self.camera).cpu().numpy().copy()
 
     # ------------------------------------------------------------------
     def restart(self):
@@ -161,10 +200,9 @@ class FeatureTracker:
         exclude = np.full((self.cfg.max_cnt, 2), -1.0)
         live = self.ids >= 0
         exclude[: live.sum()] = self.pts[live][:, ::-1]  # (y, x)
-        cand, cand_ok = corners.detect(
-            pyr[0], max_corners=self.cfg.max_cnt, min_dist=self.cfg.min_dist,
-            exclude_yx=torch.as_tensor(exclude, dtype=torch.float32,
-                                       device=self.device))
+        cand, cand_ok = self._run(
+            detect, pyr[0], torch.as_tensor(exclude, dtype=torch.float32),
+            max_corners=self.cfg.max_cnt, min_dist=self.cfg.min_dist)
         cand = cand.cpu().numpy().astype(np.float64)
         cand_ok = cand_ok.cpu().numpy()
         free = np.nonzero(~live)[0]

@@ -5,11 +5,14 @@ call (PyTorch port of `ctrlvio_tpu/parallel/batch.py`).
 `torch.func.vmap` over `lm.solve_window_fixed` turns each dense step of the
 window solve into one batched operation over the B lanes, so the host
 dispatches about as many device operations for B windows as for one. The
-fixed-count loop freezes each lane once it has converged, which is what
-the JAX package's vmapped while loop does. Given a (seq, fac) mesh of
-processes (`parallel/mesh.py`), each `seq` rank solves its B / n_seq
-lanes the same way, with no traffic between ranks, and one `all_gather`
-per output hands every rank the whole batch back.
+loop runs every iteration and freezes each lane once it has converged,
+which is what the JAX package's vmapped while loop computes (it runs
+until every lane is done). On the card the call is one captured program
+(`utils/graphs.py`) a window configuration, options, lane count, dtype
+and device (≙ `jax.jit` of the vmapped solve). Given a (seq, fac) mesh
+of processes (`parallel/mesh.py`), each `seq` rank solves its B / n_seq
+lanes the same way, eagerly, with no traffic between ranks, and one
+`all_gather` per output hands every rank the whole batch back.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from torch.func import vmap
 
 from ctrlvio_tpu_torch.solver import lm
 from ctrlvio_tpu_torch.solver.layout import SolveOptions, WindowConfig
+from ctrlvio_tpu_torch.utils import graphs
 
 from .mesh import Mesh, seq_sharding, tree_map
 
@@ -36,6 +40,22 @@ def stack(items: Sequence):
     return torch.stack(list(items))
 
 
+# the batched solves' programs, shared by every solver of the process
+_PROGRAMS = graphs.ProgramCache()
+
+
+def batched_solve(params_b, img_b, imu_b, bias_b, prior_b, fixed_b, ext,
+                  gravity, imu_info, sqrt_info_img, *, cfg: WindowConfig,
+                  opts: SolveOptions):
+    """`lm.solve_window_fixed` vmapped over the leading lane axis of the
+    first six arguments, every iteration run."""
+    return vmap(partial(lm.solve_window_fixed, cfg=cfg, opts=opts,
+                        exit_node=False),
+                in_dims=(0,) * 6 + (None,) * 4)(
+        params_b, img_b, imu_b, bias_b, prior_b, fixed_b, ext, gravity,
+        imu_info, sqrt_info_img)
+
+
 def make_batched_solver(cfg: WindowConfig, opts: SolveOptions,
                         mesh: Optional[Mesh] = None):
     """Returns `solve(params_b, img_b, imu_b, bias_b, prior_b, fixed_b,
@@ -43,13 +63,22 @@ def make_batched_solver(cfg: WindowConfig, opts: SolveOptions,
     `lm.solve_window_fixed` over the leading batch axis of the first six
     arguments (`stack`), the last four shared by every lane.
 
-    mesh: None, one process solving every lane; or a mesh whose `seq`
-    ranks each pass the whole batch, solve their contiguous B / n_seq
-    lanes and all-gather the results (B must divide by n_seq)."""
-    solve = vmap(partial(lm.solve_window_fixed, cfg=cfg, opts=opts),
-                 in_dims=(0,) * 6 + (None,) * 4)
+    mesh: None, one process solving every lane: on the card the process's
+    captured program of this configuration and B (`batched_solve`), whose
+    next call overwrites the outputs it returns, eagerly on the CPU; or
+    a mesh whose `seq` ranks each pass the whole batch, solve their
+    contiguous B / n_seq lanes eagerly and all-gather the results (B must
+    divide by n_seq)."""
+    static = dict(cfg=cfg, opts=opts)
     if mesh is None:
-        return solve
+        def solve_program(*args):
+            B = args[0].knots_p.shape[0]
+            return _PROGRAMS.get(
+                batched_solve, args, args[0].knots_p.device, static,
+                label=f"batched_solve(B={B}, solver={opts.solver})")(*args)
+
+        return solve_program
+    solve = partial(batched_solve, **static)
     shard = seq_sharding(mesh)
     group, n_seq = mesh.group("seq"), mesh.size("seq")
 

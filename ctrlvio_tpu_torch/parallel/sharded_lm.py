@@ -18,9 +18,16 @@ Pinned on purpose:
 - The Schur solve is Cholesky whatever `opts.solver` says: the JAX
   package's sharded path calls `schur_solve` without a solver choice.
 - The full solve is `lm.solve_window_fixed`: exactly `max_iters`
-  iterations, selected on the device, no host read. Every rank issues the
-  same collectives in the same order, and no host branch can differ
-  between ranks.
+  iterations, selected on the device, no host read, and no exit node
+  (every rank makes the same collectives in the same order, and nothing
+  that one card skips can differ between ranks).
+
+On a process group whose backend is NCCL, the step and the solve each run
+as a captured program (`utils/graphs.py`, ≙ the JAX package's `jax.jit`
+of them): NCCL's collectives are kernels on the card, which a CUDA graph
+records. Gloo's collectives run on the host (a CUDA tensor goes through
+host memory), which a graph cannot hold, so on gloo ranks both stay
+eager.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import torch.distributed as dist
 from ctrlvio_tpu_torch.solver import lm
 from ctrlvio_tpu_torch.solver.layout import (SolveOptions, WindowConfig,
                                              retract)
+from ctrlvio_tpu_torch.utils import graphs
 
 from .mesh import Mesh
 
@@ -68,6 +76,20 @@ def fac_all_reduce(mesh: Mesh):
     return reduce
 
 
+def _captured_on_nccl(mesh: Mesh, fn):
+    """`fn` as a captured program (one a signature) where the `fac` group's
+    backend is NCCL, else `fn` itself, run eagerly. A program's outputs are
+    overwritten by its next call."""
+    if dist.get_backend(mesh.group("fac")) != "nccl":
+        return fn
+    programs = graphs.ProgramCache()
+
+    def run(*args):
+        return programs.get(fn, args, args[0].knots_p.device)(*args)
+
+    return run
+
+
 def reduced_bytes_per_iteration(cfg: WindowConfig, dtype) -> int:
     """Bytes one LM iteration all-reduces: H (C,C), g (C,), h_ll and g_l
     (LM,), H_cl (LM,C) and the cost."""
@@ -84,7 +106,8 @@ def make_factor_sharded_step(mesh: Mesh, cfg: WindowConfig,
 
     Every rank passes the whole window (factor arrays at their global
     sizes; OBS and MIMU must divide by n_fac) and gets the same step and
-    the cost at `params`, summed over the shards."""
+    the cost at `params`, summed over the shards. Captured on NCCL (see
+    the module notes)."""
     shard_cfg = shard_config(mesh, cfg)
     opts = opts._replace(solver="chol")
     reduce = fac_all_reduce(mesh)
@@ -101,7 +124,7 @@ def make_factor_sharded_step(mesh: Mesh, cfg: WindowConfig,
         new = retract(params, dx, cfg, opts)
         return new._replace(dinv=params.dinv + dx_lm), cost
 
-    return step
+    return _captured_on_nccl(mesh, step)
 
 
 def make_sharded_solve(mesh: Mesh, cfg: WindowConfig, opts: SolveOptions):
@@ -116,7 +139,8 @@ def make_sharded_solve(mesh: Mesh, cfg: WindowConfig, opts: SolveOptions):
     match it to reduction-order rounding, and equal it bit for bit at
     fac = 1 (on the card, under `torch.use_deterministic_algorithms`:
     CUDA's `index_add` otherwise sums in no fixed order, and two runs of
-    the same solve differ by rounding)."""
+    the same solve differ by rounding). Captured on NCCL (see the module
+    notes)."""
     shard_cfg = shard_config(mesh, cfg)
     opts = opts._replace(solver="chol")
     reduce = fac_all_reduce(mesh)
@@ -129,4 +153,4 @@ def make_sharded_solve(mesh: Mesh, cfg: WindowConfig, opts: SolveOptions):
                                      sqrt_info_img, shard_cfg, opts,
                                      reduce=reduce)
 
-    return solve
+    return _captured_on_nccl(mesh, solve)

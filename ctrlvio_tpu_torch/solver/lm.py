@@ -10,11 +10,16 @@ that iteration body:
 - `solve_window` stops at `opts.max_iters` or at the first accepted step
   whose relative cost decrease is below `opts.tol`, reading the device
   twice an iteration to decide;
-- `solve_window_fixed` always issues `opts.max_iters` iterations and never
-  reads the device: a device flag `done` (set by the same rule) freezes
-  every piece of state, so its result equals the other's. The streaming
-  megastep uses it, as the JAX package's megastep uses a device-side
-  while loop.
+- `solve_window_fixed` never reads the device: a device flag `done` (set
+  by the same rule) freezes every piece of state, so its result equals the
+  other's. Its iterations after the first each sit behind
+  `graphs.run_if(~done, ...)`: in a captured program a CUDA-graph IF node
+  skips them once the solve is done, as the JAX package's device-side
+  while loop leaves; run eagerly (and on the CPU) all `opts.max_iters`
+  run, the frozen ones changing nothing. Every captured solve uses it.
+
+`SolveStats.iters` is the iteration at which `done` was set, or
+`max_iters` (≙ the JAX loop's `it` carry at its exit).
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+
+from ctrlvio_tpu_torch.utils import graphs
 
 from . import assemble
 from .layout import (BiasFactors, ImageFactors, ImuFactors, PriorFactor,
@@ -34,6 +41,19 @@ class SolveStats(NamedTuple):
     cost: torch.Tensor
     lm_lambda: torch.Tensor
     accepted: torch.Tensor  # number of accepted steps
+    iters: torch.Tensor     # iterations until done, or max_iters (int64)
+
+
+class _LMState(NamedTuple):
+    """What one LM iteration carries to the next."""
+
+    p: WindowParams
+    ne: tuple
+    cost: torch.Tensor
+    lam: torch.Tensor
+    n_acc: torch.Tensor
+    done: torch.Tensor
+    iters: torch.Tensor
 
 
 def cholesky_nan(A):
@@ -232,8 +252,9 @@ def solve_window(params: WindowParams, img: ImageFactors, imu: ImuFactors,
     cost0 = cost
     p = params
     lam = torch.full((), opts.lm_lambda_init, dtype=dtype, device=dev)
-    n_acc = 0
+    n_acc = n_it = 0
     for _ in range(opts.max_iters):
+        n_it += 1
         trial, ne_t, cost_t, accept = _trial(p, ne, cost, lam, cmask, lm_mask,
                                              ne_at, cfg, opts)
         if bool(accept):
@@ -246,7 +267,30 @@ def solve_window(params: WindowParams, img: ImageFactors, imu: ImuFactors,
         else:
             lam = torch.clamp(lam * opts.lm_lambda_up, 1e-10, 1e8)
     return p, SolveStats(cost0=cost0, cost=cost, lm_lambda=lam,
-                         accepted=torch.tensor(n_acc, device=dev))
+                         accepted=torch.tensor(n_acc, device=dev),
+                         iters=torch.tensor(n_it, device=dev))
+
+
+def _iteration(st: _LMState, cmask, lm_mask, ne_at, cfg: WindowConfig,
+               opts: SolveOptions) -> _LMState:
+    """One LM iteration of `solve_window_fixed`: every piece of state
+    selected by `torch.where` on a device `accept` that is false once
+    `done` is set, so an iteration after `done` changes nothing."""
+    p, ne, cost, lam, n_acc, done, iters = st
+    trial, ne_t, cost_t, accept = _trial(p, ne, cost, lam, cmask, lm_mask,
+                                         ne_at, cfg, opts)
+    accept = accept & ~done
+    rel_dec = (cost - cost_t) / torch.clamp(cost, min=1e-30)
+    lam_next = torch.clamp(torch.where(accept, lam * opts.lm_lambda_down,
+                                       lam * opts.lm_lambda_up), 1e-10, 1e8)
+    return _LMState(
+        p=type(p)(*(torch.where(accept, b, a) for a, b in zip(p, trial))),
+        ne=tuple(torch.where(accept, b, a) for a, b in zip(ne, ne_t)),
+        cost=torch.where(accept, cost_t, cost),
+        lam=torch.where(done, lam, lam_next),
+        n_acc=n_acc + accept.to(torch.int64),
+        done=done | (accept & (rel_dec < opts.tol)),
+        iters=iters + (~done).to(torch.int64))
 
 
 def solve_window_fixed(params: WindowParams, img: ImageFactors,
@@ -254,37 +298,46 @@ def solve_window_fixed(params: WindowParams, img: ImageFactors,
                        fixed_knots, ext, gravity, imu_info, sqrt_info_img,
                        cfg: WindowConfig, opts: SolveOptions,
                        ne_mode: str = "chunked",
-                       chunk: Optional[int] = None, reduce=None):
-    """`solve_window` with no host exit: exactly `opts.max_iters`
-    iterations, each selecting params, normal equations, cost, lambda and
-    the accepted count by `torch.where` on a device `accept` that is false
-    once `done` (an accepted step with relative decrease below `tol`) is
-    set. Same result as `solve_window`; nothing is read back. So ranks
-    that each hold a shard of the factors issue the same collectives in
-    the same order (`reduce`, see `_setup`)."""
+                       chunk: Optional[int] = None, reduce=None,
+                       exit_node: bool = True):
+    """`solve_window` with no host exit. Each iteration selects params,
+    normal equations, cost, lambda and the accepted count by `torch.where`
+    on a device `accept` that is false once `done` (an accepted step with
+    relative decrease below `tol`) is set. Same result as `solve_window`;
+    nothing is read back.
+
+    exit_node: iterations 2..`max_iters` each run behind
+    `graphs.run_if(~done, ...)`, updating the state's buffers (made by the
+    first iteration) in place: a captured program skips them once the
+    solve is done, eagerly all run. False runs every iteration
+    unconditionally: the form `torch.func.vmap` takes (a batched `done` is
+    no scalar predicate), and the form a reduced solve takes (`reduce`,
+    see `_setup`), so that ranks that each hold a shard of the factors
+    make the same collectives in the same order whatever the card
+    skips."""
     dtype, dev = params.knots_p.dtype, params.knots_p.device
     cmask, lm_mask, ne_at = _setup(params, img, imu, bias, prior, fixed_knots,
                                    ext, gravity, imu_info, sqrt_info_img, cfg,
                                    opts, ne_mode, chunk, reduce)
-    ne, cost = ne_at(params)
-    cost0 = cost
-    p = params
-    lam = torch.full((), opts.lm_lambda_init, dtype=dtype, device=dev)
-    n_acc = torch.zeros((), dtype=torch.int64, device=dev)
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    for _ in range(opts.max_iters):
-        trial, ne_t, cost_t, accept = _trial(p, ne, cost, lam, cmask, lm_mask,
-                                             ne_at, cfg, opts)
-        accept = accept & ~done
-        rel_dec = (cost - cost_t) / torch.clamp(cost, min=1e-30)
-        p = type(p)(*(torch.where(accept, b, a) for a, b in zip(p, trial)))
-        ne = tuple(torch.where(accept, b, a) for a, b in zip(ne, ne_t))
-        cost = torch.where(accept, cost_t, cost)
-        lam_next = torch.clamp(torch.where(accept, lam * opts.lm_lambda_down,
-                                           lam * opts.lm_lambda_up),
-                               1e-10, 1e8)
-        lam = torch.where(done, lam, lam_next)
-        n_acc = n_acc + accept.to(torch.int64)
-        done = done | (accept & (rel_dec < opts.tol))
-    return p, SolveStats(cost0=cost0, cost=cost, lm_lambda=lam,
-                         accepted=n_acc)
+    ne, cost0 = ne_at(params)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    st = _LMState(p=params, ne=ne, cost=cost0,
+                  lam=torch.full((), opts.lm_lambda_init, dtype=dtype,
+                                 device=dev),
+                  n_acc=zero, done=torch.zeros((), dtype=torch.bool,
+                                               device=dev),
+                  iters=zero)
+
+    def step(s):
+        return _iteration(s, cmask, lm_mask, ne_at, cfg, opts)
+
+    if opts.max_iters > 0:
+        st = step(st)  # fresh tensors: the buffers the later ones update
+    for _ in range(1, opts.max_iters):
+        if exit_node and reduce is None:
+            graphs.run_if(~st.done,
+                          lambda s: graphs.copy_tree(s, step(s)), st)
+        else:
+            st = step(st)
+    return st.p, SolveStats(cost0=cost0, cost=st.cost, lm_lambda=st.lam,
+                            accepted=st.n_acc, iters=st.iters)

@@ -6,7 +6,10 @@ path's batched megastep (counterpart of `tools/ne_ab.py`).
         [--reps 10] [--device cuda|cpu]
 
 Captures one steady state (`profile_serve.capture_state`), then times the
-batched megastep at each B for every variant: mode x chunk size (chunked
+batched megastep at each B for every variant, as `BatchedStream` runs it
+(≙ the JAX tool's `jax.jit(jax.vmap(mega))`): on the card one captured
+program (`utils/graphs.py`) a variant and B, replayed; on the CPU the
+function, eagerly. Variants: mode x chunk size (chunked
 mode only; 0 = every factor in one chunk) x Schur solver (`chol`, or
 `cgN`: N iterations of PCG). A variant is chosen as the estimator chooses
 it: `VIOConfig.ne_mode`, `ne_chunk`, `solver` and `cg_iters`, the last
@@ -25,6 +28,7 @@ from ctrlvio_tpu_torch.parallel.stream_batch import batched_megastep
 from ctrlvio_tpu_torch.tools.profile_serve import (batched_inputs,
                                                    capture_state,
                                                    device_record, time_steps)
+from ctrlvio_tpu_torch.utils import graphs
 from ctrlvio_tpu_torch.utils.precision import pin_f32_matmuls
 
 
@@ -58,20 +62,25 @@ def tag_of(mode: str, chunk: int, solver: str) -> str:
 
 def run(vio, dev_state, blob, batches, modes, chunks, solvers, reps: int,
         warm: int = 3):
-    """Time every variant at every B (`reps` steps after `warm`). Returns
-    ([{variant, B, ms_per_step, frames_per_s}], {(tag, B): the first
-    step's (states, summaries)})."""
+    """Time every variant's program at every B (`reps` steps after
+    `warm`, the first of them its capture on the card). Returns
+    ([{variant, B, ms_per_step, frames_per_s, graphed}], {(tag, B): a
+    copy of the first step's (states, summaries)})."""
     results, outputs = [], {}
+    cache = graphs.ProgramCache()
     for mode, chunk, sv in variants(modes, chunks, solvers):
         tag = tag_of(mode, chunk, sv)
         mega = variant_megastep(vio, mode, chunk, sv)
         for B in batches:
             st, blobs, consts = batched_inputs(vio, dev_state, blob, B)
-            outputs[(tag, B)] = mega(st, blobs, *consts)
-            dt, _, _ = time_steps(mega, st, blobs, consts, reps, vio.device,
+            prog = cache.get(mega, (st, blobs, *consts), vio.device,
+                             carry=True, label=f"ne_ab({tag}, B={B})")
+            outputs[(tag, B)] = graphs.clone(prog(st, blobs, *consts))
+            dt, _, _ = time_steps(prog, st, blobs, consts, reps, vio.device,
                                   warm)
             results.append({"variant": tag, "B": B, "ms_per_step": dt * 1e3,
-                            "frames_per_s": B / dt})
+                            "frames_per_s": B / dt,
+                            "graphed": graphs.graphed_on(vio.device)})
             print(f"[ne_ab] {tag:14s} B={B:2d}: {dt * 1e3:7.1f} ms/step "
                   f"({B / dt:7.1f} frames/s aggregate)", file=sys.stderr,
                   flush=True)

@@ -38,6 +38,19 @@ one at a time on the current stream of the thread that runs them, and
 each keeps its own outputs alive: a replay writes only into its own
 outputs and into intermediates that no live tensor holds.
 
+`run_if(pred, body, carry)` is the one control-flow primitive (≙ the
+exit of `lax.while_loop`): while a graph is captured it records `body`
+into a CUDA-graph IF node on the 0-dim device bool `pred`, so a replay
+runs the body only where `pred` is true; run eagerly (the warm-up before
+a capture, the CPU) the body always runs. `body` writes its results into
+the `carry` tensors in place, and nothing made inside it is read after
+it. The installed torch (2.11) has no conditional node of its own, so
+the node comes from `csrc/graph_cond.cu` (built at first use, like the
+kernels): a one-thread kernel sets the node's condition from `pred` on
+each replay, and the body is captured on a stream of its own, its memory
+from a graph pool of its own. Each recorded body also adds one to a
+device counter, so `stats` reports the bodies the replays ran.
+
 A kernel wrapper registered with `register_counter` counts its kernel's
 launches as they run. A launch made while a graph is captured runs nothing:
 its count is taken back, held by the program, and added again on each
@@ -61,6 +74,13 @@ _COUNTERS: List = []
 # every live cache, for the size of their pools (`pool_mb`)
 _CACHES = weakref.WeakSet()
 _STATS: Dict = {}
+# device -> int64 tensor: the recorded `run_if` bodies the replays ran
+_BODIES: Dict = {}
+# device -> (the stream bodies are captured on, their graph pool)
+_BODY_STREAMS: Dict = {}
+# launches of the IF nodes' set kernel (`csrc/graph_cond.cu`), a counter
+# like a kernel wrapper's: a capture holds them, each replay adds them
+_IF_LAUNCHES: Dict[str, int] = {"if_node_set": 0}
 
 
 def register_counter(read: Callable[[], Dict[str, int]],
@@ -69,15 +89,28 @@ def register_counter(read: Callable[[], Dict[str, int]],
     _COUNTERS.append((read, add))
 
 
+def _read_if_launches():
+    return dict(_IF_LAUNCHES)
+
+
+def _add_if_launches(d):
+    for k, v in d.items():
+        _IF_LAUNCHES[k] += v
+
+
 def reset_counts():
     """Forget the recorded captures and set the replay counts to 0 (the
     programs themselves stay captured)."""
     _STATS.clear()
     _STATS.update(captures=[], replays=0, launches_replayed={},
-                  launches_warm_up={})
+                  launches_warm_up={}, if_nodes=0)
+    for t in _BODIES.values():
+        t.zero_()
+    _IF_LAUNCHES["if_node_set"] = 0
 
 
 reset_counts()
+register_counter(_read_if_launches, _add_if_launches)
 
 
 def _read_counts():
@@ -153,7 +186,7 @@ def _signature(tree):
     return (type(tree).__name__,) + tuple(_signature(t) for t in tree)
 
 
-def _copy_tree(dst, src):
+def copy_tree(dst, src):
     """Copy the leaves of `src` into those of `dst` (a leaf that is its
     own destination, a state passed through unchanged, is left as it
     is)."""
@@ -174,8 +207,106 @@ def _body(fn, static, carry, inputs):
     if not carry:
         return out
     state, rest = out
-    _copy_tree(inputs[0], state)
+    copy_tree(inputs[0], state)
     return rest
+
+
+# ---------------------------------------------------------------------------
+# control flow
+# ---------------------------------------------------------------------------
+
+
+def _indexed(device: torch.device) -> torch.device:
+    """`device` with its index (a tensor's device always has one)."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _body_counter(device: torch.device) -> torch.Tensor:
+    """The device's counter of recorded bodies run, made by `Program`
+    before its capture: one made during a capture would be the graph's
+    memory, zeroed by a kernel of the graph."""
+    device = _indexed(device)
+    if device not in _BODIES:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("graphs.run_if records its node only in a "
+                               "`Program`'s capture")
+        _BODIES[device] = torch.zeros((), dtype=torch.int64, device=device)
+    return _BODIES[device]
+
+
+def _cond_lib():
+    """The IF-node helper (`csrc/graph_cond.cu`), built at first use."""
+    import ctypes
+
+    from . import cuda_build
+
+    lib = cuda_build.load("graph_cond")
+    p = ctypes.c_void_p
+    lib.if_stream_create.argtypes = [ctypes.POINTER(p)]
+    lib.if_begin.argtypes = [p, p, p, ctypes.POINTER(p)]
+    lib.if_end.argtypes = [p, p]
+    lib.if_error_string.argtypes = [ctypes.c_int]
+    lib.if_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _cond_check(lib, err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what}: {lib.if_error_string(err).decode()}")
+
+
+def _body_stream(device: torch.device):
+    """The device's stream that bodies are captured on (its own, never in
+    any other capture), and the pool their allocations come from: one of
+    their own, since the allocator records one capture at a time into a
+    pool; it is never released (bodies run one at a time, so its blocks
+    serve every body of the process)."""
+    if device not in _BODY_STREAMS:
+        import ctypes
+
+        lib = _cond_lib()
+        raw = ctypes.c_void_p()
+        with torch.cuda.device(device):
+            _cond_check(lib, lib.if_stream_create(ctypes.byref(raw)),
+                        "creating the body stream")
+        _BODY_STREAMS[device] = (torch.cuda.ExternalStream(raw.value,
+                                                           device=device),
+                                 torch.cuda.graph_pool_handle())
+    return _BODY_STREAMS[device]
+
+
+def run_if(pred: torch.Tensor, body: Callable, carry) -> None:
+    """`body(carry)` where the 0-dim bool tensor `pred` is true: recorded
+    into a CUDA-graph IF node while the current stream is captured, run
+    unconditionally otherwise (see the module notes). `body` updates the
+    tensors of `carry` in place."""
+    if not (pred.is_cuda and torch.cuda.is_current_stream_capturing()):
+        body(carry)
+        return
+    import ctypes
+
+    lib = _cond_lib()
+    device = pred.device
+    counter = _body_counter(device)
+    side, pool = _body_stream(device)
+    pred = pred.to(torch.bool).contiguous()
+    node_body = ctypes.c_void_p()
+    _cond_check(lib, lib.if_begin(
+        torch.cuda.current_stream(device).cuda_stream, pred.data_ptr(),
+        side.cuda_stream, ctypes.byref(node_body)), "adding an IF node")
+    _IF_LAUNCHES["if_node_set"] += 1
+    torch._C._cuda_beginAllocateCurrentThreadToPool(device.index, pool)
+    try:
+        with torch.cuda.stream(side):
+            body(carry)
+            counter.add_(1)
+    finally:
+        torch._C._cuda_endAllocateToPool(device.index, pool)
+        err = lib.if_end(side.cuda_stream, node_body)
+    _cond_check(lib, err, "ending an IF node's body")
+    _STATS["if_nodes"] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -247,11 +378,13 @@ def pool_mb() -> Optional[float]:
     return total / 2**20 if found else None
 
 
-def _label(fn, static) -> str:
+def _label(fn, static, deterministic: bool = False) -> str:
     name = getattr(fn, "__name__", None) or getattr(
         getattr(fn, "func", None), "__name__", type(fn).__name__)
     short = [f"{k}={v}" for k, v in static.items()
              if isinstance(v, (bool, int, str, torch.dtype))]
+    if deterministic:
+        short.append("deterministic")
     return f"{name}({', '.join(short)})"
 
 
@@ -270,6 +403,8 @@ class Program:
             return t.to(device, non_blocking=True, copy=True)
 
         self.inputs = tree_map(on_device, args)
+        if device.type == "cuda":
+            _body_counter(device)
         with _cusolver(device), _capture_stream(device) as stream:
             t0 = time.perf_counter()
             before = _read_counts()
@@ -310,7 +445,9 @@ class ProgramCache:
     static, carry)` returns the callable to call with `args`: on a device
     that runs graphs (`graphed_on`), the `Program` of that key, captured on
     first use; elsewhere `fn` itself with `static` bound, run eagerly on
-    the arguments moved to `device`."""
+    the arguments moved to `device`. The key also holds whether
+    `torch.use_deterministic_algorithms` is on: a graph replays the
+    kernels it captured, so the two modes get programs of their own."""
 
     def __init__(self):
         self._programs: Dict = {}
@@ -326,14 +463,17 @@ class ProgramCache:
         device = torch.device(device)
         if not graphed_on(device):
             return functools.partial(_eager, fn, static, device)
-        key = (fn, tuple(sorted(static.items())), _signature(args), device)
+        det = torch.are_deterministic_algorithms_enabled()
+        key = (fn, tuple(sorted(static.items())), _signature(args), device,
+               det)
         prog = self._programs.get(key)
         if prog is None:
             if device not in self._pools:
                 self._pools[device] = (torch.cuda.graph_pool_handle()
                                        if device.type == "cuda" else None)
             prog = self._programs[key] = Program(
-                fn, args, static, carry, device, self._pools[device], label)
+                fn, args, static, carry, device, self._pools[device],
+                label or _label(fn, static, det))
         return prog
 
 
@@ -342,9 +482,13 @@ def stats() -> dict:
     `graphs_captured` (one record a capture: its warm-up and capture
     seconds), `capture_s` (both, summed), `graph_pool_mb`
     (`pool_mb`), `replays`, and the registered kernels' launches made by
-    replays and by the warm-up runs before captures."""
+    replays and by the warm-up runs before captures; `if_nodes`, the
+    `run_if` nodes captured, and `if_bodies_run`, the recorded bodies the
+    replays ran (a read of the device counters)."""
     caps = list(_STATS["captures"])
     return {"graphs_captured": caps,
+            "if_nodes": _STATS["if_nodes"],
+            "if_bodies_run": sum(int(t) for t in _BODIES.values()),
             "capture_s": sum(c["warm_up_s"] + c["s"] for c in caps),
             "graph_pool_mb": pool_mb(),
             "replays": _STATS["replays"],

@@ -52,7 +52,7 @@ def test_stream_replayed_equals_eager(sim):
     assert sum("host_seeds=True" in k for k in mega) == 1
     assert len(mega) == 3 and set(mega) <= set(keys)
     assert sorted(k.split("(")[0] for k in set(keys) - set(mega)) == [
-        "marg_prior", "window_solve", "window_solve"]
+        "marg_prior", "window_solve", "window_solve", "window_solve"]
     assert len(keys) == len(set(keys))
     assert replays > vio_r.counts["megastep"] + vio_r.counts["sync_solve"]
     # the rebound gravity is what every megastep program last read

@@ -27,7 +27,7 @@ def sim():
 def test_sync_path_replayed_equals_eager(sim):
     """Every frame solved by the replayed window program, the prior built
     by one program at knot shifts 2 and 4, the bootstrap's predict by a
-    third: the same poses, trajectory, keyframes and statistics as the
+    third and its f64 BA by a fourth: the same poses, trajectory, keyframes and statistics as the
     eager run, bit for bit. Both runs rebind the gravity tensor at frame
     2, after the programs were captured; the programs read the new one.
     A second estimator of the same configuration captures nothing and
@@ -46,13 +46,13 @@ def test_sync_path_replayed_equals_eager(sim):
     assert_same_estimate(vio_r, vio_e)
     assert np.array_equal(poses_2, poses_e)
     assert_same_estimate(vio_2, vio_e)
-    assert sorted(keys) == sorted(progs) and len(progs) == 3
+    assert sorted(keys) == sorted(progs) and len(progs) == 4
     assert sorted(k.split("(")[0] for k in keys) == [
-        "marg_prior", "window_solve", "window_solve"]
+        "marg_prior", "window_solve", "window_solve", "window_solve"]
     solve = next(p for k, p in progs.items() if "restore=True" in k)
     # the rebound gravity, 1e-4 above the bootstrap's, is what the window
     # program last read
     assert torch.equal(solve.inputs[3], vio_2._gravity_j)
     assert not torch.equal(vio_2._gravity_j,
                            torch.tensor(vio_2.gravity, dtype=torch.float64))
-    assert replays == (vio_r.counts["sync_solve"] + len(shifts_r) + 1)
+    assert replays == (vio_r.counts["sync_solve"] + len(shifts_r) + 2)

@@ -166,7 +166,7 @@ def test_fac1_equals_solve_window_fixed(port):
     all-reduce over one rank: bit for bit the same result."""
     z = port[0]
     keys = [k for k in z if k.startswith("fac1.")]
-    assert len(keys) == 10
+    assert len(keys) == 11  # 6 params, 5 statistics (with iters)
     for k in keys:
         np.testing.assert_array_equal(z[k], z["fixed." + k[5:]], k)
 
@@ -177,6 +177,6 @@ def test_cg_option_keeps_chol(port):
     result equals the chol one exactly."""
     for z in port:
         keys = [k for k in z if k.startswith("solve_cg.")]
-        assert len(keys) == 10
+        assert len(keys) == 11  # 6 params, 5 statistics (with iters)
         for k in keys:
             np.testing.assert_array_equal(z[k], z["solve." + k[9:]], k)

@@ -14,7 +14,10 @@ graph does not give fails here as it would on the card:
   output across calls sees it overwritten, and a caller that rebinds an
   input in place of copying into it is not seen. Kernel launch counts made
   while the function runs are taken back: the program adds the launches
-  it holds, as on the card.
+  it holds, as on the card;
+- `graphs.run_if` records its body at "capture" and, on "replay", runs it
+  only where its predicate is true, as a CUDA-graph IF node does; the
+  bodies run and skipped on replays are counted (`IF_COUNTS`).
 """
 
 import contextlib
@@ -26,20 +29,51 @@ import torch
 from ctrlvio_tpu_torch.estimator import odometry
 from ctrlvio_tpu_torch.estimator.initializer import bootstrap_from_sim
 from ctrlvio_tpu_torch.estimator.odometry import CtrlVIO, VIOConfig
+from ctrlvio_tpu_torch.frontend import tracker as tracker_mod
 from ctrlvio_tpu_torch.ops import so3np
+from ctrlvio_tpu_torch.parallel import batch
 from ctrlvio_tpu_torch.sim import synthetic
 from ctrlvio_tpu_torch.solver.layout import WindowConfig
 from ctrlvio_tpu_torch.utils import graphs
 
 
+# run_if bodies on replays: run (predicate true) and skipped (false), and
+# the nodes recorded by captures
+IF_COUNTS = {"run": 0, "skipped": 0, "nodes": 0}
+_MODE = [None]  # "capture" or "replay" while the stand-in runs a body
+
+
+def standin_run_if(pred, body, carry):
+    if _MODE[0] == "replay":
+        if bool(pred):
+            IF_COUNTS["run"] += 1
+            body(carry)
+        else:
+            IF_COUNTS["skipped"] += 1
+        return
+    if _MODE[0] == "capture":
+        IF_COUNTS["nodes"] += 1
+    body(carry)
+
+
+@contextlib.contextmanager
+def _mode(mode):
+    _MODE[0] = mode
+    try:
+        yield
+    finally:
+        _MODE[0] = None
+
+
 def standin_capture(body, inputs, device, pool, stream):
-    out = body(graphs.clone(inputs))
+    with _mode("capture"):
+        out = body(graphs.clone(inputs))
     for t in graphs.leaves(out):
         if t.is_floating_point():
             t.fill_(float("nan"))
 
     def replay():
-        with graphs.held_launches():
+        with graphs.held_launches(), _mode("replay"):
             new = body(inputs)
         for o, n in zip(graphs.leaves(out), graphs.leaves(new)):
             o.copy_(n)
@@ -50,13 +84,17 @@ def standin_capture(body, inputs, device, pool, stream):
 @contextlib.contextmanager
 def replayed_programs():
     """Inside, programs are captured and replayed through the stand-in on
-    the CPU, with a fresh process-wide cache of the synchronous path's
-    programs and fresh counts."""
+    the CPU, with fresh process-wide caches (the synchronous path's, the
+    batched solver's, the classic tracker's) and fresh counts."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(graphs, "graphed_on", lambda device: True)
         mp.setattr(graphs, "capture", standin_capture)
+        mp.setattr(graphs, "run_if", standin_run_if)
         mp.setattr(odometry, "_SYNC_PROGRAMS", graphs.ProgramCache())
+        mp.setattr(batch, "_PROGRAMS", graphs.ProgramCache())
+        mp.setattr(tracker_mod, "_PROGRAMS", graphs.ProgramCache())
         graphs.reset_counts()
+        IF_COUNTS.update(run=0, skipped=0, nodes=0)
         yield
 
 
