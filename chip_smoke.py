@@ -7,8 +7,8 @@ Phases, each printed as one JSON line:
                then the textured frames of phase 7 start rendering in a
                separate process (host numpy, minutes) beside phases 2-6;
   2. build   - every hand-written kernel compiled from the repo's sources
-               (K1, and the LM exit node's set kernel), and the native
-               feature table's host library (g++);
+               (K1, the LM exit node's set kernel, K2 and K3), and the
+               native feature table's host library (g++);
   3. k1_level - the LK kernel's one-level case against its plain PyTorch
                version at the main path's shapes (each of the three pyramid
                levels of a 1280x1024 pair);
@@ -21,6 +21,13 @@ Phases, each printed as one JSON line:
                track (`KLTConfig`'s default pred_levels);
                then if_node: the LM's exit node (`graphs.run_if`, the set
                kernel of `csrc/graph_cond.cu`) against its plain select;
+               then factor_kernels: K2 and K3 (`csrc/factors.cu`, every
+               image and IMU factor's rows, residuals and cost in one
+               launch each) against their plain versions at e2e's and
+               batch's windows (a window of the e2e sequence, perturbed),
+               f32 and f64, marg_mode off and on, and vmapped over 8
+               lanes equal to each lane's own launch bit for bit; times
+               by graph replay, the plain versions' times, the bounds;
   5. main    - the image-in path of `bench.py --mode image --scene blobs`:
                4 s of rendered 1280x1024 Kannala-Brandt rolling-shutter frames
                through the port's FusedTracker, rotation_flow and the
@@ -48,8 +55,13 @@ Phases, each printed as one JSON line:
                more streamed frames, no synchronous window solve after the
                warmup handoff, and no synchronizing CUDA call inside any
                streamed dispatch; per-frame times (warmup and streamed
-               apart), sustained fps, the estimator's phases and a
-               torch.profiler trace of one streamed frame;
+               apart), sustained fps, the estimator's phases, a
+               torch.profiler trace of one streamed frame, and one
+               megastep run eagerly and profiled by stage range (image
+               and IMU factors, normal equations, Schur solve, retract,
+               QR prior, slide: device ms and operations each; each
+               factor range one K2 or K3 launch and at most 4 other
+               device operations a call);
   7. image_textured - `bench.py --mode image` as its chip preset runs it,
                its 12 s cut to 10 s of the textured ray-cast scene
                (moving occluders, photometric drift, pixel noise) through
@@ -128,7 +140,9 @@ Phases, each printed as one JSON line:
                B = 8; `main` and `e2e` (LM exit nodes inside) and the
                batched solver bit for bit, the rest within the gpu tests'
                tolerances, ATE within 1 mm, host ms a frame both ways;
- 14. kernels - one line listing every kernel with launches, error and times.
+ 14. kernels - one line listing every kernel with launches, error and times
+               (K2 and K3 with their launches on every path; every path
+               must have launched both).
 Every path runs as the port runs on the card: each per-frame program (the
 streamed and batched megasteps, the synchronous solve, prior and predict,
 the f64 bootstrap BA, the fused front end, the classic tracker's four
@@ -176,6 +190,7 @@ from ctrlvio_tpu_torch.frontend import klt
 from ctrlvio_tpu_torch.frontend import tracker as tracker_mod
 from ctrlvio_tpu_torch.frontend.fused import FusedTracker, rotation_flow
 from ctrlvio_tpu_torch.frontend.tracker import FeatureTracker, TrackerConfig
+from ctrlvio_tpu_torch.ops import factor_kernels as fk
 from ctrlvio_tpu_torch.ops import lk, so3np
 from ctrlvio_tpu_torch.parallel import batch, multihost, sharded_lm
 from ctrlvio_tpu_torch.parallel import mesh as pmesh
@@ -207,10 +222,24 @@ def emit(obj):
 
 
 def reset_counts():
-    """Zero K1's launch counts and the captured programs' records, just
-    before a phase drives its path."""
+    """Zero K1's, K2's and K3's launch counts and the captured programs'
+    records, just before a phase drives its path."""
     lk.reset_counts()
+    fk.reset_counts()
     graphs.reset_counts()
+
+
+def factor_fields(counts=None):
+    """K2's and K3's launches in a phase (`factor_kernels.counts()` of this
+    process, or `counts` from a subprocess's stats line), and the runs of
+    their plain versions. A launch recorded into a captured program counts
+    on each replay, inside an IF node's body too (so also where the node
+    skips the body)."""
+    c = counts or fk.counts()
+    return {"k2_launches": c["image_factor_rows"],
+            "k3_launches": c["imu_factor_rows"],
+            "plain_factor_calls": c["image_factor_rows_plain"]
+            + c["imu_factor_rows_plain"]}
 
 
 def graph_fields(st=None):
@@ -353,7 +382,7 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    names = ["lk", "graph_cond"]
+    names = ["lk", "graph_cond", "factors"]
     paths = cuda_build.build(names)
     for n in names:
         cuda_build.load(n)
@@ -682,6 +711,269 @@ def phase_k1_track():
             "two_levels": case("two_levels")}
 
 
+# K2 and K3 (`csrc/factors.cu`) at the windows of the e2e phase and of the
+# batch phase, each held to its plain version within FACTOR_TOL of each
+# output's largest entry
+FACTOR_WINDOWS = {
+    "e2e": WindowConfig(KW=32, NB=11, LM=256, OBS=768, MIMU=256),
+    "batch": WindowConfig(KW=48, NB=11, LM=256, OBS=768, MIMU=512)}
+FACTOR_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
+FACTOR_LANES = 8
+# operations a factor slot, estimated from `csrc/factors.cu`: K2 ~2.1k for
+# each of its two observation times (blending, deltas, rotation and
+# per-knot Jacobians, positions, velocity), ~0.6k for the residual and its
+# blocks, ~2 a row entry (2 x 259); K3 12 dual passes of ~0.7k dual
+# operations (~3 real operations each) and ~2 a row entry (6 x 259)
+K2_OPS_SLOT = 6000
+K3_OPS_SLOT = 28000
+# H100 SXM f64 rate outside the tensor cores (NVIDIA data sheet)
+F64_FLOP_PER_S = 34e12
+
+
+def e2e_sequence():
+    """The e2e phase's sequence (`reference_noise(duration=12,
+    n_landmarks=300, seed=3)`), made once a process."""
+    global _E2E_SIM
+    if _E2E_SIM is None:
+        _E2E_SIM = synthetic.generate(synthetic.reference_noise(
+            duration=12.0, n_landmarks=300, seed=3, speed=1.0))
+    return _E2E_SIM
+
+
+_E2E_SIM = None
+
+
+def factor_window(cfg, dtype, device, seed=7):
+    """A window of the e2e sequence at `cfg`: its first NB frames as
+    keyframes, every track packed from its first frame, the IMU samples
+    from the first keyframe to 40 ms past the last, perturbed as
+    `tests/test_torch_solver.py::build_problem` perturbs its window (depths
+    by 20 %, the active knots by 0.02 rad and 0.02 m, biases, the line
+    delay at 0.7 of its value; `seed` draws them). Returns (params, img,
+    imu, ext, gravity, imu_info, sqrt_info_img) on `device` in `dtype`
+    (indices int64, as the estimator uploads them)."""
+    from ctrlvio_tpu_torch.estimator import packing
+    from ctrlvio_tpu_torch.ops.factors import CamExtrinsics
+    from ctrlvio_tpu_torch.solver.layout import WindowParams
+    from ctrlvio_tpu_torch.utils.convert import from_numpy, tensor
+
+    sim = e2e_sequence()
+    frames = sim.frames[: cfg.NB]
+    kf_t_ns = np.array([f.t_ns for f in frames], dtype=np.int64)
+    tracks = {}
+    for fidx, fr in enumerate(frames):
+        for k, lid in enumerate(fr.ids):
+            tr = tracks.get(lid)
+            if tr is None:
+                tr = tracks[lid] = packing.FeatureTrack(int(lid), fidx)
+            elif tr.end_frame != fidx - 1:
+                continue
+            tr.pts.append(fr.pts[k])
+            tr.rows.append(float(fr.rows[k]))
+    q_CtoI = so3np.quat_exp(np.array(sim.cfg.ext_rot, np.float64))
+    R_CtoI = so3np.quat_to_matrix(q_CtoI[None])[0]
+    p_CinI = np.array(sim.cfg.ext_pos)
+    rng = np.random.default_rng(seed)
+    for lid, tr in tracks.items():
+        t_row = (kf_t_ns[tr.start_frame] * 1e-9
+                 + tr.rows[0] * sim.cfg.line_delay)
+        q, p = sim.pose_at(t_row)
+        R = so3np.quat_to_matrix(q[None])[0]
+        X_c = R_CtoI.T @ (R.T @ (sim.landmarks[lid] - p) - p_CinI)
+        tr.estimated_depth = X_c[2] * (1.0 + 0.2 * rng.normal())
+    npdt = np.float64 if dtype == torch.float64 else np.float32
+    img, dinv0, _ = packing.pack_image_factors(
+        list(tracks.values()), kf_t_ns, cfg.dt, 0, cfg, dtype=npdt)
+    t_hor = int(kf_t_ns[-1] + 0.04e9)
+    imu = packing.pack_imu_factors(sim.imu_t_ns, sim.gyro, sim.accel,
+                                   kf_t_ns, int(kf_t_ns[0]), t_hor, cfg.dt,
+                                   0, cfg, dtype=npdt)
+    n_active = int(np.ceil(t_hor * 1e-9 / cfg.dt)) + 3
+    dq = rng.normal(size=(cfg.KW, 3)) * 0.02
+    dp = rng.normal(size=(cfg.KW, 3)) * 0.02
+    dq[:4] = dp[:4] = 0.0
+    dq[n_active:] = dp[n_active:] = 0.0
+
+    def t(x):
+        return tensor(np.asarray(x, np.float64), device, dtype)
+
+    params = WindowParams(
+        knots_q=t(so3np.boxplus(sim.knots_q[: cfg.KW], dq)),
+        knots_p=t(sim.knots_p[: cfg.KW] + dp),
+        bg=t(rng.normal(size=(cfg.NB, 3)) * 1e-3),
+        ba=t(rng.normal(size=(cfg.NB, 3)) * 1e-2), dinv=t(dinv0),
+        ld=t(sim.cfg.line_delay * 0.7))
+    ext = CamExtrinsics(q_CtoI=t(q_CtoI), p_CinI=t(p_CinI))
+    return (params, from_numpy(img, device, dtype),
+            from_numpy(imu, device, dtype), ext, t(sim.gravity_vec),
+            t([250.0] * 3 + [12.5] * 3), t(800.0))
+
+
+def factor_calls(window, cfg, marg_mode):
+    """(K2 call, K2 plain call, K3 call, K3 plain call) on `window` as
+    `assemble.linearize` makes them, marg_mode as it takes it."""
+    params, img, imu, ext, grav, info, w = window
+    act_i = (img.valid & img.marg_drop) if marg_mode else img.valid
+    act_m = (imu.valid & imu.marg_drop) if marg_mode else imu.valid
+    c = 1.0 if marg_mode else SolveOptions().cauchy_c
+
+    def k2(f=fk.image_factor_rows):
+        return f(params, img, act_i, ext, w, c, cfg)
+
+    def k3(f=fk.imu_factor_rows):
+        return f(params, imu, act_m, grav, info, cfg)
+
+    return (k2, lambda: k2(fk.image_factor_rows_plain), k3,
+            lambda: k3(fk.imu_factor_rows_plain))
+
+
+def rel_err(got, ref):
+    """Largest deviation of each output from its plain version, over that
+    output's largest entry."""
+    return max(float((a.double() - b.double()).abs().max())
+               / max(float(b.double().abs().max()), 1e-30)
+               for a, b in zip(got, ref))
+
+
+def abs_err(got, ref):
+    return max(float((a.double() - b.double()).abs().max())
+               for a, b in zip(got, ref))
+
+
+def factor_bound_ms(inputs, outputs, ops, dtype):
+    """The least time for a launch: each input read once and each output
+    written once over the HBM rate, or its operations over the card's
+    rate for `dtype`; the larger, and which it is."""
+    byts = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
+    rate = F64_FLOP_PER_S if dtype == torch.float64 else F32_FLOP_PER_S
+    t_bytes = byts / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / rate * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "bytes": byts, "operations": ops}
+
+
+def phase_factor_kernels():
+    """K2 and K3 against their plain versions on the card, at e2e's window
+    and batch's, in f32 (the per-frame solve) and f64 (the bootstrap BA,
+    the host-side prior, the residual summary), with `marg_mode` off and
+    on: every output within FACTOR_TOL of its largest entry, one launch
+    counted a call; unbatched, and under torch.func.vmap over
+    FACTOR_LANES windows (each lane its own perturbation of the window,
+    the constants shared): one launch, every lane equal bit for bit to
+    its own unbatched launch. Int32 indices give int64's results bit for
+    bit. Times: `ms` by CUDA events over the replay of a graph of launches
+    (the card's time a launch), `call_ms` by events over back-to-back
+    calls (with the host's dispatch), `plain_ms` the plain version's by
+    events over back-to-back calls, `plain_graph_ms` by a graph's replay
+    (what a captured solve paid for it before these kernels);
+    `vmapped_ms` one launch over the lanes by a graph's replay."""
+    dev = torch.device("cuda")
+    out = {}
+    for name, cfg in FACTOR_WINDOWS.items():
+        for dtype in (torch.float32, torch.float64):
+            window = factor_window(cfg, dtype, dev)
+            params, img, imu = window[:3]
+            lanes = [factor_window(cfg, dtype, dev, seed=7 + k)
+                     for k in range(FACTOR_LANES)]
+            stacked = [batch.stack([w[k] for w in lanes]) for k in range(3)]
+            rec = {"phase": "factor_kernels", "window": name,
+                   "cfg": dict(cfg._asdict()), "dtype": str(dtype),
+                   "image_slots_valid": int(img.valid.sum()),
+                   "image_slots_marg": int((img.valid & img.marg_drop).sum()),
+                   "imu_slots_valid": int(imu.valid.sum())}
+            for kname, idx, ops in (("k2", 0, K2_OPS_SLOT * cfg.OBS),
+                                    ("k3", 2, K3_OPS_SLOT * cfg.MIMU)):
+                counter = (fk.image_factor_rows if kname == "k2"
+                           else fk.imu_factor_rows)
+                k = {"rel_err": {}, "abs_err": {}, "counted": True}
+                for marg in (False, True):
+                    calls = factor_calls(window, cfg, marg)
+                    n0 = counter.launches
+                    got = calls[idx]()
+                    k["counted"] &= counter.launches == n0 + 1
+                    ref = calls[idx + 1]()
+                    torch.cuda.synchronize()
+                    key = "marg" if marg else "solve"
+                    k["rel_err"][key] = rel_err(got, ref)
+                    k["abs_err"][key] = abs_err(got, ref)
+                # vmapped over the lanes against each lane's own launch
+                side = window[3:]
+
+                def vmapped(p, fa, kname=kname, side=side):
+                    if kname == "k2":
+                        return fk.image_factor_rows(
+                            p, fa, fa.valid, side[0], side[3],
+                            SolveOptions().cauchy_c, cfg)
+                    return fk.imu_factor_rows(p, fa, fa.valid, side[1],
+                                              side[2], cfg)
+
+                fa_idx = 1 if kname == "k2" else 2
+                n0 = counter.launches
+                got_b = torch.func.vmap(vmapped)(stacked[0],
+                                                 stacked[fa_idx])
+                k["vmapped_launches"] = counter.launches - n0
+                each = [vmapped(w[0], w[fa_idx]) for w in lanes]
+                k["vmapped_equal"] = all(
+                    torch.equal(got_b[f][ln], each[ln][f])
+                    for ln in range(FACTOR_LANES) for f in range(len(got_b)))
+                if kname == "k2" and dtype == torch.float32:
+                    # the same window with int32 indices
+                    img32 = img._replace(**{f: getattr(img, f).to(torch.int32)
+                                            for f in ("i0_i", "i0_j",
+                                                      "lm_idx")})
+                    a = fk.image_factor_rows(params, img32, img.valid,
+                                             *window[3:4], window[6],
+                                             SolveOptions().cauchy_c, cfg)
+                    b = fk.image_factor_rows(params, img, img.valid,
+                                             *window[3:4], window[6],
+                                             SolveOptions().cauchy_c, cfg)
+                    k["int32_equal"] = all(torch.equal(x, y)
+                                           for x, y in zip(a, b))
+                calls = factor_calls(window, cfg, False)
+                k["ms"] = graph_ms(calls[idx], 20)
+                k["call_ms"] = time_cuda(calls[idx], 50)
+                k["plain_ms"] = time_cuda(calls[idx + 1], 5)
+                k["plain_graph_ms"] = graph_ms(calls[idx + 1], 2)
+                k["vmapped_ms"] = graph_ms(lambda: torch.func.vmap(vmapped)(
+                    stacked[0], stacked[fa_idx]), 10)
+                res = calls[idx]()
+                ins = (fk.image_inputs(params, img, img.valid, window[3],
+                                       window[6]) if kname == "k2" else
+                       fk.imu_inputs(params, imu, imu.valid, window[4],
+                                     window[5]))
+                k.update(factor_bound_ms(ins, res, ops, dtype))
+                rec[kname] = k
+            emit(rec)
+            out[(name, str(dtype))] = rec
+            tol = FACTOR_TOL[dtype]
+            for kname in ("k2", "k3"):
+                k = rec[kname]
+                if not (max(k["rel_err"].values()) <= tol and k["counted"]
+                        and k["vmapped_launches"] == 1
+                        and k["vmapped_equal"]
+                        and k.get("int32_equal", True)):
+                    raise SystemExit(f"{kname.upper()} disagrees with its "
+                                     f"plain version (within {tol} of the "
+                                     f"largest entry, one launch a call, "
+                                     f"vmapped equal to its lanes): {rec}")
+
+    def summary(kname):
+        main = out[("e2e", str(torch.float32))][kname]
+        return {"max_abs_err": max(main["abs_err"].values()),
+                "max_rel_err": max(max(r[kname]["rel_err"].values())
+                                   for r in out.values()),
+                **{f: main[f] for f in ("ms", "call_ms", "plain_ms",
+                                        "plain_graph_ms", "vmapped_ms",
+                                        "bound_ms", "bound_by")},
+                "f64": {f: out[("e2e", str(torch.float64))][kname][f]
+                        for f in ("ms", "plain_ms", "bound_ms")},
+                "batch_window": {f: out[("batch", str(torch.float32))][kname][f]
+                                 for f in ("ms", "plain_ms", "bound_ms")}}
+
+    return {"k2": summary("k2"), "k3": summary("k3")}
+
+
 def image_sim(duration, n_landmarks, speed=1.0):
     """`bench.py --mode image`'s sequence: reference IMU noise without the
     simulator's pixel noise (the images carry their own), seed 3; `speed`
@@ -790,6 +1082,99 @@ def device_share(prof, prof_s, frame_ms):
                               for e in top}}
 
 
+# the record_function ranges of the megastep and the window solve
+# (`solver/assemble.py`, `solver/lm.py`, `estimator/stream.py`), and the
+# kernel each factor range launches
+STAGES = ("image factors", "IMU factors", "normal equations", "Schur solve",
+          "retract", "QR prior", "slide")
+STAGE_KERNELS = {"image factors": "image_rows_kernel",
+                 "IMU factors": "imu_rows_kernel"}
+STAGE_OTHER_OPS = 4
+
+
+def stage_split(prof):
+    """Per range of STAGES in a torch.profiler trace with CPU and CUDA
+    activity: its calls, the device operations launched from inside it
+    (kernels, copies, sets) and their device ms, nested ranges counted in
+    each one that holds them; for the factor ranges the launches of their
+    kernel and the most other device operations in one call. A device
+    operation belongs to the host op that launched it (the profiler's
+    correlation), and so to every range open on that op's thread when it
+    started."""
+    cuda = torch.autograd.DeviceType.CUDA
+    front, dev, ranges = {}, [], []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            if e.name() not in STAGES:
+                dev.append(e)
+        elif e.linked_correlation_id() == 0:
+            front[e.correlation_id()] = (e.start_thread_id(), e.start_ns())
+            if e.name() in STAGES:
+                ranges.append((e.name(), e.start_thread_id(), e.start_ns(),
+                               e.start_ns() + e.duration_ns()))
+    held = [[] for _ in ranges]
+    unlinked = 0
+    for d in dev:
+        src = front.get(d.linked_correlation_id())
+        if src is None:
+            unlinked += 1
+            continue
+        for i, (_, tid, a, b) in enumerate(ranges):
+            if tid == src[0] and a <= src[1] <= b:
+                held[i].append(d)
+    out = {n: {"calls": 0, "device_ops": 0, "device_ms": 0.0}
+           for n in STAGES}
+    for (n, *_), ds in zip(ranges, held):
+        rec = out[n]
+        rec["calls"] += 1
+        rec["device_ops"] += len(ds)
+        rec["device_ms"] += sum(d.duration_ns() for d in ds) * 1e-6
+        kern = STAGE_KERNELS.get(n)
+        if kern is not None:
+            k = sum(kern in d.name() for d in ds)
+            rec["kernel_launches"] = rec.get("kernel_launches", 0) + k
+            rec["min_kernel_launches_per_call"] = min(
+                rec.get("min_kernel_launches_per_call", k), k)
+            rec["max_other_ops_per_call"] = max(
+                rec.get("max_other_ops_per_call", 0), len(ds) - k)
+    return {"ranges": out, "device_ops": len(dev),
+            "device_ms": sum(d.duration_ns() for d in dev) * 1e-6,
+            "unlinked_device_ops": unlinked}
+
+
+def eager_megastep_stages(prog):
+    """A streamed megastep's program (`prog`) run once eagerly on copies of
+    its inputs (after one eager warm run), profiled with CPU and CUDA
+    activity: `stage_split` of it, and its host seconds. A replayed graph
+    carries no host ranges; the eager run computes what the replay does,
+    every LM iteration included (eagerly the IF nodes' bodies all run)."""
+    prog.run_eagerly(graphs.clone(prog.inputs))
+    torch.cuda.synchronize()
+    inputs = graphs.clone(prog.inputs)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        prog.run_eagerly(inputs)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec = stage_split(prof)
+    rec.update(host_s=host_s, analysis_s=time.perf_counter() - t0)
+    return rec
+
+
+def stages_hold_their_kernels(st):
+    """Each factor range's every call launched its kernel once and at most
+    STAGE_OTHER_OPS other device operations."""
+    return all(st["ranges"][n]["calls"] > 0
+               and st["ranges"][n]["min_kernel_launches_per_call"] == 1
+               and st["ranges"][n]["kernel_launches"]
+               == st["ranges"][n]["calls"]
+               and st["ranges"][n]["max_other_ops_per_call"]
+               <= STAGE_OTHER_OPS for n in STAGE_KERNELS)
+
+
 def sync(device):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
@@ -821,6 +1206,7 @@ def phase_main():
     launches = lk.lk_track.launches
     level_launches = lk.lk_level.launches
     plain_calls = lk.lk_level_plain.calls + lk.lk_track_plain.calls
+    fc = factor_fields()
     g = graph_fields()
     its = iters_fields([run["vio"].lm_iters_record()], g)
     replayed = replay_times(program(odometry._SYNC_PROGRAMS, "window_solve",
@@ -848,7 +1234,7 @@ def phase_main():
                run["prof"], run["prof_s"],
                float(np.median(run["t_feat"] + run["t_est"])) * 1e3),
            "captures_in_timed_frames": run["captures_in_timed_frames"],
-           "window_solve_replay": replayed, **its, **g}
+           "window_solve_replay": replayed, **fc, **its, **g}
     emit(rec)
     finite = bool(np.isfinite(est).all()) and np.isfinite(vio.traj.line_delay)
     if not (finite and len(est) > 20 and ate < 0.15 and ld_err < 5e-6):
@@ -902,6 +1288,7 @@ def phase_main_marg_dev(main_rec, seq):
     wall = time.perf_counter() - t0
     launches = lk.lk_track.launches
     plain_calls = lk.lk_level_plain.calls + lk.lk_track_plain.calls
+    fc = factor_fields()
     g = graph_fields()
 
     est, gt, vio = run["est"], run["gt"], run["vio"]
@@ -934,7 +1321,8 @@ def phase_main_marg_dev(main_rec, seq):
            "profile_last_frame": device_share(
                run["prof"], run["prof_s"],
                float(np.median(run["t_feat"] + run["t_est"])) * 1e3),
-           "captures_in_timed_frames": run["captures_in_timed_frames"], **g}
+           "captures_in_timed_frames": run["captures_in_timed_frames"],
+           **fc, **g}
     emit(rec)
     finite = bool(np.isfinite(est).all()) and np.isfinite(vio.traj.line_delay)
     if not (finite and len(est) == main_rec["solved"]
@@ -1047,11 +1435,13 @@ def phase_e2e():
     t_flush = time.perf_counter() - t0
     wall = time.perf_counter() - t_run0
     k1_launches = lk.lk_track.launches + lk.lk_level.launches
+    fc = factor_fields()
     g = graph_fields()
     its = iters_fields([vio.lm_iters_record()], g)
     captures = g["graphs_captured_n"] - captures
-    replayed = replay_times(program(vio._programs, "marg_old=True",
-                                    "host_seeds=False"))
+    mega = program(vio._programs, "marg_old=True", "host_seeds=False")
+    replayed = replay_times(mega)
+    stages = eager_megastep_stages(mega)
 
     est, gt = np.asarray(est), np.asarray(gt)
     err = ate_rmse(est[10:], gt[10:], align="yaw")
@@ -1101,7 +1491,8 @@ def phase_e2e():
            if prof is not None and len(streamed) else None,
            "captures_in_timed_frames": captures,
            "bootstrap_s": boot_s,
-           "megastep_replay": replayed, **its, **g}
+           "megastep_replay": replayed, "eager_megastep_stages": stages,
+           **fc, **its, **g}
     emit(rec)
     finite = bool(np.isfinite(est).all()) and np.isfinite(vio.traj.line_delay)
     if not (finite and err < 0.10 and err_post < 0.10 and ld_err < 2e-6):
@@ -1122,6 +1513,11 @@ def phase_e2e():
     if not iters_exact(rec):
         raise SystemExit(f"e2e: the LM's exit nodes did not run exactly the "
                          f"iterations its solves needed: {rec}")
+    if not stages_hold_their_kernels(stages):
+        raise SystemExit(f"e2e: an eager megastep's factor ranges did not "
+                         f"each launch their kernel once and at most "
+                         f"{STAGE_OTHER_OPS} other device operations a "
+                         f"call: {stages}")
     return rec
 
 
@@ -1277,6 +1673,7 @@ def phase_image_textured(render_proc):
     by_levels = dict(lk.lk_track.launches_by_levels)
     plain_calls = lk.lk_level_plain.calls + lk.lk_track_plain.calls
     level_launches = lk.lk_level.launches
+    fc = factor_fields()
     g = graph_fields()
     its = iters_fields([vio.lm_iters_record()], g)
     captures = g["graphs_captured_n"] - captures
@@ -1329,7 +1726,8 @@ def phase_image_textured(render_proc):
            "profile_streamed_frame": device_share(
                prof, prof_s, float(np.median(streamed)) * 1e3)
            if prof is not None and len(streamed) else None,
-           "captures_in_timed_frames": captures, **its, **g}
+           "captures_in_timed_frames": captures, **fc, **its,
+           **g}
     emit(rec)
     finite = bool(np.isfinite(est).all()) and np.isfinite(vio.traj.line_delay)
     if not (finite and len(est) > 20 and ate < 0.15 and ld_err < 5e-6):
@@ -1401,6 +1799,7 @@ def phase_image_classic(sim, imgs_dev, cam):
     by_levels = dict(lk.lk_track.launches_by_levels)
     plain_calls = lk.lk_level_plain.calls + lk.lk_track_plain.calls
     est, gt = np.asarray(est), np.asarray(gt)
+    fc = factor_fields()
     g = graph_fields()
     rec = {"phase": "image_textured_classic", "frames": n,
            "solved": len(est), "published": len(n_pub),
@@ -1423,7 +1822,7 @@ def phase_image_classic(sim, imgs_dev, cam):
            "plain_lk_calls": plain_calls,
            "tracker_programs": sorted(p.label for p in
                                       tracker_mod._PROGRAMS._programs
-                                      .values()), **g}
+                                      .values()), **fc, **g}
     emit(rec)
     if not (len(est) > 0 and bool(np.isfinite(est).all())
             and k1_once_a_frame(launches, g, n - 1)
@@ -1510,6 +1909,7 @@ def phase_serve():
         prof_s = time.perf_counter() - t0
     if coord._n_steps != steps + 1:
         raise SystemExit("serve: the traced last frame ran no batched step")
+    fc = factor_fields()
     dev_ms = coord.device_steady_ms(reps=3)
     flops = coord.cost_analysis()["flops"]
     coord.flush()
@@ -1560,7 +1960,8 @@ def phase_serve():
            "sync_messages": sorted(set(coord.sync_warnings))[:5],
            "k1_launches": k1_launches, "profiled_frame": n_frames - 1,
            "profile_batched_step": profile, "per_lane": lanes,
-           "captures_in_timed_frames": captures, **its, **g}
+           "captures_in_timed_frames": captures, **fc, **its,
+           **g}
     bad = [r for r in lanes if not (r["finite"] and r["ate_m"] < 0.10
                                     and r["ld_err_s"] < 5e-6)]
     if bad:
@@ -1880,6 +2281,17 @@ def check_serve_device_ops(serve, e2e_device_ops):
                          f"frame ({e2e_device_ops})")
 
 
+def check_factor_launches(paths):
+    """Every path launched K2 and K3 (counted through replays)."""
+    bad = {p: {k: r[k] for k in ("k2_launches", "k3_launches",
+                                 "plain_factor_calls")}
+           for p, r in paths.items()
+           if not (r["k2_launches"] > 0 and r["k3_launches"] > 0)}
+    if bad:
+        raise SystemExit(f"paths that did not linearize through K2 and K3: "
+                         f"{bad}")
+
+
 def sim_frames(sims, k):
     """Frame k of every lane's sequence, as BatchedStream.step takes them."""
     return [(s.frames[k].t_ns, s.frames[k].ids, s.frames[k].pts,
@@ -1973,7 +2385,7 @@ def phase_batch():
                   "max_diff_over_chol_decrease":
                       float(np.max(cg_off / (cost0 - results[8])))},
            "k1_launches": lk.lk_track.launches + lk.lk_level.launches,
-           "wall_s": wall, **graph_fields()}
+           "wall_s": wall, **factor_fields(), **graph_fields()}
     rec["calls_all_lanes_done_early"] = sum(r["all_lanes_done_early"]
                                             for r in sweep)
     # one program a B and the CG one, captured once each, replayed by
@@ -2127,6 +2539,7 @@ def phase_multichip():
             dist.destroy_process_group()
     world1_s = time.perf_counter() - t_run0
     world1_graphs = graph_fields()
+    world1_factors = factor_fields()
     t0 = time.perf_counter()
     two = multihost.dryrun_multichip(2, device="cuda", backend="gloo",
                                      cfg=cfg, solve_iters=MULTICHIP_ITERS)
@@ -2153,7 +2566,7 @@ def phase_multichip():
            "two_ranks": two,
            "k1_launches": lk.lk_track.launches + lk.lk_level.launches,
            "world1_s": world1_s, "two_ranks_s": time.perf_counter() - t0,
-           **world1_graphs}
+           **world1_factors, **world1_graphs}
     if not solve_agrees(default_mode["sharded_dev"],
                         default_mode["sharded_dcost_over_cost0"]):
         raise SystemExit(f"multichip: the world-1 sharded solve disagrees "
@@ -2440,6 +2853,7 @@ def phase_cli():
            "k1_level_launches": stats["k1_level_launches"],
            "plain_lk_track_calls": stats["plain_lk_track_calls"],
            "plain_lk_level_calls": stats["plain_lk_level_calls"],
+           **factor_fields(stats["factor_kernels"]),
            "html_bytes": html.stat().st_size,
            "card": card_name_and_power_limit(),
            "timing_s": stats["timing_s"],
@@ -2570,7 +2984,8 @@ def phase_bench():
            "profile_serve_sweep": {"seconds": sweep_s, **sweep},
            "ne_ab": {"seconds": ne_ab_s, **ne_ab},
            "entry": entry_rec, "card": card_name_and_power_limit(),
-           "image_graphs": graph_fields(stats["graphs"])}
+           "image_graphs": graph_fields(stats["graphs"]),
+           "image_factor_kernels": factor_fields(stats["factor_kernels"])}
     if not (list(e2e) == BENCH_E2E_KEYS and e2e["gt"] == "lissajous"
             and e2e["ate_online_cm"] < 10 and e2e["ate_posthoc_cm"] < 10
             and e2e["ld_err_us"] < 2):
@@ -2664,6 +3079,7 @@ def main():
         level = phase_k1_level()
         k1 = phase_k1_track()
         if_node = phase_if_node()
+        factors = phase_factor_kernels()
         # the kernel checks above have the card to themselves
         sides = [start_side("phase_serve", "phase_batch"),
                  start_side("phase_cli"), start_side("phase_multichip"),
@@ -2690,6 +3106,12 @@ def main():
                 proc.terminate()
                 proc.join()
     check_serve_device_ops(serve, e2e["profile_streamed_frame"]["device_ops"])
+    paths = {"main": main_rec, "main_marg_dev": marg_dev, "e2e": e2e,
+             "image_textured": textured, "classic": textured["classic"],
+             "serve": serve, "batch": batched, "cli": cli_rec,
+             "multichip": multichip, "bench_image": bench[
+                 "image_factor_kernels"]}
+    check_factor_launches(paths)
     emit(serve)
     emit(batched)
     emit(cli_rec)
@@ -2732,6 +3154,30 @@ def main():
         "e2e_launches": e2e["if_node_launches_replayed"],
         "textured_launches": textured["if_node_launches_replayed"],
         "serve_launches": serve["if_node_launches_replayed"]}]
+    for kname, name, src, fn in (
+            ("k2", "K2 image_factor_rows", "image", "_image_blocks"),
+            ("k3", "K3 imu_factor_rows", "imu", "_imu_blocks")):
+        k = factors[kname]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "ctrlvio_tpu_torch/csrc/factors.cu",
+            "replaces": ("ctrlvio_tpu/solver/assemble.py:49" if kname == "k2"
+                         else "ctrlvio_tpu/solver/assemble.py:84"),
+            "replaces_note": f"not a TPU kernel: XLA's fusions of the JAX "
+                             f"package's vmapped {fn} and its one-hot "
+                             f"expansion into dense rows",
+            "launches": e2e[f"{kname}_launches"],
+            "max_abs_err": k["max_abs_err"], "max_rel_err": k["max_rel_err"],
+            "ms": k["ms"], "call_ms": k["call_ms"], "plain_ms": k["plain_ms"],
+            "plain_graph_ms": k["plain_graph_ms"],
+            "vmapped_ms": k["vmapped_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": None, "f64": k["f64"],
+            "batch_window": k["batch_window"],
+            "launches_by_path": {p: r[f"{kname}_launches"]
+                                 for p, r in paths.items()},
+            "e2e_range_launches": e2e["eager_megastep_stages"]["ranges"][
+                "image factors" if kname == "k2" else "IMU factors"][
+                "kernel_launches"]})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -14,8 +14,9 @@ card (`--device cuda`, the default; without one it raises) in float32 with
 the streaming pipeline, or with `--device cpu` in float64 with the
 synchronous one; `--stream` forces the stream on. It ends with two stderr
 lines: `[run] frames=...` and `[run] stats {...}`, a JSON object of the
-run's counts (solves, megasteps, bootstraps, K1 launches, synchronizing
-calls with `--check-syncs`), the captured programs (`graphs`: on the
+run's counts (solves, megasteps, bootstraps, K1 launches, the factor
+kernels' launches, synchronizing calls with `--check-syncs`), the captured
+programs (`graphs`: on the
 card, `utils/graphs.py::stats`) and per-frame times.
 """
 
@@ -36,7 +37,7 @@ def _cmd_run(args):
     from ctrlvio_tpu_torch.estimator.odometry import CtrlVIO
     from ctrlvio_tpu_torch.io import dataset
     from ctrlvio_tpu_torch.io.config import load_config
-    from ctrlvio_tpu_torch.ops import lk
+    from ctrlvio_tpu_torch.ops import factor_kernels, lk
     from ctrlvio_tpu_torch.utils import graphs
     from ctrlvio_tpu_torch.utils.device import resolve_device
     from ctrlvio_tpu_torch.utils.export import export_vio_trajectory
@@ -77,6 +78,7 @@ def _cmd_run(args):
             vio.tracker.check_dispatch_syncs = args.check_syncs
 
     lk.reset_counts()
+    factor_kernels.reset_counts()
     graphs.reset_counts()
     frame_s = []
     t0 = time.perf_counter()
@@ -103,6 +105,7 @@ def _cmd_run(args):
         "k1_level_launches": lk.lk_level.launches,
         "plain_lk_track_calls": lk.lk_track_plain.calls,
         "plain_lk_level_calls": lk.lk_level_plain.calls,
+        "factor_kernels": factor_kernels.counts(),
         "graphs": graphs.stats(),
         "lm_iters": vio.lm_iters_record(),
         "timing_s": dict(vio.timing),

@@ -20,7 +20,9 @@ device-resident `DevState`, with no host read inside it:
   asynchronously a few frames later for its numpy mirror.
 
 The marginalization runs on the device in the solver dtype in the QR
-square-root form (`solver/marginalize.py::build_prior_sqrt`).
+square-root form (`solver/marginalize.py::build_prior_sqrt`). The prior
+and the window roll run inside `torch.profiler.record_function` ranges
+("QR prior", "slide").
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ctrlvio_tpu_torch.ops import so3, spline
 from ctrlvio_tpu_torch.solver import assemble, gauge, lm, marginalize
@@ -331,17 +334,19 @@ def _slide_old(state: DevState, p_out: WindowParams, unpacked, ext, gravity,
     # device depth has since failed must not enter the prior
     img_m = img._replace(marg_drop=img.marg_drop
                          & (p_out.dinv[img.lm_idx] > 1e-4))
-    prior_new, ovf = marginalize.build_prior_sqrt(
-        p_out, img_m, imu, bias, state.prior, drop_knots, ext, gravity,
-        imu_info, sqrt_info_img, cfg, opts._replace(cauchy_c=1.0),
-        knot_shift=knot_shift, bias_shift=1, return_overflow=True,
-        caps=caps, n_drop_knots=knot_shift)
-    dinv_sum = _depth_handoff(p_out, img, sc, ext, cfg)
-    new_params = p_out._replace(
-        knots_q=_roll_clamp(p_out.knots_q, knot_shift),
-        knots_p=_roll_clamp(p_out.knots_p, knot_shift),
-        bg=_roll_clamp(p_out.bg, 1), ba=_roll_clamp(p_out.ba, 1),
-        dinv=dinv_sum)
+    with record_function("QR prior"):
+        prior_new, ovf = marginalize.build_prior_sqrt(
+            p_out, img_m, imu, bias, state.prior, drop_knots, ext, gravity,
+            imu_info, sqrt_info_img, cfg, opts._replace(cauchy_c=1.0),
+            knot_shift=knot_shift, bias_shift=1, return_overflow=True,
+            caps=caps, n_drop_knots=knot_shift)
+    with record_function("slide"):
+        dinv_sum = _depth_handoff(p_out, img, sc, ext, cfg)
+        new_params = p_out._replace(
+            knots_q=_roll_clamp(p_out.knots_q, knot_shift),
+            knots_p=_roll_clamp(p_out.knots_p, knot_shift),
+            bg=_roll_clamp(p_out.bg, 1), ba=_roll_clamp(p_out.ba, 1),
+            dinv=dinv_sum)
     return (DevState(params=new_params, prior=prior_new), dinv_sum,
             ovf.to(p_out.knots_p.dtype))
 
@@ -355,10 +360,11 @@ def _slide_second_new(state: DevState, p_out: WindowParams,
     def drop_second_new(b):
         return torch.cat([b[: nb - 2], b[nb - 1:], b[nb - 1:]])
 
-    new_params = p_out._replace(bg=drop_second_new(p_out.bg),
-                                ba=drop_second_new(p_out.ba))
-    zeros = torch.zeros((3,), dtype=p_out.knots_p.dtype,
-                        device=p_out.knots_p.device)
+    with record_function("slide"):
+        new_params = p_out._replace(bg=drop_second_new(p_out.bg),
+                                    ba=drop_second_new(p_out.ba))
+        zeros = torch.zeros((3,), dtype=p_out.knots_p.dtype,
+                            device=p_out.knots_p.device)
     return DevState(params=new_params, prior=state.prior), p_out.dinv, zeros
 
 

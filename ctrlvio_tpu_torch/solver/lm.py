@@ -19,7 +19,9 @@ that iteration body:
   run, the frozen ones changing nothing. Every captured solve uses it.
 
 `SolveStats.iters` is the iteration at which `done` was set, or
-`max_iters` (≙ the JAX loop's `it` carry at its exit).
+`max_iters` (≙ the JAX loop's `it` carry at its exit). The normal
+equations, the Schur solve and the retraction run inside
+`torch.profiler.record_function` ranges of those names.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+from torch.profiler import record_function
 
 from ctrlvio_tpu_torch.utils import graphs
 
@@ -196,6 +199,10 @@ def _setup(params: WindowParams, img: ImageFactors, imu: ImuFactors,
     A_p = Pm.T @ prior.J
 
     def ne_at(p):
+        with record_function("normal equations"):
+            return _ne(p)
+
+    def _ne(p):
         if ne_mode == "dense":
             lin = assemble.linearize(p, img, imu, bias, prior, ext, gravity,
                                      imu_info, sqrt_info_img, cfg, opts)
@@ -221,10 +228,12 @@ def _trial(p, ne, cost, lam, cmask, lm_mask, ne_at, cfg: WindowConfig,
            opts: SolveOptions):
     """One LM iteration's trial step from p: (trial params, its normal
     equations, its cost, device bool `accept`)."""
-    dx, dx_lm = schur_solve(*ne, lam, cmask, solver=opts.solver,
-                            cg_iters=opts.cg_iters)
-    trial = retract(p, dx, cfg, opts)
-    trial = trial._replace(dinv=p.dinv + dx_lm * lm_mask)
+    with record_function("Schur solve"):
+        dx, dx_lm = schur_solve(*ne, lam, cmask, solver=opts.solver,
+                                cg_iters=opts.cg_iters)
+    with record_function("retract"):
+        trial = retract(p, dx, cfg, opts)
+        trial = trial._replace(dinv=p.dinv + dx_lm * lm_mask)
     ne_t, cost_t = ne_at(trial)
     accept = (cost_t < cost) & torch.isfinite(cost_t)
     return trial, ne_t, cost_t, accept

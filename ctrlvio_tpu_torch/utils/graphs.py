@@ -403,6 +403,7 @@ class Program:
             return t.to(device, non_blocking=True, copy=True)
 
         self.inputs = tree_map(on_device, args)
+        self._body, self._device = body, device
         if device.type == "cuda":
             _body_counter(device)
         with _cusolver(device), _capture_stream(device) as stream:
@@ -424,6 +425,15 @@ class Program:
             "warm_up_s": t1 - t0, "s": time.perf_counter() - t1,
             "reserved_mb_before": mb0,
             "reserved_mb_after": _reserved_mb(device)})
+
+    def run_eagerly(self, inputs):
+        """The captured function run op by op on `inputs` (a tree shaped
+        like `self.inputs`; with `carry`, its state is updated in place),
+        as the warm-up before the capture runs it: what a replay computes,
+        with each op and `torch.profiler.record_function` range on the
+        host, where a profiler can attribute the card's work to them."""
+        with _cusolver(self._device):
+            return self._body(inputs)
 
     def __call__(self, *args):
         for buf, a in zip(leaves(self.inputs), leaves(args)):

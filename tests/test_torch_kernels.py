@@ -1,5 +1,5 @@
 """The port's hand-written CUDA kernels on the card, against their plain
-PyTorch versions. Every test here needs a CUDA device and skips without
+PyTorch versions: K1 (`csrc/lk.cu`), K2 and K3 (`csrc/factors.cu`). Every test here needs a CUDA device and skips without
 one. The file imports neither JAX nor the JAX package, so that it runs on
 a machine that has only PyTorch:
 
@@ -11,10 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (CASE_LEVELS, SEARCH_MARGIN, TRACK_CASES,
-                         textured_pair, track_case)
+from chip_smoke import (CASE_LEVELS, FACTOR_TOL, FACTOR_WINDOWS,
+                        SEARCH_MARGIN, TRACK_CASES, factor_calls,
+                        factor_window, rel_err, textured_pair, track_case)
 from ctrlvio_tpu_torch.frontend import klt
+from ctrlvio_tpu_torch.ops import factor_kernels as fk
 from ctrlvio_tpu_torch.ops import lk
+from ctrlvio_tpu_torch.parallel.batch import stack
 
 pytestmark = pytest.mark.gpu
 
@@ -137,3 +140,162 @@ def test_k1_track_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         lk.lk_track(pyr, pyr, pts, pts, win=7)
     assert lk.lk_track.launches == launches
+
+
+DTYPES = [torch.float32, torch.float64]
+
+
+@pytest.mark.parametrize("window", sorted(FACTOR_WINDOWS))
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("marg_mode", [False, True])
+def test_factor_kernels_match_plain_versions(cuda, window, dtype, marg_mode):
+    """K2 and K3 on a window of the e2e sequence (`chip_smoke.
+    factor_window`): every output within FACTOR_TOL (1e-4 in f32, 1e-10 in
+    f64) of its largest entry, one launch counted a call."""
+    cfg = FACTOR_WINDOWS[window]
+    k2, p2, k3, p3 = factor_calls(factor_window(cfg, dtype, cuda), cfg,
+                                  marg_mode)
+    for kern, plain, counter in ((k2, p2, fk.image_factor_rows),
+                                 (k3, p3, fk.imu_factor_rows)):
+        n = counter.launches
+        got = kern()
+        assert counter.launches == n + 1
+        ref = plain()
+        torch.cuda.synchronize()
+        assert rel_err(got, ref) <= FACTOR_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_factor_kernels_vmapped_equal_their_lanes(cuda, dtype):
+    """Under torch.func.vmap over 3 windows (factors and parameters
+    batched, constants shared) each kernel launches once, and each lane
+    equals its own unbatched launch bit for bit."""
+    cfg = FACTOR_WINDOWS["e2e"]
+    lanes = [factor_window(cfg, dtype, cuda, seed=20 + k) for k in range(3)]
+    ext, grav, info, w = lanes[0][3:]
+    P, IMG, IMU = (stack([ln[k] for ln in lanes]) for k in range(3))
+
+    def both(p, img, imu):
+        return (*fk.image_factor_rows(p, img, img.valid, ext, w, 2.0, cfg),
+                *fk.imu_factor_rows(p, imu, imu.valid, grav, info, cfg))
+
+    n2, n3 = fk.image_factor_rows.launches, fk.imu_factor_rows.launches
+    got = torch.func.vmap(both)(P, IMG, IMU)
+    assert (fk.image_factor_rows.launches, fk.imu_factor_rows.launches) == (
+        n2 + 1, n3 + 1)
+    for k, ln in enumerate(lanes):
+        for a, b in zip(got, both(*ln[:3])):
+            assert torch.equal(a[k], b)
+
+
+EDGES = ("clamped", "dinv", "z", "equal_knots", "masked")
+# f32 holds the edges whose geometry is well conditioned: a landmark at
+# |dinv| < 1e-5 (a point ~1e5 m away) or at |z| < 1e-6 leaves its
+# landmark column a difference of nearly equal terms, ~1e-3 of the largest
+# entry in f32 in either version, and the order of operations decides it
+EDGES_BY_DTYPE = {torch.float32: ("clamped", "equal_knots", "masked"),
+                  torch.float64: EDGES}
+
+
+def edge_window(cuda, dtype, edges):
+    """The e2e window with edge slots of the kinds in `edges`: "clamped",
+    one image slot's segment i and another's segment j beyond the window
+    (clamped to KW - 4), an IMU slot's too; "dinv", a landmark at
+    |dinv| < 1e-5 of each sign; "z", a slot observed twice at one time
+    whose point lies 5e-7 in front of the camera (|z| < 1e-6);
+    "equal_knots", knots 10..13 equal and an image and an IMU slot on
+    them (every small-angle branch); "masked", valid slots masked."""
+    cfg = FACTOR_WINDOWS["e2e"]
+    params, img, imu, ext, grav, info, w = factor_window(cfg, dtype, cuda)
+    a, b, c, d, e, f, g = torch.nonzero(img.valid).flatten().tolist()[:7]
+    i0_i, i0_j, dinv, kq = (x.clone() for x in (img.i0_i, img.i0_j,
+                                                params.dinv, params.knots_q))
+    f_i, f_j, row_i, row_j, pt_i, valid_i = (x.clone() for x in (
+        img.f_i, img.f_j, img.row_i, img.row_j, img.pt_i, img.valid))
+    m_i0, valid_m = imu.i0.clone(), imu.valid.clone()
+    mv = torch.nonzero(imu.valid).flatten().tolist()
+    if "clamped" in edges:
+        i0_i[a] = cfg.KW + 3
+        i0_j[g] = cfg.KW + 7
+        m_i0[mv[0]] = cfg.KW + 2
+    if "dinv" in edges:
+        dinv[img.lm_idx[b]], dinv[img.lm_idx[c]] = 3e-6, -2e-6
+    if "equal_knots" in edges:
+        kq[11:14] = kq[10]
+        i0_i[d], i0_j[d] = 10, 10
+        f_i[d] = f_j[d] = 0.25
+        row_i[d] = row_j[d] = 0.0
+        m_i0[mv[1]] = 10
+    if "z" in edges:
+        i0_j[e], f_j[e], row_j[e] = i0_i[e], f_i[e], row_i[e]
+        dinv[img.lm_idx[e]] = 1.0
+        pt_i[e] = torch.tensor([1e-3, 2e-3, 5e-7], dtype=dtype)
+    if "masked" in edges:
+        valid_i[f] = False
+        valid_m[mv[2]] = False
+    img = img._replace(i0_i=i0_i, i0_j=i0_j, f_i=f_i, f_j=f_j, row_i=row_i,
+                       row_j=row_j, pt_i=pt_i, valid=valid_i)
+    imu = imu._replace(i0=m_i0, valid=valid_m)
+    params = params._replace(knots_q=kq, dinv=dinv)
+    return cfg, (params, img, imu, ext, grav, info, w)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_factor_kernels_at_edge_slots(cuda, dtype):
+    """K2 and K3 against their plain versions at the edge slots of
+    `edge_window` (`EDGES_BY_DTYPE`), marg_mode off and on: finite, within
+    FACTOR_TOL, the masked slots' rows, residuals and costs zero."""
+    cfg, window = edge_window(cuda, dtype, EDGES_BY_DTYPE[dtype])
+    for marg_mode in (False, True):
+        k2, p2, k3, p3 = factor_calls(window, cfg, marg_mode)
+        for kern, plain in ((k2, p2), (k3, p3)):
+            got, ref = kern(), plain()
+            torch.cuda.synchronize()
+            assert all(bool(torch.isfinite(x).all()) for x in got)
+            assert rel_err(got, ref) <= FACTOR_TOL[dtype]
+    img, imu = window[1], window[2]
+    k2, _, k3, _ = factor_calls(window, cfg, False)
+    off_i, off_m = ~img.valid, ~imu.valid
+    for x in k2():
+        assert not bool(x[off_i].any())
+    for x in k3():
+        assert not bool(x[off_m].any())
+
+
+def test_factor_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    cfg = FACTOR_WINDOWS["e2e"]
+    params, img, imu, ext, grav, info, w = factor_window(
+        cfg, torch.float32, cuda)
+    n2, n3 = fk.image_factor_rows.launches, fk.imu_factor_rows.launches
+
+    def k2(p=params, im=img):
+        return fk.image_factor_rows(p, im, im.valid, ext, w, 2.0, cfg)
+
+    def k3(p=params, mu=imu):
+        return fk.imu_factor_rows(p, mu, mu.valid, grav, info, cfg)
+
+    half = params._replace(**{f: getattr(params, f).half() for f in (
+        "knots_q", "knots_p", "bg", "ba", "dinv", "ld")})
+    with pytest.raises(TypeError):
+        k2(p=half)
+    with pytest.raises(TypeError):
+        k3(p=half)
+    with pytest.raises(TypeError):
+        k2(im=img._replace(lm_idx=img.lm_idx.to(torch.int32)))
+    with pytest.raises(TypeError):
+        k2(im=img._replace(f_i=img.f_i.double()))
+    with pytest.raises(TypeError):
+        k3(mu=imu._replace(i0=imu.i0.to(torch.int16),
+                           bias_idx=imu.bias_idx.to(torch.int16)))
+    strided = torch.empty((3, cfg.OBS), dtype=torch.float32,
+                          device=cuda).t().copy_(img.pt_i)
+    with pytest.raises(ValueError):
+        k2(im=img._replace(pt_i=strided))
+    with pytest.raises(ValueError):
+        k2(im=img._replace(pt_j=img.pt_j.cpu()))
+    with pytest.raises(ValueError):
+        k3(mu=imu._replace(u=imu.u[:-1]))
+    with pytest.raises(ValueError):
+        k2(p=params._replace(knots_q=params.knots_q[:-1]))
+    assert (fk.image_factor_rows.launches,
+            fk.imu_factor_rows.launches) == (n2, n3)
