@@ -28,6 +28,8 @@ Phases, each printed as one JSON line:
                f32 and f64, marg_mode off and on, and vmapped over 8
                lanes equal to each lane's own launch bit for bit; times
                by graph replay, the plain versions' times, the bounds;
+               each instance's registers, spill bytes, shared bytes and
+               threads a block beside the build's ptxas log;
   5. main    - the image-in path of `bench.py --mode image --scene blobs`:
                4 s of rendered 1280x1024 Kannala-Brandt rolling-shutter frames
                through the port's FusedTracker, rotation_flow and the
@@ -196,6 +198,7 @@ from ctrlvio_tpu_torch.parallel import batch, multihost, sharded_lm
 from ctrlvio_tpu_torch.parallel import mesh as pmesh
 from ctrlvio_tpu_torch.parallel.stream_batch import BatchedStream
 from ctrlvio_tpu_torch.sim import render, synthetic, tiny
+from ctrlvio_tpu_torch.sim.windows import FACTOR_WINDOWS, factor_window
 from ctrlvio_tpu_torch.solver import assemble, lm
 from ctrlvio_tpu_torch.solver.layout import (SolveOptions, WindowConfig,
                                              column_mask, retract)
@@ -712,11 +715,8 @@ def phase_k1_track():
 
 
 # K2 and K3 (`csrc/factors.cu`) at the windows of the e2e phase and of the
-# batch phase, each held to its plain version within FACTOR_TOL of each
-# output's largest entry
-FACTOR_WINDOWS = {
-    "e2e": WindowConfig(KW=32, NB=11, LM=256, OBS=768, MIMU=256),
-    "batch": WindowConfig(KW=48, NB=11, LM=256, OBS=768, MIMU=512)}
+# batch phase (`sim/windows.py::FACTOR_WINDOWS`), each held to its plain
+# version within FACTOR_TOL of each output's largest entry
 FACTOR_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 FACTOR_LANES = 8
 # operations a factor slot, estimated from `csrc/factors.cu`: K2 ~2.1k for
@@ -728,85 +728,6 @@ K2_OPS_SLOT = 6000
 K3_OPS_SLOT = 28000
 # H100 SXM f64 rate outside the tensor cores (NVIDIA data sheet)
 F64_FLOP_PER_S = 34e12
-
-
-def e2e_sequence():
-    """The e2e phase's sequence (`reference_noise(duration=12,
-    n_landmarks=300, seed=3)`), made once a process."""
-    global _E2E_SIM
-    if _E2E_SIM is None:
-        _E2E_SIM = synthetic.generate(synthetic.reference_noise(
-            duration=12.0, n_landmarks=300, seed=3, speed=1.0))
-    return _E2E_SIM
-
-
-_E2E_SIM = None
-
-
-def factor_window(cfg, dtype, device, seed=7):
-    """A window of the e2e sequence at `cfg`: its first NB frames as
-    keyframes, every track packed from its first frame, the IMU samples
-    from the first keyframe to 40 ms past the last, perturbed as
-    `tests/test_torch_solver.py::build_problem` perturbs its window (depths
-    by 20 %, the active knots by 0.02 rad and 0.02 m, biases, the line
-    delay at 0.7 of its value; `seed` draws them). Returns (params, img,
-    imu, ext, gravity, imu_info, sqrt_info_img) on `device` in `dtype`
-    (indices int64, as the estimator uploads them)."""
-    from ctrlvio_tpu_torch.estimator import packing
-    from ctrlvio_tpu_torch.ops.factors import CamExtrinsics
-    from ctrlvio_tpu_torch.solver.layout import WindowParams
-    from ctrlvio_tpu_torch.utils.convert import from_numpy, tensor
-
-    sim = e2e_sequence()
-    frames = sim.frames[: cfg.NB]
-    kf_t_ns = np.array([f.t_ns for f in frames], dtype=np.int64)
-    tracks = {}
-    for fidx, fr in enumerate(frames):
-        for k, lid in enumerate(fr.ids):
-            tr = tracks.get(lid)
-            if tr is None:
-                tr = tracks[lid] = packing.FeatureTrack(int(lid), fidx)
-            elif tr.end_frame != fidx - 1:
-                continue
-            tr.pts.append(fr.pts[k])
-            tr.rows.append(float(fr.rows[k]))
-    q_CtoI = so3np.quat_exp(np.array(sim.cfg.ext_rot, np.float64))
-    R_CtoI = so3np.quat_to_matrix(q_CtoI[None])[0]
-    p_CinI = np.array(sim.cfg.ext_pos)
-    rng = np.random.default_rng(seed)
-    for lid, tr in tracks.items():
-        t_row = (kf_t_ns[tr.start_frame] * 1e-9
-                 + tr.rows[0] * sim.cfg.line_delay)
-        q, p = sim.pose_at(t_row)
-        R = so3np.quat_to_matrix(q[None])[0]
-        X_c = R_CtoI.T @ (R.T @ (sim.landmarks[lid] - p) - p_CinI)
-        tr.estimated_depth = X_c[2] * (1.0 + 0.2 * rng.normal())
-    npdt = np.float64 if dtype == torch.float64 else np.float32
-    img, dinv0, _ = packing.pack_image_factors(
-        list(tracks.values()), kf_t_ns, cfg.dt, 0, cfg, dtype=npdt)
-    t_hor = int(kf_t_ns[-1] + 0.04e9)
-    imu = packing.pack_imu_factors(sim.imu_t_ns, sim.gyro, sim.accel,
-                                   kf_t_ns, int(kf_t_ns[0]), t_hor, cfg.dt,
-                                   0, cfg, dtype=npdt)
-    n_active = int(np.ceil(t_hor * 1e-9 / cfg.dt)) + 3
-    dq = rng.normal(size=(cfg.KW, 3)) * 0.02
-    dp = rng.normal(size=(cfg.KW, 3)) * 0.02
-    dq[:4] = dp[:4] = 0.0
-    dq[n_active:] = dp[n_active:] = 0.0
-
-    def t(x):
-        return tensor(np.asarray(x, np.float64), device, dtype)
-
-    params = WindowParams(
-        knots_q=t(so3np.boxplus(sim.knots_q[: cfg.KW], dq)),
-        knots_p=t(sim.knots_p[: cfg.KW] + dp),
-        bg=t(rng.normal(size=(cfg.NB, 3)) * 1e-3),
-        ba=t(rng.normal(size=(cfg.NB, 3)) * 1e-2), dinv=t(dinv0),
-        ld=t(sim.cfg.line_delay * 0.7))
-    ext = CamExtrinsics(q_CtoI=t(q_CtoI), p_CinI=t(p_CinI))
-    return (params, from_numpy(img, device, dtype),
-            from_numpy(imu, device, dtype), ext, t(sim.gravity_vec),
-            t([250.0] * 3 + [12.5] * 3), t(800.0))
 
 
 def factor_calls(window, cfg, marg_mode):
@@ -867,8 +788,17 @@ def phase_factor_kernels():
     calls (with the host's dispatch), `plain_ms` the plain version's by
     events over back-to-back calls, `plain_graph_ms` by a graph's replay
     (what a captured solve paid for it before these kernels);
-    `vmapped_ms` one launch over the lanes by a graph's replay."""
+    `vmapped_ms` one launch over the lanes by a graph's replay. First a
+    line of each instance's resources (`factor_kernels.kernel_attributes`:
+    registers, local spill bytes, static shared bytes, threads a block)
+    beside the ptxas log of the build."""
     dev = torch.device("cuda")
+    attributes = fk.kernel_attributes()
+    emit({"phase": "factor_kernels", "attributes": attributes,
+          "ptxas": [ln.strip() for ln in
+                    cuda_build.build_log.get("factors", "").splitlines()
+                    if "Compiling entry" in ln or "registers" in ln
+                    or "spill" in ln]})
     out = {}
     for name, cfg in FACTOR_WINDOWS.items():
         for dtype in (torch.float32, torch.float64):
@@ -971,7 +901,9 @@ def phase_factor_kernels():
                 "batch_window": {f: out[("batch", str(torch.float32))][kname][f]
                                  for f in ("ms", "plain_ms", "bound_ms")}}
 
-    return {"k2": summary("k2"), "k3": summary("k3")}
+    return {kname: {**summary(kname), "attributes": {
+        name.split(" ", 1)[1]: a for name, a in attributes.items()
+        if name.startswith(kname.upper())}} for kname in ("k2", "k3")}
 
 
 def image_sim(duration, n_landmarks, speed=1.0):
@@ -3173,6 +3105,7 @@ def main():
             "vmapped_ms": k["vmapped_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None, "f64": k["f64"],
             "batch_window": k["batch_window"],
+            "attributes": k["attributes"],
             "launches_by_path": {p: r[f"{kname}_launches"]
                                  for p, r in paths.items()},
             "e2e_range_launches": e2e["eager_megastep_stages"]["ranges"][

@@ -25,6 +25,9 @@ compiles from the JAX package's vmapped factor evaluations,
   lane axis, the shared inputs expanded with a lane stride of 0, so that
   B windows under vmap (the batched megastep and solver) are one launch.
 
+`kernel_attributes()` reads each of the eight instances' registers, spill
+bytes, shared bytes and threads a block on the card.
+
 `image_factor_rows.launches` and `imu_factor_rows.launches` count kernel
 launches (and nothing else); `*_plain.calls` count runs of the plain
 versions; `counts()` reads them all, `reset_counts` sets them to 0. The counts are registered with
@@ -263,8 +266,7 @@ def _imu_lanes_plain(knots_q, knots_p, bg, ba, i0, u, gyro, accel, bias_idx,
 def _check_inputs(fn, tensors, names, floats, indices):
     """Raise unless the op's inputs are what its kernel takes: one device,
     f32 or f64 floats of one dtype, int32 or int64 indices of one dtype, a
-    bool mask, a lane axis of one length, each lane's block contiguous.
-    Returns (float dtype, index dtype)."""
+    bool mask, a lane axis of one length, each lane's block contiguous."""
     dev = tensors[0].device
     L = tensors[0].shape[0]
     fdt, idt = tensors[floats[0]].dtype, tensors[indices[0]].dtype
@@ -285,7 +287,6 @@ def _check_inputs(fn, tensors, names, floats, indices):
                              f"expected a lane axis of {L}")
         if not t[0].is_contiguous():
             raise ValueError(f"{fn}: {name} must be contiguous in each lane")
-    return fdt, idt
 
 
 def _check_shapes(fn, tensors, names, shapes):
@@ -300,18 +301,48 @@ def _require_cuda(fn, dev):
         raise ValueError(f"{fn}: unsupported device {dev}")
 
 
-@functools.lru_cache(maxsize=None)
-def _lib():
-    """The built library with its entry points' signatures declared."""
-    from ctrlvio_tpu_torch.utils import cuda_build
-
-    lib = cuda_build.load("factors")
+def declare(lib):
+    """`lib` (the CUDA library, or a host build of the same source) with
+    its entry points' signatures declared."""
     p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.image_factor_rows.argtypes = [i, i, p, p, p, i, i, i, i, i, d, d, p]
     lib.image_factor_rows.restype = ctypes.c_int
     lib.imu_factor_rows.argtypes = [i, i, p, p, p, i, i, i, i, d, p]
     lib.imu_factor_rows.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    """The built library with its entry points' signatures declared."""
+    from ctrlvio_tpu_torch.utils import cuda_build
+
+    lib = declare(cuda_build.load("factors"))
+    lib.factor_kernel_attributes.argtypes = [ctypes.c_void_p]
+    lib.factor_kernel_attributes.restype = ctypes.c_int
+    return lib
+
+
+# the kernels' eight instances in `factor_kernel_attributes`' order, and
+# what it reports of each
+INSTANCES = tuple(f"{k} {f} {i}" for k in ("K2", "K3")
+                  for f in ("float32", "float64") for i in ("int32", "int64"))
+ATTRIBUTES = ("registers", "local_bytes", "shared_bytes",
+              "max_threads_per_block", "threads_per_block")
+
+
+def kernel_attributes():
+    """Each instance's resources on the card (`cudaFuncGetAttributes`):
+    registers a thread, local (spill) bytes a thread, static shared bytes
+    a block, the most threads a block it can launch with and the threads
+    a block it launches with, by instance ("K2 float32 int32", ...)."""
+    n = len(ATTRIBUTES)
+    out = (ctypes.c_longlong * (n * len(INSTANCES)))()
+    err = _lib().factor_kernel_attributes(out)
+    if err != 0:
+        raise RuntimeError(f"factor_kernel_attributes: cudaError {err}")
+    return {name: dict(zip(ATTRIBUTES, out[n * k: n * (k + 1)]))
+            for k, name in enumerate(INSTANCES)}
 
 
 def _stream(dev):
@@ -332,6 +363,33 @@ def _pointers(tensors):
     return ptrs, strides
 
 
+def call_rows(lib, image, ts, KW, NB, dt, cauchy_c=0.0, stream=None):
+    """One call of `lib`'s K2 (`image`) or K3 entry point on the op's
+    inputs `ts` (each with a lane axis), into outputs allocated here on
+    their device: (rows, rw, J_lm, cost) or (rows, r, cost), each with the
+    lane axis. Raises if the entry point returns an error."""
+    fdt, idt, dev = ts[0].dtype, ts[4].dtype, ts[0].device
+    L, n, C = ts[0].shape[0], ts[4].shape[1], 6 * KW + 6 * NB + 1
+    shapes = ([(L, n, 2, C), (L, n, 2), (L, n, 2), (L, n)] if image
+              else [(L, n, 6, C), (L, n, 6), (L, n)])
+    outs = tuple(torch.empty(s, dtype=fdt, device=dev) for s in shapes)
+    ptrs, strides = _pointers(ts)
+    optrs = (ctypes.c_void_p * len(outs))(*[o.data_ptr() for o in outs])
+    codes = (FLOATS.index(fdt), INDICES.index(idt))
+    if image:
+        err = lib.image_factor_rows(*codes, ptrs, strides, optrs, L, n, KW,
+                                    NB, ts[2].shape[1], float(dt),
+                                    float(cauchy_c), stream)
+    else:
+        err = lib.imu_factor_rows(*codes, ptrs, strides, optrs, L, n, KW,
+                                  NB, float(dt), stream)
+    if err != 0:
+        fn, k = (("image_factor_rows", "K2") if image
+                 else ("imu_factor_rows", "K3"))
+        raise RuntimeError(f"{fn}: {k} launch failed (cudaError {err})")
+    return outs
+
+
 _IMAGE_NAMES = ("knots_q", "knots_p", "dinv", "ld", "i0_i", "f_i", "row_i",
                 "pt_i", "i0_j", "f_j", "row_j", "pt_j", "lm_idx", "active",
                 "q_CtoI", "p_CinI", "sqrt_info")
@@ -347,29 +405,17 @@ def _image_launch(knots_q, knots_p, dinv, ld, i0_i, f_i, row_i, pt_i, i0_j,
           row_j, pt_j, lm_idx, active, q_CtoI, p_CinI, sqrt_info)
     fn = "image_factor_rows"
     _require_cuda(fn, knots_q.device)
-    fdt, idt = _check_inputs(fn, ts, _IMAGE_NAMES,
-                             (0, 1, 2, 3, 5, 6, 7, 9, 10, 11, 14, 15, 16),
-                             (4, 8, 12))
-    L, Q, LM = knots_q.shape[0], i0_i.shape[1], dinv.shape[1]
+    _check_inputs(fn, ts, _IMAGE_NAMES,
+                  (0, 1, 2, 3, 5, 6, 7, 9, 10, 11, 14, 15, 16), (4, 8, 12))
+    Q, LM = i0_i.shape[1], dinv.shape[1]
     _check_shapes(fn, ts, _IMAGE_NAMES,
                   ((KW, 4), (KW, 3), (LM,), (), (Q,), (Q,), (Q,), (Q, 3),
                    (Q,), (Q,), (Q,), (Q, 3), (Q,), (Q,), (4,), (3,), ()))
     if KW < 4 or NB < 1:
         raise ValueError(f"{fn}: KW must be at least 4 and NB at least 1")
-    C = 6 * KW + 6 * NB + 1
     dev = knots_q.device
-    outs = (torch.empty((L, Q, 2, C), dtype=fdt, device=dev),
-            torch.empty((L, Q, 2), dtype=fdt, device=dev),
-            torch.empty((L, Q, 2), dtype=fdt, device=dev),
-            torch.empty((L, Q), dtype=fdt, device=dev))
-    ptrs, strides = _pointers(ts)
-    optrs = (ctypes.c_void_p * 4)(*[o.data_ptr() for o in outs])
     with _on(dev):
-        err = _lib().image_factor_rows(
-            FLOATS.index(fdt), INDICES.index(idt), ptrs, strides, optrs, L,
-            Q, KW, NB, LM, float(dt), float(cauchy_c), _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"{fn}: K2 launch failed (cudaError {err})")
+        outs = call_rows(_lib(), True, ts, KW, NB, dt, cauchy_c, _stream(dev))
     image_factor_rows.launches += 1
     return outs
 
@@ -381,27 +427,16 @@ def _imu_launch(knots_q, knots_p, bg, ba, i0, u, gyro, accel, bias_idx,
           gravity, imu_info)
     fn = "imu_factor_rows"
     _require_cuda(fn, knots_q.device)
-    fdt, idt = _check_inputs(fn, ts, _IMU_NAMES,
-                             (0, 1, 2, 3, 5, 6, 7, 10, 11), (4, 8))
-    L, M = knots_q.shape[0], i0.shape[1]
+    _check_inputs(fn, ts, _IMU_NAMES, (0, 1, 2, 3, 5, 6, 7, 10, 11), (4, 8))
+    M = i0.shape[1]
     _check_shapes(fn, ts, _IMU_NAMES,
                   ((KW, 4), (KW, 3), (NB, 3), (NB, 3), (M,), (M,), (M, 3),
                    (M, 3), (M,), (M,), (3,), (6,)))
     if KW < 4:
         raise ValueError(f"{fn}: KW must be at least 4")
-    C = 6 * KW + 6 * NB + 1
     dev = knots_q.device
-    outs = (torch.empty((L, M, 6, C), dtype=fdt, device=dev),
-            torch.empty((L, M, 6), dtype=fdt, device=dev),
-            torch.empty((L, M), dtype=fdt, device=dev))
-    ptrs, strides = _pointers(ts)
-    optrs = (ctypes.c_void_p * 3)(*[o.data_ptr() for o in outs])
     with _on(dev):
-        err = _lib().imu_factor_rows(
-            FLOATS.index(fdt), INDICES.index(idt), ptrs, strides, optrs, L,
-            M, KW, NB, float(dt), _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"{fn}: K3 launch failed (cudaError {err})")
+        outs = call_rows(_lib(), False, ts, KW, NB, dt, stream=_stream(dev))
     imu_factor_rows.launches += 1
     return outs
 

@@ -188,6 +188,81 @@ def test_factor_kernels_vmapped_equal_their_lanes(cuda, dtype):
             assert torch.equal(a[k], b)
 
 
+# slot counts no block size of K2 or K3 divides (both primes)
+RAGGED = (761, 251)
+
+
+def cut_window(window, img_slots, imu_slots):
+    """The window with its image and IMU factors cut to the slots
+    `img_slots` and `imu_slots` select."""
+    params, img, imu, *rest = window
+    return (params, type(img)(*(x[img_slots] for x in img)),
+            type(imu)(*(x[imu_slots] for x in imu)), *rest)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("cut", ["ragged", "one_slot"])
+def test_factor_kernels_at_cut_slot_counts(cuda, dtype, cut):
+    """K2 and K3 where the last block is ragged (the e2e window cut to
+    RAGGED slots) and at n = 1 (one valid slot of each kind): within
+    FACTOR_TOL of the plain versions, one launch a call."""
+    cfg = FACTOR_WINDOWS["e2e"]
+    window = factor_window(cfg, dtype, cuda)
+    if cut == "ragged":
+        sl = (slice(RAGGED[0]), slice(RAGGED[1]))
+    else:
+        a, b = (int(torch.nonzero(f.valid)[0]) for f in window[1:3])
+        sl = (slice(a, a + 1), slice(b, b + 1))
+    window = cut_window(window, *sl)
+    for marg_mode in (False, True):
+        k2, p2, k3, p3 = factor_calls(window, cfg, marg_mode)
+        for kern, plain, counter in ((k2, p2, fk.image_factor_rows),
+                                     (k3, p3, fk.imu_factor_rows)):
+            n = counter.launches
+            got = kern()
+            assert counter.launches == n + 1
+            ref = plain()
+            torch.cuda.synchronize()
+            assert got[0].shape == ref[0].shape
+            assert rel_err(got, ref) <= FACTOR_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_factor_kernels_lanes_straddling_blocks(cuda, dtype):
+    """Under torch.func.vmap over 3 windows cut to RAGGED slots, every
+    lane after the first starts inside a block: one launch each, each
+    lane equal bit for bit to its own launch."""
+    cfg = FACTOR_WINDOWS["e2e"]
+    sl = (slice(RAGGED[0]), slice(RAGGED[1]))
+    lanes = [cut_window(factor_window(cfg, dtype, cuda, seed=30 + k), *sl)
+             for k in range(3)]
+    ext, grav, info, w = lanes[0][3:]
+    P, IMG, IMU = (stack([ln[k] for ln in lanes]) for k in range(3))
+
+    def both(p, img, imu):
+        return (*fk.image_factor_rows(p, img, img.valid, ext, w, 2.0, cfg),
+                *fk.imu_factor_rows(p, imu, imu.valid, grav, info, cfg))
+
+    n2, n3 = fk.image_factor_rows.launches, fk.imu_factor_rows.launches
+    got = torch.func.vmap(both)(P, IMG, IMU)
+    assert (fk.image_factor_rows.launches, fk.imu_factor_rows.launches) == (
+        n2 + 1, n3 + 1)
+    for k, ln in enumerate(lanes):
+        for a, b in zip(got, both(*ln[:3])):
+            assert torch.equal(a[k], b)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_factor_kernels_two_launches_equal(cuda, dtype):
+    """Two launches on the same inputs give the same bits: no atomics, no
+    order that changes from run to run."""
+    cfg = FACTOR_WINDOWS["batch"]
+    k2, _, k3, _ = factor_calls(factor_window(cfg, dtype, cuda), cfg, False)
+    for kern in (k2, k3):
+        a, b = kern(), kern()
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 EDGES = ("clamped", "dinv", "z", "equal_knots", "masked")
 # f32 holds the edges whose geometry is well conditioned: a landmark at
 # |dinv| < 1e-5 (a point ~1e5 m away) or at |z| < 1e-6 leaves its
