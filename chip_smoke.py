@@ -23,13 +23,16 @@ Phases, each printed as one JSON line:
                kernel of `csrc/graph_cond.cu`) against its plain select;
                then factor_kernels: K2 and K3 (`csrc/factors.cu`, every
                image and IMU factor's rows, residuals and cost in one
-               launch each) against their plain versions at e2e's and
-               batch's windows (a window of the e2e sequence, perturbed),
-               f32 and f64, marg_mode off and on, and vmapped over 8
-               lanes equal to each lane's own launch bit for bit; times
-               by graph replay, the plain versions' times, the bounds;
-               each instance's registers, spill bytes, shared bytes and
-               threads a block beside the build's ptxas log;
+               launch each) and their residual-only instances K2r and
+               K3r (each slot's raw residual and its cost, the streamed
+               frame's residual summary) against their plain versions at
+               e2e's and batch's windows (a window of the e2e sequence,
+               perturbed), f32 and f64, K2 and K3 with marg_mode off and
+               on, and vmapped over 8 lanes equal to each lane's own
+               launch bit for bit; times by graph replay, the plain
+               versions' times, the bounds; each instance's registers,
+               spill bytes, shared bytes and threads a block beside the
+               build's ptxas log;
   5. main    - the image-in path of `bench.py --mode image --scene blobs`:
                4 s of rendered 1280x1024 Kannala-Brandt rolling-shutter frames
                through the port's FusedTracker, rotation_flow and the
@@ -61,9 +64,11 @@ Phases, each printed as one JSON line:
                torch.profiler trace of one streamed frame, and one
                megastep run eagerly and profiled by stage range (image
                and IMU factors, normal equations, Schur solve, retract,
-               QR prior, slide: device ms and operations each; each
-               factor range one K2 or K3 launch and at most 4 other
-               device operations a call);
+               QR prior, slide, residual summary: device ms and
+               operations each; each factor range one K2 or K3 launch and
+               at most 4 other device operations a call, the residual
+               summary one K2r and one K3r launch and at most
+               SUMMARY_OTHER_OPS others);
   7. image_textured - `bench.py --mode image` as its chip preset runs it,
                its 12 s cut to 10 s of the textured ray-cast scene
                (moving occluders, photometric drift, pixel noise) through
@@ -234,15 +239,19 @@ def reset_counts():
 
 def factor_fields(counts=None):
     """K2's and K3's launches in a phase (`factor_kernels.counts()` of this
-    process, or `counts` from a subprocess's stats line), and the runs of
-    their plain versions. A launch recorded into a captured program counts
-    on each replay, inside an IF node's body too (so also where the node
-    skips the body)."""
+    process, or `counts` from a subprocess's stats line), their residual
+    instances' (K2r, K3r), and the runs of their plain versions. A launch
+    recorded into a captured program counts on each replay, inside an IF
+    node's body too (so also where the node skips the body)."""
     c = counts or fk.counts()
     return {"k2_launches": c["image_factor_rows"],
             "k3_launches": c["imu_factor_rows"],
+            "k2r_launches": c["image_factor_residuals"],
+            "k3r_launches": c["imu_factor_residuals"],
             "plain_factor_calls": c["image_factor_rows_plain"]
-            + c["imu_factor_rows_plain"]}
+            + c["imu_factor_rows_plain"],
+            "plain_residual_calls": c["image_factor_residuals_plain"]
+            + c["imu_factor_residuals_plain"]}
 
 
 def graph_fields(st=None):
@@ -726,6 +735,19 @@ FACTOR_LANES = 8
 # operations (~3 real operations each) and ~2 a row entry (6 x 259)
 K2_OPS_SLOT = 6000
 K3_OPS_SLOT = 28000
+# the residual instances, likewise: K2r ~0.45k for each observation time
+# (blending, 3 deltas, the spline's 3 exponentials and products, position)
+# and ~0.15k for the transfer, residual and cost; K3r ~0.75k (deltas,
+# body rate, rotation, acceleration, residual and |r|^2)
+K2R_OPS_SLOT = 1050
+K3R_OPS_SLOT = 750
+# each factor kernel's name in the kernels line and the record_function
+# range of the megastep that runs it
+FACTOR_KERNELS = {
+    "k2": ("K2 image_factor_rows", "image factors"),
+    "k3": ("K3 imu_factor_rows", "IMU factors"),
+    "k2r": ("K2r image_factor_residuals", "residual summary"),
+    "k3r": ("K3r imu_factor_residuals", "residual summary")}
 # H100 SXM f64 rate outside the tensor cores (NVIDIA data sheet)
 F64_FLOP_PER_S = 34e12
 
@@ -746,6 +768,70 @@ def factor_calls(window, cfg, marg_mode):
 
     return (k2, lambda: k2(fk.image_factor_rows_plain), k3,
             lambda: k3(fk.imu_factor_rows_plain))
+
+
+def residual_calls(window, cfg):
+    """(K2r call, K2r plain call, K3r call, K3r plain call) on `window` as
+    `assemble._residuals` makes them."""
+    params, img, imu, ext, grav, info, w = window
+    c = SolveOptions().cauchy_c
+
+    def k2r(f=fk.image_factor_residuals):
+        return f(params, img, ext, w, c, cfg)
+
+    def k3r(f=fk.imu_factor_residuals):
+        return f(params, imu, grav, info, cfg)
+
+    return (k2r, lambda: k2r(fk.image_factor_residuals_plain), k3r,
+            lambda: k3r(fk.imu_factor_residuals_plain))
+
+
+def kernel_calls(kname, window, cfg, marg_mode=False):
+    """(kernel call, plain call) of `kname` ("k2", "k3", "k2r", "k3r") on
+    `window`; marg_mode for K2 and K3."""
+    if kname in ("k2", "k3"):
+        calls = factor_calls(window, cfg, marg_mode)
+    else:
+        calls = residual_calls(window, cfg)
+    k = 0 if kname.startswith("k2") else 2
+    return calls[k], calls[k + 1]
+
+
+def kernel_wrapper(kname):
+    """The wrapper whose `launches` counts `kname`'s launches."""
+    return {"k2": fk.image_factor_rows, "k3": fk.imu_factor_rows,
+            "k2r": fk.image_factor_residuals,
+            "k3r": fk.imu_factor_residuals}[kname]
+
+
+def kernel_inputs(kname, window):
+    """The op's tensor inputs of `kname` on `window` (what its bound
+    counts as read)."""
+    params, img, imu, ext, grav, info, w = window
+    return {"k2": lambda: fk.image_inputs(params, img, img.valid, ext, w),
+            "k3": lambda: fk.imu_inputs(params, imu, imu.valid, grav, info),
+            "k2r": lambda: fk.image_residual_inputs(params, img, ext, w),
+            "k3r": lambda: fk.imu_residual_inputs(params, imu, grav,
+                                                  info)}[kname]()
+
+
+def lane_call(kname, cfg, side):
+    """`kname`'s wrapper as a function of one lane's (params, factors),
+    the window's constants `side` (ext, gravity, imu_info, sqrt_info)
+    shared: what torch.func.vmap maps over the lanes."""
+    ext, grav, info, w = side
+    c = SolveOptions().cauchy_c
+
+    def call(p, fa):
+        if kname == "k2":
+            return fk.image_factor_rows(p, fa, fa.valid, ext, w, c, cfg)
+        if kname == "k3":
+            return fk.imu_factor_rows(p, fa, fa.valid, grav, info, cfg)
+        if kname == "k2r":
+            return fk.image_factor_residuals(p, fa, ext, w, c, cfg)
+        return fk.imu_factor_residuals(p, fa, grav, info, cfg)
+
+    return call
 
 
 def rel_err(got, ref):
@@ -775,15 +861,15 @@ def factor_bound_ms(inputs, outputs, ops, dtype):
 
 
 def phase_factor_kernels():
-    """K2 and K3 against their plain versions on the card, at e2e's window
-    and batch's, in f32 (the per-frame solve) and f64 (the bootstrap BA,
-    the host-side prior, the residual summary), with `marg_mode` off and
-    on: every output within FACTOR_TOL of its largest entry, one launch
-    counted a call; unbatched, and under torch.func.vmap over
-    FACTOR_LANES windows (each lane its own perturbation of the window,
-    the constants shared): one launch, every lane equal bit for bit to
-    its own unbatched launch. Int32 indices give int64's results bit for
-    bit. Times: `ms` by CUDA events over the replay of a graph of launches
+    """K2 and K3, and their residual instances K2r and K3r, against their
+    plain versions on the card, at e2e's window and batch's, in f32 (the
+    per-frame solve and residual summary) and f64 (the bootstrap BA, the
+    host-side prior), K2 and K3 with `marg_mode` off and on: every output
+    within FACTOR_TOL of its largest entry, one launch counted a call;
+    unbatched, and under torch.func.vmap over FACTOR_LANES windows (each
+    lane its own perturbation of the window, the constants shared): one
+    launch, every lane equal bit for bit to its own unbatched launch.
+    Int32 indices give int64's results bit for bit (K2, K2r). Times: `ms` by CUDA events over the replay of a graph of launches
     (the card's time a launch), `call_ms` by events over back-to-back
     calls (with the host's dispatch), `plain_ms` the plain version's by
     events over back-to-back calls, `plain_graph_ms` by a graph's replay
@@ -812,33 +898,26 @@ def phase_factor_kernels():
                    "image_slots_valid": int(img.valid.sum()),
                    "image_slots_marg": int((img.valid & img.marg_drop).sum()),
                    "imu_slots_valid": int(imu.valid.sum())}
-            for kname, idx, ops in (("k2", 0, K2_OPS_SLOT * cfg.OBS),
-                                    ("k3", 2, K3_OPS_SLOT * cfg.MIMU)):
-                counter = (fk.image_factor_rows if kname == "k2"
-                           else fk.imu_factor_rows)
+            ops_slot = {"k2": K2_OPS_SLOT * cfg.OBS, "k3": K3_OPS_SLOT * cfg.MIMU,
+                        "k2r": K2R_OPS_SLOT * cfg.OBS,
+                        "k3r": K3R_OPS_SLOT * cfg.MIMU}
+            for kname in FACTOR_KERNELS:
+                counter = kernel_wrapper(kname)
                 k = {"rel_err": {}, "abs_err": {}, "counted": True}
-                for marg in (False, True):
-                    calls = factor_calls(window, cfg, marg)
+                for marg in ((False, True) if kname in ("k2", "k3")
+                             else (False,)):
+                    kern, plain = kernel_calls(kname, window, cfg, marg)
                     n0 = counter.launches
-                    got = calls[idx]()
+                    got = kern()
                     k["counted"] &= counter.launches == n0 + 1
-                    ref = calls[idx + 1]()
+                    ref = plain()
                     torch.cuda.synchronize()
                     key = "marg" if marg else "solve"
                     k["rel_err"][key] = rel_err(got, ref)
                     k["abs_err"][key] = abs_err(got, ref)
                 # vmapped over the lanes against each lane's own launch
-                side = window[3:]
-
-                def vmapped(p, fa, kname=kname, side=side):
-                    if kname == "k2":
-                        return fk.image_factor_rows(
-                            p, fa, fa.valid, side[0], side[3],
-                            SolveOptions().cauchy_c, cfg)
-                    return fk.imu_factor_rows(p, fa, fa.valid, side[1],
-                                              side[2], cfg)
-
-                fa_idx = 1 if kname == "k2" else 2
+                vmapped = lane_call(kname, cfg, window[3:])
+                fa_idx = 1 if kname.startswith("k2") else 2
                 n0 = counter.launches
                 got_b = torch.func.vmap(vmapped)(stacked[0],
                                                  stacked[fa_idx])
@@ -847,46 +926,39 @@ def phase_factor_kernels():
                 k["vmapped_equal"] = all(
                     torch.equal(got_b[f][ln], each[ln][f])
                     for ln in range(FACTOR_LANES) for f in range(len(got_b)))
-                if kname == "k2" and dtype == torch.float32:
+                if kname.startswith("k2") and dtype == torch.float32:
                     # the same window with int32 indices
                     img32 = img._replace(**{f: getattr(img, f).to(torch.int32)
                                             for f in ("i0_i", "i0_j",
                                                       "lm_idx")})
-                    a = fk.image_factor_rows(params, img32, img.valid,
-                                             *window[3:4], window[6],
-                                             SolveOptions().cauchy_c, cfg)
-                    b = fk.image_factor_rows(params, img, img.valid,
-                                             *window[3:4], window[6],
-                                             SolveOptions().cauchy_c, cfg)
+                    a = vmapped(params, img32)
+                    b = vmapped(params, img)
                     k["int32_equal"] = all(torch.equal(x, y)
                                            for x, y in zip(a, b))
-                calls = factor_calls(window, cfg, False)
-                k["ms"] = graph_ms(calls[idx], 20)
-                k["call_ms"] = time_cuda(calls[idx], 50)
-                k["plain_ms"] = time_cuda(calls[idx + 1], 5)
-                k["plain_graph_ms"] = graph_ms(calls[idx + 1], 2)
+                kern, plain = kernel_calls(kname, window, cfg)
+                k["ms"] = graph_ms(kern, 20)
+                k["call_ms"] = time_cuda(kern, 50)
+                k["plain_ms"] = time_cuda(plain, 5)
+                k["plain_graph_ms"] = graph_ms(plain, 2)
                 k["vmapped_ms"] = graph_ms(lambda: torch.func.vmap(vmapped)(
                     stacked[0], stacked[fa_idx]), 10)
-                res = calls[idx]()
-                ins = (fk.image_inputs(params, img, img.valid, window[3],
-                                       window[6]) if kname == "k2" else
-                       fk.imu_inputs(params, imu, imu.valid, window[4],
-                                     window[5]))
-                k.update(factor_bound_ms(ins, res, ops, dtype))
+                k.update(factor_bound_ms(kernel_inputs(kname, window), kern(),
+                                         ops_slot[kname], dtype))
                 rec[kname] = k
             emit(rec)
             out[(name, str(dtype))] = rec
             tol = FACTOR_TOL[dtype]
-            for kname in ("k2", "k3"):
+            for kname in FACTOR_KERNELS:
                 k = rec[kname]
                 if not (max(k["rel_err"].values()) <= tol and k["counted"]
                         and k["vmapped_launches"] == 1
                         and k["vmapped_equal"]
                         and k.get("int32_equal", True)):
-                    raise SystemExit(f"{kname.upper()} disagrees with its "
-                                     f"plain version (within {tol} of the "
-                                     f"largest entry, one launch a call, "
-                                     f"vmapped equal to its lanes): {rec}")
+                    raise SystemExit(f"{FACTOR_KERNELS[kname][0]} disagrees "
+                                     f"with its plain version (within {tol} "
+                                     f"of the largest entry, one launch a "
+                                     f"call, vmapped equal to its lanes): "
+                                     f"{rec}")
 
     def summary(kname):
         main = out[("e2e", str(torch.float32))][kname]
@@ -903,7 +975,8 @@ def phase_factor_kernels():
 
     return {kname: {**summary(kname), "attributes": {
         name.split(" ", 1)[1]: a for name, a in attributes.items()
-        if name.startswith(kname.upper())}} for kname in ("k2", "k3")}
+        if name.split(" ")[0] == FACTOR_KERNELS[kname][0].split(" ")[0]}}
+        for kname in FACTOR_KERNELS}
 
 
 def image_sim(duration, n_landmarks, speed=1.0):
@@ -1015,13 +1088,24 @@ def device_share(prof, prof_s, frame_ms):
 
 
 # the record_function ranges of the megastep and the window solve
-# (`solver/assemble.py`, `solver/lm.py`, `estimator/stream.py`), and the
-# kernel each factor range launches
+# (`solver/assemble.py`, `solver/lm.py`, `estimator/stream.py`), the
+# kernels each factor range launches once a call, and the most other
+# device operations a call of it may make: a factor range's are the
+# wrapper's casts and copies (4); the residual summary's are the masked
+# sums, the bias residual, the prior's boxminus and product: 105 on an
+# NVIDIA H100 80GB HBM3 at 700 W (the `e2e` line's
+# `eager_megastep_stages`, a `python3 chip_smoke.py` run)
 STAGES = ("image factors", "IMU factors", "normal equations", "Schur solve",
-          "retract", "QR prior", "slide")
-STAGE_KERNELS = {"image factors": "image_rows_kernel",
-                 "IMU factors": "imu_rows_kernel"}
+          "retract", "QR prior", "slide", "residual summary")
+STAGE_KERNELS = {"image factors": ("image_rows_kernel",),
+                 "IMU factors": ("imu_rows_kernel",),
+                 "residual summary": ("image_residuals_kernel",
+                                      "imu_residuals_kernel")}
 STAGE_OTHER_OPS = 4
+SUMMARY_OTHER_OPS = 105
+STAGE_OTHER_LIMIT = {"image factors": STAGE_OTHER_OPS,
+                     "IMU factors": STAGE_OTHER_OPS,
+                     "residual summary": SUMMARY_OTHER_OPS}
 
 
 def stage_split(prof):
@@ -1029,7 +1113,8 @@ def stage_split(prof):
     activity: its calls, the device operations launched from inside it
     (kernels, copies, sets) and their device ms, nested ranges counted in
     each one that holds them; for the factor ranges the launches of their
-    kernel and the most other device operations in one call. A device
+    kernels (in all, and the fewest and most of any one of them in a
+    call) and the most other device operations in one call. A device
     operation belongs to the host op that launched it (the profiler's
     correlation), and so to every range open on that op's thread when it
     started."""
@@ -1061,14 +1146,16 @@ def stage_split(prof):
         rec["calls"] += 1
         rec["device_ops"] += len(ds)
         rec["device_ms"] += sum(d.duration_ns() for d in ds) * 1e-6
-        kern = STAGE_KERNELS.get(n)
-        if kern is not None:
-            k = sum(kern in d.name() for d in ds)
-            rec["kernel_launches"] = rec.get("kernel_launches", 0) + k
+        kerns = STAGE_KERNELS.get(n)
+        if kerns is not None:
+            ks = [sum(kern in d.name() for d in ds) for kern in kerns]
+            rec["kernel_launches"] = rec.get("kernel_launches", 0) + sum(ks)
             rec["min_kernel_launches_per_call"] = min(
-                rec.get("min_kernel_launches_per_call", k), k)
+                rec.get("min_kernel_launches_per_call", min(ks)), min(ks))
+            rec["max_kernel_launches_per_call"] = max(
+                rec.get("max_kernel_launches_per_call", 0), max(ks))
             rec["max_other_ops_per_call"] = max(
-                rec.get("max_other_ops_per_call", 0), len(ds) - k)
+                rec.get("max_other_ops_per_call", 0), len(ds) - sum(ks))
     return {"ranges": out, "device_ops": len(dev),
             "device_ms": sum(d.duration_ns() for d in dev) * 1e-6,
             "unlinked_device_ops": unlinked}
@@ -1097,14 +1184,15 @@ def eager_megastep_stages(prog):
 
 
 def stages_hold_their_kernels(st):
-    """Each factor range's every call launched its kernel once and at most
-    STAGE_OTHER_OPS other device operations."""
+    """Each factor range's every call launched each of its kernels once
+    and at most STAGE_OTHER_LIMIT other device operations."""
     return all(st["ranges"][n]["calls"] > 0
                and st["ranges"][n]["min_kernel_launches_per_call"] == 1
+               and st["ranges"][n]["max_kernel_launches_per_call"] == 1
                and st["ranges"][n]["kernel_launches"]
-               == st["ranges"][n]["calls"]
+               == st["ranges"][n]["calls"] * len(kerns)
                and st["ranges"][n]["max_other_ops_per_call"]
-               <= STAGE_OTHER_OPS for n in STAGE_KERNELS)
+               <= STAGE_OTHER_LIMIT[n] for n, kerns in STAGE_KERNELS.items())
 
 
 def sync(device):
@@ -1447,9 +1535,9 @@ def phase_e2e():
                          f"iterations its solves needed: {rec}")
     if not stages_hold_their_kernels(stages):
         raise SystemExit(f"e2e: an eager megastep's factor ranges did not "
-                         f"each launch their kernel once and at most "
-                         f"{STAGE_OTHER_OPS} other device operations a "
-                         f"call: {stages}")
+                         f"each launch each of their kernels once and at "
+                         f"most {STAGE_OTHER_LIMIT} other device operations "
+                         f"a call: {stages}")
     return rec
 
 
@@ -2213,15 +2301,27 @@ def check_serve_device_ops(serve, e2e_device_ops):
                          f"frame ({e2e_device_ops})")
 
 
+# the paths that run the streamed megastep, whose summary computes the
+# window's residual RMS every frame
+SUMMARY_PATHS = ("e2e", "image_textured", "serve", "cli")
+
+
 def check_factor_launches(paths):
-    """Every path launched K2 and K3 (counted through replays)."""
-    bad = {p: {k: r[k] for k in ("k2_launches", "k3_launches",
-                                 "plain_factor_calls")}
+    """Every path launched K2 and K3, the streamed paths K2r and K3r too
+    (counted through replays), and none ran a plain version."""
+    bad = {p: {k: r[k] for k in ("k2_launches", "k3_launches", "k2r_launches",
+                                 "k3r_launches", "plain_factor_calls",
+                                 "plain_residual_calls")}
            for p, r in paths.items()
-           if not (r["k2_launches"] > 0 and r["k3_launches"] > 0)}
+           if not (r["k2_launches"] > 0 and r["k3_launches"] > 0
+                   and r["plain_residual_calls"] == 0
+                   and (p not in SUMMARY_PATHS
+                        or (r["k2r_launches"] > 0
+                            and r["k3r_launches"] > 0)))}
     if bad:
-        raise SystemExit(f"paths that did not linearize through K2 and K3: "
-                         f"{bad}")
+        raise SystemExit(f"paths that did not linearize through K2 and K3, "
+                         f"or whose residual summary did not go through K2r "
+                         f"and K3r: {bad}")
 
 
 def sim_frames(sims, k):
@@ -3086,18 +3186,23 @@ def main():
         "e2e_launches": e2e["if_node_launches_replayed"],
         "textured_launches": textured["if_node_launches_replayed"],
         "serve_launches": serve["if_node_launches_replayed"]}]
-    for kname, name, src, fn in (
-            ("k2", "K2 image_factor_rows", "image", "_image_blocks"),
-            ("k3", "K3 imu_factor_rows", "imu", "_imu_blocks")):
+    replaced = {
+        "k2": ("ctrlvio_tpu/solver/assemble.py:49", "vmapped _image_blocks "
+               "and its one-hot expansion into dense rows"),
+        "k3": ("ctrlvio_tpu/solver/assemble.py:84", "vmapped _imu_blocks "
+               "and its one-hot expansion into dense rows"),
+        "k2r": ("ctrlvio_tpu/solver/assemble.py:419", "residual_rms's "
+                "(and total_cost's, :481) vmapped reproj_residual"),
+        "k3r": ("ctrlvio_tpu/solver/assemble.py:419", "residual_rms's "
+                "(and total_cost's, :481) vmapped imu_residual")}
+    for kname, (name, stage) in FACTOR_KERNELS.items():
         k = factors[kname]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "ctrlvio_tpu_torch/csrc/factors.cu",
-            "replaces": ("ctrlvio_tpu/solver/assemble.py:49" if kname == "k2"
-                         else "ctrlvio_tpu/solver/assemble.py:84"),
+            "replaces": replaced[kname][0],
             "replaces_note": f"not a TPU kernel: XLA's fusions of the JAX "
-                             f"package's vmapped {fn} and its one-hot "
-                             f"expansion into dense rows",
+                             f"package's {replaced[kname][1]}",
             "launches": e2e[f"{kname}_launches"],
             "max_abs_err": k["max_abs_err"], "max_rel_err": k["max_rel_err"],
             "ms": k["ms"], "call_ms": k["call_ms"], "plain_ms": k["plain_ms"],
@@ -3108,9 +3213,9 @@ def main():
             "attributes": k["attributes"],
             "launches_by_path": {p: r[f"{kname}_launches"]
                                  for p, r in paths.items()},
+            "e2e_range": stage,
             "e2e_range_launches": e2e["eager_megastep_stages"]["ranges"][
-                "image factors" if kname == "k2" else "IMU factors"][
-                "kernel_launches"]})
+                stage]["kernel_launches"]})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -37,6 +37,20 @@
 // Non-finite blocks stay in their own columns here, where the plain
 // version's one-hot products spread them over the row.
 //
+// Each has a residual-only instance (`image_factor_residuals`,
+// `imu_factor_residuals`), the port's counterpart of XLA's fused factor
+// evaluations in the JAX package's `residual_rms` (`ctrlvio_tpu/solver/
+// assemble.py:419`, once a streamed frame) and `total_cost` (:481): per
+// slot the raw residual (sqrt-info applied, no robust weight, no mask) and
+// rho(|r|^2) (image) or |r|^2 (IMU), through the plain route's operations
+// (`factors.reproj_residual`, `factors.imu_residual`: the spline's value
+// by quaternion products, the point moved by quaternion rotations), not
+// K2's closed forms. They write ~5% of the rows instances' bytes (e2e
+// window: 18 KB and 8 KB) and do a few hundred operations a slot, so a
+// launch is one thread's chain of transcendentals: K2's on two threads a
+// slot (an observation time each, then a residual entry each), K3's on
+// one.
+//
 // What bounds them on an H100 at the e2e window (Q = 768 image and M = 256
 // IMU slots, C = 6 KW + 6 NB + 1 = 259, f32): each writes 1.59 MB of rows
 // (768 x 2 x 259 and 256 x 6 x 259 values), ~0.47 us at 3.35 TB/s; the
@@ -989,6 +1003,182 @@ struct ImuKernel {
   }
 };
 
+// ---------------------------------------------------------------------------
+// the residual-only instances: each slot's raw residual and its cost, no
+// rows, no Jacobians, no dual passes, no mask (the window's residual
+// summary, `solver/assemble.py::_residuals`, masks them)
+// ---------------------------------------------------------------------------
+
+// K2's residual instance: IMAGE_RES_GROUP = 2 threads a slot (one an
+// observation time), IMAGE_RES_SLOTS slots a block; K3's: one thread a
+// slot, IMU_RES_SLOTS slots a block
+constexpr int IMAGE_RES_GROUP = 2;
+constexpr int IMAGE_RES_SLOTS = 32;
+constexpr int IMU_RES_SLOTS = 64;
+
+template <typename T>
+struct ImageResBlock {
+  T q[IMAGE_RES_SLOTS][2][4], p[IMAGE_RES_SLOTS][2][3];
+};
+
+// phase 1, thread o of a slot: the spline's rotation and position at
+// observation time o (spline.so3_eval, spline.rd_eval)
+template <typename T, typename I>
+HD void image_res_observation(const ImageArgs& a, ImageResBlock<T>& sh,
+                              long long block, int t) {
+  const int j = t / IMAGE_RES_GROUP, o = t % IMAGE_RES_GROUP;
+  const long long g = block * IMAGE_RES_SLOTS + j;
+  if (g >= (long long)a.L * a.n) return;
+  const long long lane = g / a.n;
+  const int q = int(g % a.n);
+  const T inv_dt = T(1.0 / a.dt);
+  const T ld = at<T>(a, I_LD, lane)[0];
+  const T row = o ? at<T>(a, I_ROWJ, lane)[q] : at<T>(a, I_ROWI, lane)[q];
+  const T f = o ? at<T>(a, I_FJ, lane)[q] : at<T>(a, I_FI, lane)[q];
+  const I i0 = o ? at<I>(a, I_I0J, lane)[q] : at<I>(a, I_I0I, lane)[q];
+  T tot = f + row * ld * inv_dt;
+  T shift = ffloor(tot);
+  const int s = clampi(i0 + I(shift), 0, a.KW - 4);
+  T u = tot - shift;
+  T q4[4][4], p4[4][3], lam[4], d[3][3];
+  gather4(at<T>(a, I_KQ, lane), at<T>(a, I_KP, lane), s, q4, p4);
+  blend(u, 0, true, lam);
+  so3_deltas<T>(q4, d);
+  so3_eval<T>(q4, lam, d, sh.q[j][o]);
+  blend(u, 0, false, lam);
+  rd_eval(p4, lam, sh.p[j][o]);
+}
+
+// phase 2, thread r2 of a slot: the point's transfer from frame i to frame
+// j (factors.reproj_residual; both threads), residual entry r2, and on
+// thread 0 the Cauchy cost rho(|r|^2)
+template <typename T, typename I>
+HD void image_res_store(const ImageArgs& a, const ImageResBlock<T>& sh,
+                        long long block, int t) {
+  const int j = t / IMAGE_RES_GROUP, r2 = t % IMAGE_RES_GROUP;
+  const long long g = block * IMAGE_RES_SLOTS + j;
+  if (g >= (long long)a.L * a.n) return;
+  const long long lane = g / a.n;
+  const int q = int(g % a.n);
+  const T sqrt_info = at<T>(a, I_SQRTINFO, lane)[0];
+  const T* qc = at<T>(a, I_QC, lane);
+  const T* pc = at<T>(a, I_PC, lane);
+  const T* pti = at<T>(a, I_PTI, lane) + 3 * q;
+  const T* ptj = at<T>(a, I_PTJ, lane) + 3 * q;
+  const int lm = clampi(at<I>(a, I_LMIDX, lane)[q], 0, a.LM - 1);
+  T dinv = at<T>(a, I_DINV, lane)[lm];
+  if ((dinv < T(0) ? -dinv : dinv) < T(1e-5))
+    dinv = dinv < T(0) ? T(-1e-5) : T(1e-5);
+  T x_ci[3], v[3], w[3], x_j[3];
+  for (int c = 0; c < 3; ++c) x_ci[c] = pti[c] / dinv;
+  quat_rotate<T>(qc, x_ci, v);
+  for (int c = 0; c < 3; ++c) v[c] = v[c] + pc[c];
+  quat_rotate<T>(sh.q[j][0], v, w);
+  for (int c = 0; c < 3; ++c) w[c] = (w[c] + sh.p[j][0][c]) - sh.p[j][1][c];
+  quat_rotate_inv<T>(sh.q[j][1], w, v);
+  for (int c = 0; c < 3; ++c) v[c] = v[c] - pc[c];
+  quat_rotate_inv<T>(qc, v, x_j);
+  T z = x_j[2];
+  T zs = z;
+  if ((z < T(0) ? -z : z) < T(1e-6)) {
+    T sg = z > T(0) ? T(1) : (z < T(0) ? T(-1) : T(0));
+    zs = sg * T(1e-6) + (z == T(0) ? T(1) : T(0)) * T(1e-6);
+  }
+  T r[2];
+  for (int c = 0; c < 2; ++c) r[c] = sqrt_info * (x_j[c] / zs - ptj[c]);
+  static_cast<T*>(a.out[0])[2 * g + r2] = r[r2];
+  if (r2 == 0) {
+    const T b = T(a.cauchy_c * a.cauchy_c);
+    static_cast<T*>(a.out[1])[g] = b * flog1p((r[0] * r[0] + r[1] * r[1]) / b);
+  }
+}
+
+template <typename T>
+struct ImuResBlock {
+  T r[IMU_RES_SLOTS][6];
+};
+
+// phase 1, thread t: slot t's residual (factors.imu_residual)
+template <typename T, typename I>
+HD void imu_res_slot(const ImuArgs& a, ImuResBlock<T>& sh, long long block,
+                     int t) {
+  const long long g = block * IMU_RES_SLOTS + t;
+  if (g >= (long long)a.L * a.n) return;
+  const long long lane = g / a.n;
+  const int q = int(g % a.n);
+  const T inv_dt = T(1.0 / a.dt);
+  const T inv_dt2 = T((1.0 / a.dt) * (1.0 / a.dt));
+  const int s = clampi(at<I>(a, M_I0, lane)[q], 0, a.KW - 4);
+  const int bi = clampi(at<I>(a, M_BIDX, lane)[q], 0, a.NB - 1);
+  const T u = at<T>(a, M_U, lane)[q];
+  const T* info = at<T>(a, M_INFO, lane);
+  const T* grav = at<T>(a, M_GRAVITY, lane);
+  const T* gyro = at<T>(a, M_GYRO, lane) + 3 * q;
+  const T* accel = at<T>(a, M_ACCEL, lane) + 3 * q;
+  const T* bg = at<T>(a, M_BG, lane) + 3 * bi;
+  const T* ba = at<T>(a, M_BA, lane) + 3 * bi;
+  T q4[4][4], p4[4][3], lam[4], dlam[4], d[3][3], w[3], qs[4], ag[3], ab[3];
+  gather4(at<T>(a, M_KQ, lane), at<T>(a, M_KP, lane), s, q4, p4);
+  blend(u, 0, true, lam);
+  blend(u, 1, true, dlam);
+  for (int k = 0; k < 4; ++k) dlam[k] = dlam[k] * inv_dt;
+  so3_deltas<T>(q4, d);
+  so3_vel_body<T>(lam, dlam, d, w);
+  so3_eval<T>(q4, lam, d, qs);
+  blend(u, 2, false, dlam);
+  for (int k = 0; k < 4; ++k) dlam[k] = dlam[k] * inv_dt2;
+  rd_eval(p4, dlam, ag);
+  for (int c = 0; c < 3; ++c) ag[c] = ag[c] + grav[c];
+  quat_rotate_inv<T>(qs, ag, ab);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    sh.r[t][c] = info[c] * (w[c] - (gyro[c] - bg[c]));
+    sh.r[t][3 + c] = info[3 + c] * (ab[c] - (accel[c] - ba[c]));
+  }
+}
+
+// phase 2, every thread: the block's residuals, consecutive threads on
+// consecutive entries, and slot t's |r|^2
+template <typename T>
+HD void imu_res_store(const ImuArgs& a, const ImuResBlock<T>& sh,
+                      long long block, int t) {
+  const long long g0 = block * IMU_RES_SLOTS;
+  const int ns = block_slots(block, IMU_RES_SLOTS, (long long)a.L * a.n);
+  for (int k = t; k < 6 * ns; k += IMU_RES_SLOTS)
+    static_cast<T*>(a.out[0])[6 * g0 + k] = sh.r[k / 6][k % 6];
+  if (t < ns) {
+    T sq = T(0);
+    for (int i = 0; i < 6; ++i) sq = sq + sh.r[t][i] * sh.r[t][i];
+    static_cast<T*>(a.out[1])[g0 + t] = sq;
+  }
+}
+
+template <typename T, typename I>
+struct ImageResKernel {
+  typedef ImageArgs Args;
+  typedef ImageResBlock<T> Shared;
+  static constexpr int SLOTS = IMAGE_RES_SLOTS,
+                       THREADS = IMAGE_RES_GROUP * IMAGE_RES_SLOTS, PHASES = 2;
+  static HD void phase(int ph, const Args& a, Shared& sh, long long block,
+                       int t) {
+    if (ph == 0) image_res_observation<T, I>(a, sh, block, t);
+    else image_res_store<T, I>(a, sh, block, t);
+  }
+};
+
+template <typename T, typename I>
+struct ImuResKernel {
+  typedef ImuArgs Args;
+  typedef ImuResBlock<T> Shared;
+  static constexpr int SLOTS = IMU_RES_SLOTS, THREADS = IMU_RES_SLOTS,
+                       PHASES = 2;
+  static HD void phase(int ph, const Args& a, Shared& sh, long long block,
+                       int t) {
+    if (ph == 0) imu_res_slot<T, I>(a, sh, block, t);
+    else imu_res_store<T>(a, sh, block, t);
+  }
+};
+
 template <typename A>
 A pack(const void* const* in, const long long* stride, void* const* out,
        int n_in, int n_out, int L, int n, int KW, int NB, int LM, double dt,
@@ -1046,9 +1236,25 @@ __global__ void __launch_bounds__(ImuKernel<T, I>::THREADS)
 }
 
 template <typename T, typename I>
+__global__ void __launch_bounds__(ImageResKernel<T, I>::THREADS)
+    image_residuals_kernel(const ImageArgs a) {
+  run_phases<ImageResKernel<T, I>>(a);
+}
+
+template <typename T, typename I>
+__global__ void __launch_bounds__(ImuResKernel<T, I>::THREADS)
+    imu_residuals_kernel(const ImuArgs a) {
+  run_phases<ImuResKernel<T, I>>(a);
+}
+
+template <typename T, typename I>
 auto entry(ImageKernel<T, I>) { return image_rows_kernel<T, I>; }
 template <typename T, typename I>
 auto entry(ImuKernel<T, I>) { return imu_rows_kernel<T, I>; }
+template <typename T, typename I>
+auto entry(ImageResKernel<T, I>) { return image_residuals_kernel<T, I>; }
+template <typename T, typename I>
+auto entry(ImuResKernel<T, I>) { return imu_residuals_kernel<T, I>; }
 
 template <typename K>
 int launch(K k, const typename K::Args& a, void* stream) {
@@ -1097,8 +1303,31 @@ int imu_factor_rows(int dtype, int index, const void* const* in,
                              [&](auto k) { return launch(k, a, stream); });
 }
 
+// the residual-only instances (outputs: r, then rho(|r|^2) or |r|^2, each
+// (L, n, ...)); the same arguments as the rows' entry points, the active
+// mask's pointer unread
+int image_factor_residuals(int dtype, int index, const void* const* in,
+                           const long long* stride, void* const* out, int L,
+                           int Q, int KW, int NB, int LM, double dt,
+                           double cauchy_c, void* stream) {
+  ImageArgs a = pack<ImageArgs>(in, stride, out, N_IMAGE_IN, 2, L, Q, KW, NB,
+                                LM, dt, cauchy_c);
+  return dispatch<ImageResKernel>(dtype, index,
+                                  [&](auto k) { return launch(k, a, stream); });
+}
+
+int imu_factor_residuals(int dtype, int index, const void* const* in,
+                         const long long* stride, void* const* out, int L,
+                         int M, int KW, int NB, double dt, void* stream) {
+  ImuArgs a = pack<ImuArgs>(in, stride, out, N_IMU_IN, 2, L, M, KW, NB, 0,
+                            dt, 0.0);
+  return dispatch<ImuResKernel>(dtype, index,
+                                [&](auto k) { return launch(k, a, stream); });
+}
+
 // Each instance's resources, 5 values a row in the order K2 (f32 int32,
-// f32 int64, f64 int32, f64 int64), then K3 likewise: registers a thread,
+// f32 int64, f64 int32, f64 int64), then K3, K2's residual instance and
+// K3's likewise: registers a thread,
 // local (spill) bytes a thread, static shared bytes a block, the most
 // threads a block it can launch with, and the threads a block it launches
 // with. Returns the first cudaError (0 on success).
@@ -1115,6 +1344,12 @@ int factor_kernel_attributes(long long* out) {
   for (int dtype = 0; dtype < 2; ++dtype)
     for (int index = 0; index < 2; ++index)
       dispatch<ImuKernel>(dtype, index, put);
+  for (int dtype = 0; dtype < 2; ++dtype)
+    for (int index = 0; index < 2; ++index)
+      dispatch<ImageResKernel>(dtype, index, put);
+  for (int dtype = 0; dtype < 2; ++dtype)
+    for (int index = 0; index < 2; ++index)
+      dispatch<ImuResKernel>(dtype, index, put);
   return err;
 }
 

@@ -20,9 +20,10 @@ device-resident `DevState`, with no host read inside it:
   asynchronously a few frames later for its numpy mirror.
 
 The marginalization runs on the device in the solver dtype in the QR
-square-root form (`solver/marginalize.py::build_prior_sqrt`). The prior
-and the window roll run inside `torch.profiler.record_function` ranges
-("QR prior", "slide").
+square-root form (`solver/marginalize.py::build_prior_sqrt`). The prior,
+the window roll and the summary's residual RMS run inside
+`torch.profiler.record_function` ranges ("QR prior", "slide", "residual
+summary").
 """
 
 from __future__ import annotations
@@ -377,8 +378,10 @@ def _summary(state: DevState, p_out: WindowParams, stats, unpacked, dinv_sum,
     the LM iteration count."""
     dtype = p_out.knots_p.dtype
     img, imu, bias = unpacked[:3]
-    rms4 = assemble.residual_rms(p_out, img, imu, bias, state.prior, ext,
-                                 gravity, imu_info, sqrt_info_img, cfg, opts)
+    with record_function("residual summary"):
+        rms4 = assemble.residual_rms(p_out, img, imu, bias, state.prior, ext,
+                                     gravity, imu_info, sqrt_info_img, cfg,
+                                     opts)
     return torch.cat([
         p_out.knots_q.reshape(-1), p_out.knots_p.reshape(-1),
         p_out.bg.reshape(-1), p_out.ba.reshape(-1),

@@ -25,12 +25,22 @@ compiles from the JAX package's vmapped factor evaluations,
   lane axis, the shared inputs expanded with a lane stride of 0, so that
   B windows under vmap (the batched megastep and solver) are one launch.
 
-`kernel_attributes()` reads each of the eight instances' registers, spill
-bytes, shared bytes and threads a block on the card.
+Each kernel has a residual-only instance for the window's residual
+summary (`solver/assemble.py::residual_rms`, `total_cost`; ≙ XLA's fused
+factor evaluations in the JAX package's `residual_rms`,
+`ctrlvio_tpu/solver/assemble.py:419`): `image_factor_residuals` gives each
+image slot's raw residual and rho(|r|^2), `imu_factor_residuals` each IMU
+slot's raw residual and |r|^2, unmasked, with their plain versions
+(`factors.reproj_residual`, `factors.imu_residual`), custom ops
+(`torch.ops.ctrlvio_tpu_torch.image_factor_residuals`,
+`imu_factor_residuals`), fake shapes and vmap rules as the rows ops have.
 
-`image_factor_rows.launches` and `imu_factor_rows.launches` count kernel
-launches (and nothing else); `*_plain.calls` count runs of the plain
-versions; `counts()` reads them all, `reset_counts` sets them to 0. The counts are registered with
+`kernel_attributes()` reads each of the sixteen instances' registers,
+spill bytes, shared bytes and threads a block on the card.
+
+Each wrapper's `launches` counts its kernel's launches (and nothing
+else); `*_plain.calls` count runs of the plain versions; `counts()` reads
+them all, `reset_counts` sets them to 0. The counts are registered with
 `utils/graphs.py`: a launch recorded into a captured graph counts on each
 replay of it.
 """
@@ -53,6 +63,8 @@ from .reproj_analytic import reproj_analytic
 NAMESPACE = "ctrlvio_tpu_torch"
 IMAGE_OP = f"{NAMESPACE}::image_factor_rows"
 IMU_OP = f"{NAMESPACE}::imu_factor_rows"
+IMAGE_RES_OP = f"{NAMESPACE}::image_factor_residuals"
+IMU_RES_OP = f"{NAMESPACE}::imu_factor_residuals"
 
 
 # ---------------------------------------------------------------------------
@@ -210,6 +222,50 @@ def imu_factor_rows_plain(params: WindowParams, imu: ImuFactors, active,
     return ImuRows(rows, rm, torch.sum(rm ** 2, dim=-1))
 
 
+class ImageResiduals(NamedTuple):
+    r: torch.Tensor     # (Q, 2) raw residuals: sqrt-info applied, unmasked
+    cost: torch.Tensor  # (Q,) rho(|r|^2), unmasked (no 1/2)
+
+
+class ImuResiduals(NamedTuple):
+    r: torch.Tensor     # (M, 6) raw residuals, unmasked
+    sq: torch.Tensor    # (M,) |r|^2, unmasked
+
+
+def image_factor_residuals_plain(params: WindowParams, img: ImageFactors,
+                                 ext, sqrt_info, cauchy_c: float,
+                                 cfg: WindowConfig) -> ImageResiduals:
+    """Every image factor's raw residual and Cauchy cost rho(|r|^2) at
+    scale `cauchy_c`, valid or not."""
+    image_factor_residuals_plain.calls += 1
+    inv_dt = 1.0 / cfg.dt
+    ui_tot, uj_tot, shift_i, shift_j, s_i, s_j = _segments(
+        img, params.ld, inv_dt, cfg.KW)
+    q4i = spline.gather_local(params.knots_q, s_i)
+    p4i = spline.gather_local(params.knots_p, s_i)
+    q4j = spline.gather_local(params.knots_q, s_j)
+    p4j = spline.gather_local(params.knots_p, s_j)
+    r = F.reproj_residual(q4i, p4i, ui_tot - shift_i, q4j, p4j,
+                          uj_tot - shift_j, inv_dt, img.pt_i, img.pt_j,
+                          params.dinv[img.lm_idx], ext, sqrt_info)
+    _, cost = _cauchy_weight_and_cost(torch.sum(r * r, dim=-1), cauchy_c)
+    return ImageResiduals(r, cost)
+
+
+def imu_factor_residuals_plain(params: WindowParams, imu: ImuFactors,
+                               gravity, imu_info,
+                               cfg: WindowConfig) -> ImuResiduals:
+    """Every IMU factor's raw residual and |r|^2, valid or not."""
+    imu_factor_residuals_plain.calls += 1
+    s = torch.clamp(imu.i0, 0, cfg.KW - 4)
+    r = F.imu_residual(spline.gather_local(params.knots_q, s),
+                       spline.gather_local(params.knots_p, s), imu.u,
+                       1.0 / cfg.dt, params.bg[imu.bias_idx],
+                       params.ba[imu.bias_idx], imu.gyro, imu.accel, gravity,
+                       imu_info)
+    return ImuResiduals(r, torch.sum(r * r, dim=-1))
+
+
 # ---------------------------------------------------------------------------
 # the custom ops
 # ---------------------------------------------------------------------------
@@ -225,7 +281,13 @@ _IMU_SCHEMA = (
     "Tensor u, Tensor gyro, Tensor accel, Tensor bias_idx, Tensor active, "
     "Tensor gravity, Tensor imu_info, int KW, int NB, float dt) "
     "-> (Tensor, Tensor, Tensor)")
+# the residual ops take the rows ops' inputs but the active mask
+_IMAGE_RES_SCHEMA = _IMAGE_SCHEMA.replace("Tensor active, ", "").replace(
+    "(Tensor, Tensor, Tensor, Tensor)", "(Tensor, Tensor)")
+_IMU_RES_SCHEMA = _IMU_SCHEMA.replace("Tensor active, ", "").replace(
+    "(Tensor, Tensor, Tensor)", "(Tensor, Tensor)")
 N_IMAGE_IN, N_IMU_IN = 17, 12
+IMAGE_ACTIVE, IMU_ACTIVE = 13, 9  # the mask's place among the rows' inputs
 FLOATS = (torch.float32, torch.float64)
 INDICES = (torch.int32, torch.int64)
 
@@ -260,6 +322,39 @@ def _imu_lanes_plain(knots_q, knots_p, bg, ba, i0, u, gyro, accel, bias_idx,
                          active[l], active[l])
         outs.append(imu_factor_rows_plain(params, imu, active[l], gravity[l],
                                           imu_info[l], cfg))
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def _image_res_lanes_plain(knots_q, knots_p, dinv, ld, i0_i, f_i, row_i,
+                           pt_i, i0_j, f_j, row_j, pt_j, lm_idx, q_CtoI,
+                           p_CinI, sqrt_info, KW, NB, dt, cauchy_c):
+    """The image residual op off the card: the plain version lane by
+    lane."""
+    cfg = WindowConfig(KW=KW, NB=NB, dt=dt)
+    outs = []
+    for l in range(knots_q.shape[0]):
+        params = WindowParams(knots_q[l], knots_p[l], None, None, dinv[l],
+                              ld[l])
+        img = ImageFactors(i0_i[l], f_i[l], row_i[l], pt_i[l], i0_j[l],
+                           f_j[l], row_j[l], pt_j[l], lm_idx[l], None, None)
+        ext = F.CamExtrinsics(q_CtoI[l], p_CinI[l])
+        outs.append(image_factor_residuals_plain(params, img, ext,
+                                                 sqrt_info[l], cauchy_c, cfg))
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def _imu_res_lanes_plain(knots_q, knots_p, bg, ba, i0, u, gyro, accel,
+                         bias_idx, gravity, imu_info, KW, NB, dt):
+    """The IMU residual op off the card: the plain version lane by lane."""
+    cfg = WindowConfig(KW=KW, NB=NB, dt=dt)
+    outs = []
+    for l in range(knots_q.shape[0]):
+        params = WindowParams(knots_q[l], knots_p[l], bg[l], ba[l], None,
+                              None)
+        imu = ImuFactors(i0[l], u[l], gyro[l], accel[l], bias_idx[l], None,
+                         None)
+        outs.append(imu_factor_residuals_plain(params, imu, gravity[l],
+                                               imu_info[l], cfg))
     return tuple(torch.stack(o) for o in zip(*outs))
 
 
@@ -309,6 +404,10 @@ def declare(lib):
     lib.image_factor_rows.restype = ctypes.c_int
     lib.imu_factor_rows.argtypes = [i, i, p, p, p, i, i, i, i, d, p]
     lib.imu_factor_rows.restype = ctypes.c_int
+    lib.image_factor_residuals.argtypes = lib.image_factor_rows.argtypes
+    lib.image_factor_residuals.restype = ctypes.c_int
+    lib.imu_factor_residuals.argtypes = lib.imu_factor_rows.argtypes
+    lib.imu_factor_residuals.restype = ctypes.c_int
     return lib
 
 
@@ -323,9 +422,11 @@ def _lib():
     return lib
 
 
-# the kernels' eight instances in `factor_kernel_attributes`' order, and
-# what it reports of each
-INSTANCES = tuple(f"{k} {f} {i}" for k in ("K2", "K3")
+# the kernels' sixteen instances in `factor_kernel_attributes`' order
+# (K2r, K3r: K2's and K3's residual-only instances), and what it reports
+# of each
+KERNELS = ("K2", "K3", "K2r", "K3r")
+INSTANCES = tuple(f"{k} {f} {i}" for k in KERNELS
                   for f in ("float32", "float64") for i in ("int32", "int64"))
 ATTRIBUTES = ("registers", "local_bytes", "shared_bytes",
               "max_threads_per_block", "threads_per_block")
@@ -355,12 +456,38 @@ def _on(dev):
 
 def _pointers(tensors):
     """(pointer array, lane-stride array) of the inputs: a lane axis of one
-    has no stride."""
+    has no stride; None is a null pointer (an input the entry point does
+    not read)."""
     n = len(tensors)
-    ptrs = (ctypes.c_void_p * n)(*[t.data_ptr() for t in tensors])
-    strides = (ctypes.c_longlong * n)(*[t.stride(0) if t.shape[0] > 1 else 0
-                                        for t in tensors])
+    ptrs = (ctypes.c_void_p * n)(*[None if t is None else t.data_ptr()
+                                   for t in tensors])
+    strides = (ctypes.c_longlong * n)(*[
+        t.stride(0) if t is not None and t.shape[0] > 1 else 0
+        for t in tensors])
     return ptrs, strides
+
+
+def _call(lib, entry, ts, shapes, KW, NB, dt, cauchy_c, stream):
+    """One call of `lib`'s entry point `entry` on the inputs `ts` (each
+    with a lane axis; None for one it does not read) into outputs of
+    `shapes` allocated here on their device. Raises if it returns an
+    error."""
+    fdt, idt, dev = ts[0].dtype, ts[4].dtype, ts[0].device
+    L, n = ts[0].shape[0], ts[4].shape[1]
+    outs = tuple(torch.empty(s, dtype=fdt, device=dev) for s in shapes)
+    ptrs, strides = _pointers(ts)
+    optrs = (ctypes.c_void_p * len(outs))(*[o.data_ptr() for o in outs])
+    codes = (FLOATS.index(fdt), INDICES.index(idt))
+    if entry.startswith("image"):
+        err = getattr(lib, entry)(*codes, ptrs, strides, optrs, L, n, KW,
+                                  NB, ts[2].shape[1], float(dt),
+                                  float(cauchy_c), stream)
+    else:
+        err = getattr(lib, entry)(*codes, ptrs, strides, optrs, L, n, KW,
+                                  NB, float(dt), stream)
+    if err != 0:
+        raise RuntimeError(f"{entry}: launch failed (cudaError {err})")
+    return outs
 
 
 def call_rows(lib, image, ts, KW, NB, dt, cauchy_c=0.0, stream=None):
@@ -368,26 +495,28 @@ def call_rows(lib, image, ts, KW, NB, dt, cauchy_c=0.0, stream=None):
     inputs `ts` (each with a lane axis), into outputs allocated here on
     their device: (rows, rw, J_lm, cost) or (rows, r, cost), each with the
     lane axis. Raises if the entry point returns an error."""
-    fdt, idt, dev = ts[0].dtype, ts[4].dtype, ts[0].device
     L, n, C = ts[0].shape[0], ts[4].shape[1], 6 * KW + 6 * NB + 1
-    shapes = ([(L, n, 2, C), (L, n, 2), (L, n, 2), (L, n)] if image
-              else [(L, n, 6, C), (L, n, 6), (L, n)])
-    outs = tuple(torch.empty(s, dtype=fdt, device=dev) for s in shapes)
-    ptrs, strides = _pointers(ts)
-    optrs = (ctypes.c_void_p * len(outs))(*[o.data_ptr() for o in outs])
-    codes = (FLOATS.index(fdt), INDICES.index(idt))
     if image:
-        err = lib.image_factor_rows(*codes, ptrs, strides, optrs, L, n, KW,
-                                    NB, ts[2].shape[1], float(dt),
-                                    float(cauchy_c), stream)
-    else:
-        err = lib.imu_factor_rows(*codes, ptrs, strides, optrs, L, n, KW,
-                                  NB, float(dt), stream)
-    if err != 0:
-        fn, k = (("image_factor_rows", "K2") if image
-                 else ("imu_factor_rows", "K3"))
-        raise RuntimeError(f"{fn}: {k} launch failed (cudaError {err})")
-    return outs
+        return _call(lib, "image_factor_rows", ts,
+                     [(L, n, 2, C), (L, n, 2), (L, n, 2), (L, n)], KW, NB,
+                     dt, cauchy_c, stream)
+    return _call(lib, "imu_factor_rows", ts,
+                 [(L, n, 6, C), (L, n, 6), (L, n)], KW, NB, dt, 0.0, stream)
+
+
+def call_residuals(lib, image, ts, KW, NB, dt, cauchy_c=0.0, stream=None):
+    """One call of `lib`'s residual-only K2 (`image`) or K3 entry point on
+    the residual op's inputs `ts` (each with a lane axis): (r, rho(|r|^2))
+    or (r, |r|^2), each with the lane axis. Raises if the entry point
+    returns an error."""
+    L, n = ts[0].shape[0], ts[4].shape[1]
+    ts = list(ts)
+    ts.insert(IMAGE_ACTIVE if image else IMU_ACTIVE, None)
+    if image:
+        return _call(lib, "image_factor_residuals", ts, [(L, n, 2), (L, n)],
+                     KW, NB, dt, cauchy_c, stream)
+    return _call(lib, "imu_factor_residuals", ts, [(L, n, 6), (L, n)], KW,
+                 NB, dt, 0.0, stream)
 
 
 _IMAGE_NAMES = ("knots_q", "knots_p", "dinv", "ld", "i0_i", "f_i", "row_i",
@@ -441,6 +570,59 @@ def _imu_launch(knots_q, knots_p, bg, ba, i0, u, gyro, accel, bias_idx,
     return outs
 
 
+_IMAGE_RES_NAMES = tuple(n for n in _IMAGE_NAMES if n != "active")
+_IMU_RES_NAMES = tuple(n for n in _IMU_NAMES if n != "active")
+
+
+def _image_res_launch(knots_q, knots_p, dinv, ld, i0_i, f_i, row_i, pt_i,
+                      i0_j, f_j, row_j, pt_j, lm_idx, q_CtoI, p_CinI,
+                      sqrt_info, KW, NB, dt, cauchy_c):
+    """The image residual op on the card: K2's residual instance, once
+    over every lane."""
+    ts = (knots_q, knots_p, dinv, ld, i0_i, f_i, row_i, pt_i, i0_j, f_j,
+          row_j, pt_j, lm_idx, q_CtoI, p_CinI, sqrt_info)
+    fn = "image_factor_residuals"
+    _require_cuda(fn, knots_q.device)
+    _check_inputs(fn, ts, _IMAGE_RES_NAMES,
+                  (0, 1, 2, 3, 5, 6, 7, 9, 10, 11, 13, 14, 15), (4, 8, 12))
+    Q, LM = i0_i.shape[1], dinv.shape[1]
+    _check_shapes(fn, ts, _IMAGE_RES_NAMES,
+                  ((KW, 4), (KW, 3), (LM,), (), (Q,), (Q,), (Q,), (Q, 3),
+                   (Q,), (Q,), (Q,), (Q, 3), (Q,), (4,), (3,), ()))
+    if KW < 4 or NB < 1:
+        raise ValueError(f"{fn}: KW must be at least 4 and NB at least 1")
+    dev = knots_q.device
+    with _on(dev):
+        outs = call_residuals(_lib(), True, ts, KW, NB, dt, cauchy_c,
+                              _stream(dev))
+    image_factor_residuals.launches += 1
+    return outs
+
+
+def _imu_res_launch(knots_q, knots_p, bg, ba, i0, u, gyro, accel, bias_idx,
+                    gravity, imu_info, KW, NB, dt):
+    """The IMU residual op on the card: K3's residual instance, once over
+    every lane."""
+    ts = (knots_q, knots_p, bg, ba, i0, u, gyro, accel, bias_idx, gravity,
+          imu_info)
+    fn = "imu_factor_residuals"
+    _require_cuda(fn, knots_q.device)
+    _check_inputs(fn, ts, _IMU_RES_NAMES, (0, 1, 2, 3, 5, 6, 7, 9, 10),
+                  (4, 8))
+    M = i0.shape[1]
+    _check_shapes(fn, ts, _IMU_RES_NAMES,
+                  ((KW, 4), (KW, 3), (NB, 3), (NB, 3), (M,), (M,), (M, 3),
+                   (M, 3), (M,), (3,), (6,)))
+    if KW < 4:
+        raise ValueError(f"{fn}: KW must be at least 4")
+    dev = knots_q.device
+    with _on(dev):
+        outs = call_residuals(_lib(), False, ts, KW, NB, dt,
+                              stream=_stream(dev))
+    imu_factor_residuals.launches += 1
+    return outs
+
+
 def _image_fake(knots_q, knots_p, dinv, ld, i0_i, *rest):
     KW, NB = rest[-4], rest[-3]
     L, Q = i0_i.shape[:2]
@@ -455,6 +637,16 @@ def _imu_fake(knots_q, knots_p, bg, ba, i0, *rest):
     C = 6 * KW + 6 * NB + 1
     return (knots_q.new_empty((L, M, 6, C)), knots_q.new_empty((L, M, 6)),
             knots_q.new_empty((L, M)))
+
+
+def _image_res_fake(knots_q, knots_p, dinv, ld, i0_i, *rest):
+    L, Q = i0_i.shape[:2]
+    return knots_q.new_empty((L, Q, 2)), knots_q.new_empty((L, Q))
+
+
+def _imu_res_fake(knots_q, knots_p, bg, ba, i0, *rest):
+    L, M = i0.shape[:2]
+    return knots_q.new_empty((L, M, 6)), knots_q.new_empty((L, M))
 
 
 def _lane_major(a, d, B):
@@ -494,6 +686,19 @@ imu_op.register_kernel("cuda")(_imu_launch)
 imu_op.register_fake(_imu_fake)
 torch.library.register_vmap(IMU_OP, _vmap_rule(imu_op, 3))
 
+image_res_op = torch.library.custom_op(IMAGE_RES_OP, _image_res_lanes_plain,
+                                       mutates_args=(),
+                                       schema=_IMAGE_RES_SCHEMA)
+image_res_op.register_kernel("cuda")(_image_res_launch)
+image_res_op.register_fake(_image_res_fake)
+torch.library.register_vmap(IMAGE_RES_OP, _vmap_rule(image_res_op, 2))
+
+imu_res_op = torch.library.custom_op(IMU_RES_OP, _imu_res_lanes_plain,
+                                     mutates_args=(), schema=_IMU_RES_SCHEMA)
+imu_res_op.register_kernel("cuda")(_imu_res_launch)
+imu_res_op.register_fake(_imu_res_fake)
+torch.library.register_vmap(IMU_RES_OP, _vmap_rule(imu_res_op, 2))
+
 
 # ---------------------------------------------------------------------------
 # the wrappers
@@ -508,27 +713,43 @@ def _const(x, dtype, device, shape):
     return torch.full((1, *shape), float(x), dtype=dtype, device=device)
 
 
-def image_inputs(params: WindowParams, img: ImageFactors, active, ext,
-                 sqrt_info):
-    """The image op's tensor inputs for one window (lane axis 1)."""
+def image_residual_inputs(params: WindowParams, img: ImageFactors, ext,
+                          sqrt_info):
+    """The image residual op's tensor inputs for one window (lane axis
+    1)."""
     dt, dev = params.knots_p.dtype, params.knots_p.device
     one = [x.unsqueeze(0) for x in (
         params.knots_q, params.knots_p, params.dinv, params.ld, img.i0_i,
         img.f_i, img.row_i, img.pt_i, img.i0_j, img.f_j, img.row_j,
-        img.pt_j, img.lm_idx, active)]
+        img.pt_j, img.lm_idx)]
     return (*one, _const(ext.q_CtoI, dt, dev, (4,)),
             _const(ext.p_CinI, dt, dev, (3,)), _const(sqrt_info, dt, dev, ()))
+
+
+def imu_residual_inputs(params: WindowParams, imu: ImuFactors, gravity,
+                        imu_info):
+    """The IMU residual op's tensor inputs for one window (lane axis 1)."""
+    dt, dev = params.knots_p.dtype, params.knots_p.device
+    one = [x.unsqueeze(0) for x in (
+        params.knots_q, params.knots_p, params.bg, params.ba, imu.i0, imu.u,
+        imu.gyro, imu.accel, imu.bias_idx)]
+    return (*one, _const(gravity, dt, dev, (3,)),
+            _const(imu_info, dt, dev, (6,)))
+
+
+def image_inputs(params: WindowParams, img: ImageFactors, active, ext,
+                 sqrt_info):
+    """The image op's tensor inputs for one window (lane axis 1): the
+    residual op's and the mask."""
+    ts = image_residual_inputs(params, img, ext, sqrt_info)
+    return (*ts[:IMAGE_ACTIVE], active.unsqueeze(0), *ts[IMAGE_ACTIVE:])
 
 
 def imu_inputs(params: WindowParams, imu: ImuFactors, active, gravity,
                imu_info):
     """The IMU op's tensor inputs for one window (lane axis 1)."""
-    dt, dev = params.knots_p.dtype, params.knots_p.device
-    one = [x.unsqueeze(0) for x in (
-        params.knots_q, params.knots_p, params.bg, params.ba, imu.i0, imu.u,
-        imu.gyro, imu.accel, imu.bias_idx, active)]
-    return (*one, _const(gravity, dt, dev, (3,)),
-            _const(imu_info, dt, dev, (6,)))
+    ts = imu_residual_inputs(params, imu, gravity, imu_info)
+    return (*ts[:IMU_ACTIVE], active.unsqueeze(0), *ts[IMU_ACTIVE:])
 
 
 def image_factor_rows_op(params: WindowParams, img: ImageFactors, active,
@@ -577,24 +798,73 @@ def imu_factor_rows(params: WindowParams, imu: ImuFactors, active, gravity,
     return imu_factor_rows_op(params, imu, active, gravity, imu_info, cfg)
 
 
+def image_factor_residuals_op(params: WindowParams, img: ImageFactors, ext,
+                              sqrt_info, cauchy_c: float,
+                              cfg: WindowConfig) -> ImageResiduals:
+    """`image_factor_residuals` through the custom op, on any device."""
+    out = image_res_op(*image_residual_inputs(params, img, ext, sqrt_info),
+                       cfg.KW, cfg.NB, float(cfg.dt), float(cauchy_c))
+    return ImageResiduals(*(o[0] for o in out))
+
+
+def imu_factor_residuals_op(params: WindowParams, imu: ImuFactors, gravity,
+                            imu_info, cfg: WindowConfig) -> ImuResiduals:
+    """`imu_factor_residuals` through the custom op, on any device."""
+    out = imu_res_op(*imu_residual_inputs(params, imu, gravity, imu_info),
+                     cfg.KW, cfg.NB, float(cfg.dt))
+    return ImuResiduals(*(o[0] for o in out))
+
+
+def image_factor_residuals(params: WindowParams, img: ImageFactors, ext,
+                           sqrt_info, cauchy_c: float,
+                           cfg: WindowConfig) -> ImageResiduals:
+    """Every image factor's raw residual and rho(|r|^2), unmasked (see
+    `image_factor_residuals_plain`). CPU tensors take the plain version;
+    CUDA tensors launch K2's residual instance once, or raise."""
+    dev = params.knots_p.device
+    if dev.type == "cpu":
+        return image_factor_residuals_plain(params, img, ext, sqrt_info,
+                                            cauchy_c, cfg)
+    _require_cuda("image_factor_residuals", dev)
+    return image_factor_residuals_op(params, img, ext, sqrt_info, cauchy_c,
+                                     cfg)
+
+
+def imu_factor_residuals(params: WindowParams, imu: ImuFactors, gravity,
+                         imu_info, cfg: WindowConfig) -> ImuResiduals:
+    """Every IMU factor's raw residual and |r|^2, unmasked (see
+    `imu_factor_residuals_plain`). CPU tensors take the plain version;
+    CUDA tensors launch K3's residual instance once, or raise."""
+    dev = params.knots_p.device
+    if dev.type == "cpu":
+        return imu_factor_residuals_plain(params, imu, gravity, imu_info,
+                                          cfg)
+    _require_cuda("imu_factor_residuals", dev)
+    return imu_factor_residuals_op(params, imu, gravity, imu_info, cfg)
+
+
+_COUNTED = {
+    "image_factor_rows": (image_factor_rows, "launches"),
+    "imu_factor_rows": (imu_factor_rows, "launches"),
+    "image_factor_rows_plain": (image_factor_rows_plain, "calls"),
+    "imu_factor_rows_plain": (imu_factor_rows_plain, "calls"),
+    "image_factor_residuals": (image_factor_residuals, "launches"),
+    "imu_factor_residuals": (imu_factor_residuals, "launches"),
+    "image_factor_residuals_plain": (image_factor_residuals_plain, "calls"),
+    "imu_factor_residuals_plain": (imu_factor_residuals_plain, "calls")}
+
+
 def reset_counts():
     """Set every launch and plain-call count of this module to 0."""
-    image_factor_rows.launches = 0
-    imu_factor_rows.launches = 0
-    image_factor_rows_plain.calls = 0
-    imu_factor_rows_plain.calls = 0
-
-
-_COUNTED = {"image_factor_rows": (image_factor_rows, "launches"),
-            "imu_factor_rows": (imu_factor_rows, "launches"),
-            "image_factor_rows_plain": (image_factor_rows_plain, "calls"),
-            "imu_factor_rows_plain": (imu_factor_rows_plain, "calls")}
+    for fn, attr in _COUNTED.values():
+        setattr(fn, attr, 0)
 
 
 def counts():
     """Every count of this module by name: the launches of K2
-    (`image_factor_rows`) and K3 (`imu_factor_rows`) and the runs of their
-    plain versions."""
+    (`image_factor_rows`), K3 (`imu_factor_rows`) and their residual
+    instances (`*_factor_residuals`), and the runs of their plain
+    versions."""
     return {k: getattr(fn, attr) for k, (fn, attr) in _COUNTED.items()}
 
 

@@ -7,8 +7,10 @@ C-dim camera system; H = J^T J is then one matrix product, and the
 (diagonal) landmark block stays separate for analytic Schur elimination.
 Robust loss: Cauchy with scale c, applied as the sqrt(rho') rescaling.
 The image and IMU factors' rows come from `ops/factor_kernels.py` (on the
-card kernels K2 and K3, one launch a chunk); the bias and prior rows, the
-products and the landmark sums are here. The factor evaluations and the
+card kernels K2 and K3, one launch a chunk), and the residual summary's
+image and IMU residuals from their residual-only instances; the bias and
+prior rows and residuals, the products, the masked sums and the landmark
+sums are here. The factor evaluations and the
 normal equations run inside `torch.profiler.record_function` ranges
 ("image factors", "IMU factors", "normal equations"), which a profile of
 an eager solve attributes device time to.
@@ -23,9 +25,6 @@ from torch.profiler import record_function
 
 from ctrlvio_tpu_torch.ops import factor_kernels as fk
 from ctrlvio_tpu_torch.ops import factors as F
-from ctrlvio_tpu_torch.ops import spline
-from ctrlvio_tpu_torch.ops.factor_kernels import (_cauchy_weight_and_cost,
-                                                  _segments)
 
 from .layout import (BiasFactors, ImageFactors, ImuFactors, PriorFactor,
                      SolveOptions, WindowConfig, WindowParams, boxminus_full)
@@ -180,32 +179,20 @@ def accumulate_normal_equations(params: WindowParams, img: ImageFactors,
 
 def _residuals(params: WindowParams, img: ImageFactors, imu: ImuFactors,
                bias: BiasFactors, prior: PriorFactor, ext, gravity, imu_info,
-               sqrt_info_img, cfg: WindowConfig):
-    """Raw (unweighted by the robust loss) residuals of every factor type."""
-    inv_dt = 1.0 / cfg.dt
-    ld = params.ld
-    ui_tot, uj_tot, shift_i, shift_j, s_i, s_j = _segments(img, ld, inv_dt,
-                                                           cfg.KW)
-    q4i = spline.gather_local(params.knots_q, s_i)
-    p4i = spline.gather_local(params.knots_p, s_i)
-    q4j = spline.gather_local(params.knots_q, s_j)
-    p4j = spline.gather_local(params.knots_p, s_j)
-    dinv = params.dinv[img.lm_idx]
-    r_img = F.reproj_residual(q4i, p4i, ui_tot - shift_i, q4j, p4j,
-                              uj_tot - shift_j, inv_dt, img.pt_i, img.pt_j,
-                              dinv, ext, sqrt_info_img)
-    s = torch.clamp(imu.i0, 0, cfg.KW - 4)
-    q4 = spline.gather_local(params.knots_q, s)
-    p4 = spline.gather_local(params.knots_p, s)
-    r_m = F.imu_residual(q4, p4, imu.u, inv_dt, params.bg[imu.bias_idx],
-                         params.ba[imu.bias_idx], imu.gyro, imu.accel,
-                         gravity, imu_info)
+               sqrt_info_img, cfg: WindowConfig, opts: SolveOptions):
+    """Raw (unweighted by the robust loss), unmasked residuals of every
+    factor type: the image factors' with their Cauchy costs
+    (`factor_kernels.ImageResiduals`), the IMU factors' with their squared
+    norms (`ImuResiduals`), the bias pairs' and the prior's."""
+    ir = fk.image_factor_residuals(params, img, ext, sqrt_info_img,
+                                   opts.cauchy_c, cfg)
+    mr = fk.imu_factor_residuals(params, imu, gravity, imu_info, cfg)
     rb = F.bias_residual(params.bg[:-1], params.bg[1:], params.ba[:-1],
                          params.ba[1:], bias.sqrt_info)
     dx = boxminus_full(params, prior.knots_q0, prior.knots_p0, prior.bg0,
                        prior.ba0, prior.ld0, cfg)
     r_prior = prior.r0 + prior.J @ dx
-    return r_img, r_m, rb, r_prior
+    return ir, mr, rb, r_prior
 
 
 def residual_rms(params: WindowParams, img: ImageFactors, imu: ImuFactors,
@@ -214,13 +201,14 @@ def residual_rms(params: WindowParams, img: ImageFactors, imu: ImuFactors,
                  opts: SolveOptions):
     """Per-factor-type raw residual RMS: (4,) [image, imu, bias, prior]."""
     dtype = params.knots_p.dtype
-    r_img, r_m, rb, r_prior = _residuals(params, img, imu, bias, prior, ext,
-                                         gravity, imu_info, sqrt_info_img, cfg)
+    ir, mr, rb, r_prior = _residuals(params, img, imu, bias, prior, ext,
+                                     gravity, imu_info, sqrt_info_img, cfg,
+                                     opts)
     m_img = img.valid.to(dtype)
-    rms_img = torch.sqrt(torch.sum(r_img * r_img * m_img[:, None])
+    rms_img = torch.sqrt(torch.sum(ir.r * ir.r * m_img[:, None])
                          / torch.clamp(2.0 * torch.sum(m_img), min=1.0))
     m_imu = imu.valid.to(dtype)
-    rms_imu = torch.sqrt(torch.sum(r_m * r_m * m_imu[:, None])
+    rms_imu = torch.sqrt(torch.sum(mr.sq * m_imu)
                          / torch.clamp(6.0 * torch.sum(m_imu), min=1.0))
     m_b = bias.valid.to(dtype)
     rms_bias = torch.sqrt(torch.sum(rb * rb * m_b[:, None])
@@ -236,11 +224,10 @@ def total_cost(params: WindowParams, img: ImageFactors, imu: ImuFactors,
                sqrt_info_img, cfg: WindowConfig, opts: SolveOptions):
     """Residual-only robust cost."""
     dtype = params.knots_p.dtype
-    r_img, r_m, rb, r_prior = _residuals(params, img, imu, bias, prior, ext,
-                                         gravity, imu_info, sqrt_info_img, cfg)
-    _, cost_img = _cauchy_weight_and_cost(torch.sum(r_img * r_img, dim=-1),
-                                          opts.cauchy_c)
-    cost = 0.5 * torch.sum(cost_img * img.valid.to(dtype))
-    cost = cost + 0.5 * torch.sum((r_m * imu.valid.to(dtype)[:, None]) ** 2)
+    ir, mr, rb, r_prior = _residuals(params, img, imu, bias, prior, ext,
+                                     gravity, imu_info, sqrt_info_img, cfg,
+                                     opts)
+    cost = 0.5 * torch.sum(ir.cost * img.valid.to(dtype))
+    cost = cost + 0.5 * torch.sum(mr.sq * imu.valid.to(dtype))
     cost = cost + 0.5 * torch.sum((rb * bias.valid.to(dtype)[:, None]) ** 2)
     return cost + 0.5 * torch.sum(r_prior * r_prior)

@@ -10,8 +10,11 @@ marg_mode off and on, int32 and int64 indices, two lanes sharing the
 factor inputs at lane stride 0, and slot counts that leave the last block
 ragged and a lane's slots straddling two blocks, one slot; and rebuilt
 with other geometries (`tools/factor_geometry.py`'s variants) the kernels
-give the same bits. The harness builds with g++ into a temporary
-directory (~4 s a build); without g++ the tests skip."""
+give the same bits. The residual-only instances (`image_factor_residuals`,
+`imu_factor_residuals`) are held to their plain versions the same way,
+on every slot, valid or not (they take no mask). The harness builds with
+g++ into a temporary directory (~4 s a build); without g++ the tests
+skip."""
 
 import ctypes
 import shutil
@@ -57,9 +60,10 @@ def build(out_dir, source=None):
                     str(lib_path), str(harness)], check=True,
                    capture_output=True, text=True)
     lib = fk.declare(ctypes.CDLL(str(lib_path)))
-    geo = (ctypes.c_int * 4)()
+    geo = (ctypes.c_int * 8)()
     lib.factor_geometry(geo)
     lib.image_slots, lib.imu_slots = geo[0], geo[2]
+    lib.image_res_slots, lib.imu_res_slots = geo[4], geo[6]
     return lib
 
 
@@ -210,3 +214,82 @@ def test_geometry_does_not_change_the_bits(host, prob, tmp_path, variant):
             b = run(other, kind, ins, KW, NB, dt, win[-1])
             assert all(torch.equal(x.view(as_int), y.view(as_int))
                        for x, y in zip(a, b))
+
+
+def residual_inputs(ins_i, ins_m):
+    """The residual ops' inputs from the rows ops' (the mask dropped)."""
+    return ([t for k, t in enumerate(ins_i) if k != fk.IMAGE_ACTIVE],
+            [t for k, t in enumerate(ins_m) if k != fk.IMU_ACTIVE])
+
+
+def check_residuals(lib, ins_i, ins_m, c, tol):
+    """Both residual instances' outputs within `tol` of each output's
+    largest entry of the plain versions run lane by lane."""
+    KW, NB, dt = TCFG.KW, TCFG.NB, TCFG.dt
+    ins_i, ins_m = residual_inputs(ins_i, ins_m)
+    for image, ins, plain in (
+            (True, ins_i, lambda: fk._image_res_lanes_plain(
+                *ins_i, KW, NB, dt, c)),
+            (False, ins_m, lambda: fk._imu_res_lanes_plain(*ins_m, KW, NB,
+                                                           dt))):
+        got = fk.call_residuals(lib, image, ins, KW, NB, dt, c)
+        ref = plain()
+        assert len(got) == len(ref) == 2
+        for a, b in zip(got, ref):
+            assert a.shape == b.shape and a.dtype == b.dtype
+            assert bool(torch.isfinite(a).all())
+            scale = float(b.double().abs().max())
+            err = float((a.double() - b.double()).abs().max())
+            assert err <= tol * max(scale, 1e-300), (image, err, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("index", [torch.int64, torch.int32])
+def test_residual_phases_match_plain_versions(host, prob, dtype, index):
+    """One window, every slot: the residual-only instances against their
+    plain versions (`factors.reproj_residual`, `factors.imu_residual`)."""
+    win = window(prob, dtype, index, False)
+    check_residuals(host, *lane_inputs(win), win[-1], TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_residuals_two_lanes_sharing_inputs_at_stride_zero(host, prob,
+                                                          dtype):
+    """Two lanes of their own parameters, every other input shared at lane
+    stride 0: each lane's residuals equal its plain version's."""
+    win = window(prob, dtype, torch.int64, False)
+    params = win[0]
+    rng = np.random.default_rng(6)
+    other = params._replace(
+        knots_q=so3.boxplus(params.knots_q, torch.tensor(
+            rng.normal(size=(TCFG.KW, 3)) * 0.01, dtype=dtype)),
+        knots_p=params.knots_p + torch.tensor(
+            rng.normal(size=(TCFG.KW, 3)) * 0.01, dtype=dtype),
+        dinv=params.dinv * 1.05, bg=params.bg + 1e-3)
+    ins_i, ins_m = lane_inputs(win, [params, other])
+    assert ins_i[4].stride(0) == 0 and ins_m[4].stride(0) == 0
+    check_residuals(host, ins_i, ins_m, win[-1], TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_residuals_ragged_blocks_and_lanes_straddling_them(host, prob,
+                                                           dtype):
+    """Slot counts that are no multiple of the residual instances' slots a
+    block, one lane and two (the second lane's first slot in the middle of
+    a block); and one slot of each kind."""
+    n_img = host.image_res_slots * 5 + 7
+    n_imu = host.imu_res_slots * 2 + 13
+    win = window(prob, dtype, torch.int64, False, slice(n_img),
+                 slice(n_imu))
+    assert win[1].i0_i.shape[0] == n_img and win[2].i0.shape[0] == n_imu
+    check_residuals(host, *lane_inputs(win), win[-1], TOL[dtype])
+    params = win[0]
+    other = params._replace(ld=params.ld * 1.1,
+                            knots_p=params.knots_p + 0.01)
+    check_residuals(host, *lane_inputs(win, [params, other]), win[-1],
+                    TOL[dtype])
+    a = int(np.flatnonzero(prob["img"].valid)[0])
+    b = int(np.flatnonzero(prob["imu"].valid)[0])
+    win = window(prob, dtype, torch.int64, False, slice(a, a + 1),
+                 slice(b, b + 1))
+    check_residuals(host, *lane_inputs(win), win[-1], TOL[dtype])

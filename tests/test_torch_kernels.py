@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels on the card, against their plain
-PyTorch versions: K1 (`csrc/lk.cu`), K2 and K3 (`csrc/factors.cu`). Every test here needs a CUDA device and skips without
-one. The file imports neither JAX nor the JAX package, so that it runs on
+PyTorch versions: K1 (`csrc/lk.cu`), K2 and K3 and their residual-only
+instances K2r and K3r (`csrc/factors.cu`). Every test here needs a CUDA
+device and skips without one. The file imports neither JAX nor the JAX package, so that it runs on
 a machine that has only PyTorch:
 
     python -m pytest tests/test_torch_kernels.py -q -m gpu --noconftest \
@@ -13,7 +14,8 @@ import torch
 
 from chip_smoke import (CASE_LEVELS, FACTOR_TOL, FACTOR_WINDOWS,
                         SEARCH_MARGIN, TRACK_CASES, factor_calls,
-                        factor_window, rel_err, textured_pair, track_case)
+                        factor_window, rel_err, residual_calls,
+                        textured_pair, track_case)
 from ctrlvio_tpu_torch.frontend import klt
 from ctrlvio_tpu_torch.ops import factor_kernels as fk
 from ctrlvio_tpu_torch.ops import lk
@@ -374,3 +376,142 @@ def test_factor_wrappers_reject_what_the_kernels_do_not_take(cuda):
         k2(p=params._replace(knots_q=params.knots_q[:-1]))
     assert (fk.image_factor_rows.launches,
             fk.imu_factor_rows.launches) == (n2, n3)
+
+
+@pytest.mark.parametrize("window", sorted(FACTOR_WINDOWS))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_residual_kernels_match_plain_versions(cuda, window, dtype):
+    """K2r and K3r on a window of the e2e sequence, whole and cut to
+    RAGGED slots (the last block ragged): every output within FACTOR_TOL
+    of its largest entry, one launch counted a call."""
+    cfg = FACTOR_WINDOWS[window]
+    whole = factor_window(cfg, dtype, cuda)
+    for win in (whole, cut_window(whole, slice(RAGGED[0]),
+                                  slice(RAGGED[1]))):
+        k2r, p2r, k3r, p3r = residual_calls(win, cfg)
+        for kern, plain, counter in ((k2r, p2r, fk.image_factor_residuals),
+                                     (k3r, p3r, fk.imu_factor_residuals)):
+            n = counter.launches
+            got = kern()
+            assert counter.launches == n + 1
+            ref = plain()
+            torch.cuda.synchronize()
+            assert [x.shape for x in got] == [x.shape for x in ref]
+            assert rel_err(got, ref) <= FACTOR_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("cut", ["whole", "ragged"])
+def test_residual_kernels_vmapped_equal_their_lanes(cuda, dtype, cut):
+    """Under torch.func.vmap over 3 windows (parameters and factors
+    batched, constants shared; cut to RAGGED slots, every lane after the
+    first starts inside a block) each residual instance launches once,
+    and each lane equals its own unbatched launch bit for bit."""
+    cfg = FACTOR_WINDOWS["e2e"]
+    lanes = [factor_window(cfg, dtype, cuda, seed=40 + k) for k in range(3)]
+    if cut == "ragged":
+        lanes = [cut_window(ln, slice(RAGGED[0]), slice(RAGGED[1]))
+                 for ln in lanes]
+    ext, grav, info, w = lanes[0][3:]
+    P, IMG, IMU = (stack([ln[k] for ln in lanes]) for k in range(3))
+
+    def both(p, img, imu):
+        return (*fk.image_factor_residuals(p, img, ext, w, 2.0, cfg),
+                *fk.imu_factor_residuals(p, imu, grav, info, cfg))
+
+    n2, n3 = (fk.image_factor_residuals.launches,
+              fk.imu_factor_residuals.launches)
+    got = torch.func.vmap(both)(P, IMG, IMU)
+    assert (fk.image_factor_residuals.launches,
+            fk.imu_factor_residuals.launches) == (n2 + 1, n3 + 1)
+    for k, ln in enumerate(lanes):
+        for a, b in zip(got, both(*ln[:3])):
+            assert torch.equal(a[k], b)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_residual_kernels_at_edge_slots(cuda, dtype):
+    """K2r and K3r at the edge slots of `edge_window` (`EDGES_BY_DTYPE`):
+    finite, within FACTOR_TOL of the plain versions; a masked slot's
+    residual is computed all the same (the caller masks), and two launches
+    give the same bits."""
+    cfg, window = edge_window(cuda, dtype, EDGES_BY_DTYPE[dtype])
+    k2r, p2r, k3r, p3r = residual_calls(window, cfg)
+    for kern, plain in ((k2r, p2r), (k3r, p3r)):
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        assert all(bool(torch.isfinite(x).all()) for x in got)
+        assert rel_err(got, ref) <= FACTOR_TOL[dtype]
+        assert all(torch.equal(x, y) for x, y in zip(got, kern()))
+    assert bool((k2r().r[~window[1].valid] != 0).any())
+
+
+def test_residual_summary_on_the_card_matches_the_cpu(cuda):
+    """`assemble.residual_rms` and `total_cost` on the card (through K2r
+    and K3r, one launch each a call) against the same window on the CPU
+    (the plain route), float64 within 1e-10 of each value; the tiny
+    window's knots, biases and depths perturbed (at its ground truth the
+    IMU residuals are rounding noise)."""
+    from ctrlvio_tpu_torch.sim.tiny import tiny_problem
+    from ctrlvio_tpu_torch.solver import assemble
+    from ctrlvio_tpu_torch.solver.layout import SolveOptions
+
+    out = {}
+    for dev in ("cpu", cuda):
+        pb = tiny_problem(torch.float64, device=dev)
+        rng = np.random.default_rng(8)
+        p = pb.params
+        params = p._replace(
+            knots_p=p.knots_p + torch.tensor(rng.normal(
+                size=tuple(p.knots_p.shape)) * 0.01, device=dev),
+            bg=p.bg + torch.tensor(rng.normal(size=tuple(p.bg.shape))
+                                   * 1e-3, device=dev),
+            dinv=p.dinv * 1.1)
+        args = (params, pb.img, pb.imu, pb.bias, pb.prior, *pb.aux,
+                pb.cfg, SolveOptions())
+        n = fk.image_factor_residuals.launches
+        out[str(dev)] = (assemble.residual_rms(*args).cpu(),
+                         assemble.total_cost(*args).cpu())
+        assert fk.image_factor_residuals.launches == n + (
+            2 if dev == cuda else 0)
+    (a, b), (c, d) = out["cpu"], out[str(cuda)]
+    assert bool((a[:3] > 1e-6).all())
+    torch.testing.assert_close(c, a, rtol=1e-10, atol=0)
+    torch.testing.assert_close(d, b, rtol=1e-10, atol=0)
+
+
+def test_residual_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    cfg = FACTOR_WINDOWS["e2e"]
+    params, img, imu, ext, grav, info, w = factor_window(
+        cfg, torch.float32, cuda)
+    n2, n3 = (fk.image_factor_residuals.launches,
+              fk.imu_factor_residuals.launches)
+
+    def k2r(p=params, im=img):
+        return fk.image_factor_residuals(p, im, ext, w, 2.0, cfg)
+
+    def k3r(p=params, mu=imu):
+        return fk.imu_factor_residuals(p, mu, grav, info, cfg)
+
+    half = params._replace(**{f: getattr(params, f).half() for f in (
+        "knots_q", "knots_p", "bg", "ba", "dinv", "ld")})
+    with pytest.raises(TypeError):
+        k2r(p=half)
+    with pytest.raises(TypeError):
+        k3r(p=half)
+    with pytest.raises(TypeError):
+        k2r(im=img._replace(lm_idx=img.lm_idx.to(torch.int32)))
+    with pytest.raises(TypeError):
+        k3r(mu=imu._replace(u=imu.u.double()))
+    strided = torch.empty((3, cfg.MIMU), dtype=torch.float32,
+                          device=cuda).t().copy_(imu.gyro)
+    with pytest.raises(ValueError):
+        k3r(mu=imu._replace(gyro=strided))
+    with pytest.raises(ValueError):
+        k2r(im=img._replace(pt_j=img.pt_j.cpu()))
+    with pytest.raises(ValueError):
+        k2r(im=img._replace(f_j=img.f_j[:-1]))
+    with pytest.raises(ValueError):
+        k3r(p=params._replace(bg=params.bg[:-1]))
+    assert (fk.image_factor_residuals.launches,
+            fk.imu_factor_residuals.launches) == (n2, n3)

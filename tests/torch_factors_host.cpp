@@ -1,5 +1,6 @@
-// K2 and K3 (ctrlvio_tpu_torch/csrc/factors.cu) run on the host, block by
-// block, phase by phase, thread by thread, in the kernels' own geometry:
+// K2 and K3 (ctrlvio_tpu_torch/csrc/factors.cu), and their residual-only
+// instances, run on the host, block by block, phase by phase, thread by
+// thread, in the kernels' own geometry:
 // what a block's threads do between two barriers runs for every thread
 // before the next phase starts, which is all that __syncthreads promises.
 // Each block's shared struct starts as NaN bytes (-1 for its integers), so
@@ -52,12 +53,38 @@ int imu_factor_rows(int dtype, int index, const void* const* in,
   });
 }
 
-// the geometry: slots a block and threads a block of K2, then of K3
+int image_factor_residuals(int dtype, int index, const void* const* in,
+                           const long long* stride, void* const* out, int L,
+                           int Q, int KW, int NB, int LM, double dt,
+                           double cauchy_c, void*) {
+  ImageArgs a = pack<ImageArgs>(in, stride, out, N_IMAGE_IN, 2, L, Q, KW, NB,
+                                LM, dt, cauchy_c);
+  return dispatch<ImageResKernel>(dtype, index, [&](auto k) {
+    return run_blocks<decltype(k)>(a);
+  });
+}
+
+int imu_factor_residuals(int dtype, int index, const void* const* in,
+                         const long long* stride, void* const* out, int L,
+                         int M, int KW, int NB, double dt, void*) {
+  ImuArgs a = pack<ImuArgs>(in, stride, out, N_IMU_IN, 2, L, M, KW, NB, 0,
+                            dt, 0.0);
+  return dispatch<ImuResKernel>(dtype, index, [&](auto k) {
+    return run_blocks<decltype(k)>(a);
+  });
+}
+
+// the geometry: slots a block and threads a block of K2, of K3, of K2's
+// residual instance and of K3's
 void factor_geometry(int* out) {
   out[0] = ImageKernel<float, int32_t>::SLOTS;
   out[1] = ImageKernel<float, int32_t>::THREADS;
   out[2] = ImuKernel<float, int32_t>::SLOTS;
   out[3] = ImuKernel<float, int32_t>::THREADS;
+  out[4] = ImageResKernel<float, int32_t>::SLOTS;
+  out[5] = ImageResKernel<float, int32_t>::THREADS;
+  out[6] = ImuResKernel<float, int32_t>::SLOTS;
+  out[7] = ImuResKernel<float, int32_t>::THREADS;
 }
 
 }  // extern "C"
