@@ -7,8 +7,8 @@ Phases, each printed as one JSON line:
                then the textured frames of phase 7 start rendering in a
                separate process (host numpy, minutes) beside phases 2-6;
   2. build   - every hand-written kernel compiled from the repo's sources
-               (K1, the LM exit node's set kernel, K2 and K3), and the
-               native feature table's host library (g++);
+               (K1, the LM exit's WHILE-node helper, K2 and K3, K4), and
+               the native feature table's host library (g++);
   3. k1_level - the LK kernel's one-level case against its plain PyTorch
                version at the main path's shapes (each of the three pyramid
                levels of a 1280x1024 pair);
@@ -19,8 +19,13 @@ Phases, each printed as one JSON line:
                kernel's staged windows; four levels with init = pts, the
                classic tracker's track; two levels, the command line's
                track (`KLTConfig`'s default pred_levels);
-               then if_node: the LM's exit node (`graphs.run_if`, the set
-               kernel of `csrc/graph_cond.cu`) against its plain select;
+               then lm_accept: K4 (`csrc/lm_accept.cu`, the LM's accept
+               step) against its plain version at e2e's window, f32 and
+               f64, in every accept case, functional, in place and
+               vmapped over 8 lanes, bit for bit; then while_node: the
+               LM's exit (`graphs.run_while`, a CUDA-graph WHILE node
+               whose condition K4 sets) on a solve's iterations, bit for
+               bit against the plain loop, its trips counted on the card;
                then factor_kernels: K2 and K3 (`csrc/factors.cu`, every
                image and IMU factor's rows, residuals and cost in one
                launch each) and their residual-only instances K2r and
@@ -64,11 +69,12 @@ Phases, each printed as one JSON line:
                torch.profiler trace of one streamed frame, and one
                megastep run eagerly and profiled by stage range (image
                and IMU factors, normal equations, Schur solve, retract,
-               QR prior, slide, residual summary: device ms and
+               LM accept, QR prior, slide, residual summary: device ms and
                operations each; each factor range one K2 or K3 launch and
                at most 4 other device operations a call, the residual
                summary one K2r and one K3r launch and at most
-               SUMMARY_OTHER_OPS others);
+               SUMMARY_OTHER_OPS others, the LM accept range one K4
+               launch and at most STAGE_OTHER_OPS others);
   7. image_textured - `bench.py --mode image` as its chip preset runs it,
                its 12 s cut to 10 s of the textured ray-cast scene
                (moving occluders, photometric drift, pixel noise) through
@@ -148,23 +154,25 @@ Phases, each printed as one JSON line:
                batched solver bit for bit, the rest within the gpu tests'
                tolerances, ATE within 1 mm, host ms a frame both ways;
  14. kernels - one line listing every kernel with launches, error and times
-               (K2 and K3 with their launches on every path; every path
-               must have launched both).
+               (K2, K3 and K4 with their launches on every path; every
+               path must have launched them, and run no plain accept
+               step).
 Every path runs as the port runs on the card: each per-frame program (the
 streamed and batched megasteps, the synchronous solve, prior and predict,
 the f64 bootstrap BA, the fused front end, the classic tracker's four
 stages, the batched solver, NCCL's sharded solve and step) a captured
-CUDA graph (`utils/graphs.py`), the LM's iterations after the first
-behind IF nodes that skip them once the solve is done. Each
+CUDA graph (`utils/graphs.py`), the LM's iterations after the first the
+body of a WHILE node that stops once the solve is done. Each
 phase's line lists the graphs it captured (key, seconds, reserved memory
 before and after), their seconds, the shared graph pool's size, the
 replays and the K1 launches made by replays and by the warm-up runs before
 captures; "one K1 launch a frame" counts through replays, and a capture on
 a timed (steady) frame fails the phase. The estimator lines add each
 solve kind's histogram of LM iterations (`lm_iters_hist`), the iterations
-needed, executed (the IF bodies the card ran, counted on the card) and
-those a fixed count would run; the IF bodies run must equal what the
-histograms need. `e2e` and `cli` add the bootstrap's timing keys.
+needed, executed (the WHILE nodes' trips the card ran, counted on the
+card, `if_bodies_run`) and those a fixed count would run; the trips run
+must equal what the histograms need. `e2e` and `cli` add the bootstrap's
+timing keys.
 The last line is {"ok": true, "device": {...}}; any failed phase exits
 non-zero without it. Needs a CUDA device; imports nothing of JAX.
 """
@@ -199,11 +207,13 @@ from ctrlvio_tpu_torch.frontend.fused import FusedTracker, rotation_flow
 from ctrlvio_tpu_torch.frontend.tracker import FeatureTracker, TrackerConfig
 from ctrlvio_tpu_torch.ops import factor_kernels as fk
 from ctrlvio_tpu_torch.ops import lk, so3np
+from ctrlvio_tpu_torch.ops import lm_kernels as k4
 from ctrlvio_tpu_torch.parallel import batch, multihost, sharded_lm
 from ctrlvio_tpu_torch.parallel import mesh as pmesh
 from ctrlvio_tpu_torch.parallel.stream_batch import BatchedStream
 from ctrlvio_tpu_torch.sim import render, synthetic, tiny
-from ctrlvio_tpu_torch.sim.windows import FACTOR_WINDOWS, factor_window
+from ctrlvio_tpu_torch.sim.windows import (ACCEPT_CASES, FACTOR_WINDOWS,
+                                           accept_case, factor_window)
 from ctrlvio_tpu_torch.solver import assemble, lm
 from ctrlvio_tpu_torch.solver.layout import (SolveOptions, WindowConfig,
                                              column_mask, retract)
@@ -230,21 +240,28 @@ def emit(obj):
 
 
 def reset_counts():
-    """Zero K1's, K2's and K3's launch counts and the captured programs'
-    records, just before a phase drives its path."""
+    """Zero K1's, K2's, K3's and K4's launch counts and the captured
+    programs' records, just before a phase drives its path."""
     lk.reset_counts()
     fk.reset_counts()
+    k4.reset_counts()
     graphs.reset_counts()
 
 
-def factor_fields(counts=None):
+def factor_fields(counts=None, k4_counts=None):
     """K2's and K3's launches in a phase (`factor_kernels.counts()` of this
-    process, or `counts` from a subprocess's stats line), their residual
-    instances' (K2r, K3r), and the runs of their plain versions. A launch
-    recorded into a captured program counts on each replay, inside an IF
-    node's body too (so also where the node skips the body)."""
+    process, settled first, or `counts` from a subprocess's stats line),
+    their residual instances' (K2r, K3r), K4's (`lm_kernels.counts()`,
+    or `k4_counts`), and the runs of their plain versions. A launch
+    recorded into a captured program counts on each replay, one inside a
+    WHILE node's body once a trip the node ran (`graphs.settle`)."""
+    if counts is None:
+        graphs.settle()
     c = counts or fk.counts()
-    return {"k2_launches": c["image_factor_rows"],
+    a = k4_counts or k4.counts()
+    return {"k4_launches": a["lm_accept"],
+            "plain_accept_calls": a["lm_accept_plain"],
+            "k2_launches": c["image_factor_rows"],
             "k3_launches": c["imu_factor_rows"],
             "k2r_launches": c["image_factor_residuals"],
             "k3r_launches": c["imu_factor_residuals"],
@@ -260,7 +277,8 @@ def graph_fields(st=None):
     key, warm-up and capture seconds, the reserved device memory before
     and after), their seconds in all, the shared graph pool's size, the
     replays, and K1's launches made by replays and by the warm-up runs
-    before captures."""
+    before captures; the WHILE nodes captured and the trips their bodies
+    ran."""
     st = st or graphs.stats()
     return {"graphs_captured": st["graphs_captured"],
             "graphs_captured_n": len(st["graphs_captured"]),
@@ -268,9 +286,8 @@ def graph_fields(st=None):
             "graph_pool_mb": st["graph_pool_mb"], "replays": st["replays"],
             "k1_launches_replayed": st["launches_replayed"].get("lk_track", 0),
             "k1_launches_warm_up": st["launches_warm_up"].get("lk_track", 0),
-            "if_nodes": st["if_nodes"], "if_bodies_run": st["if_bodies_run"],
-            "if_node_launches_replayed":
-                st["launches_replayed"].get("if_node_set", 0)}
+            "while_nodes": st["while_nodes"],
+            "if_bodies_run": st["if_bodies_run"]}
 
 
 # the bootstrap's timing keys of `CtrlVIO.timing`: the visual SfM and
@@ -287,10 +304,10 @@ def iters_fields(records, g, batched_stream=False):
     {iterations: solves} and `max_iters`, and over every solve the
     iterations needed (the histograms' sum), those the card executed and
     those a fixed count runs (`max_iters` each, as before the exit
-    node). A solve of a program with exit nodes executes its first
-    iteration and the bodies the IF nodes ran (`if_bodies_run`, counted
-    on the card); the batched megastep (`batched_stream`) runs all
-    `max_iters`. `if_bodies_expected` is what the histograms say the
+    node). A solve of a program with an exit node executes its first
+    iteration and the trips the WHILE node's body ran (`if_bodies_run`,
+    counted on the card); the batched megastep (`batched_stream`) runs
+    all `max_iters`. `if_bodies_expected` is what the histograms say the
     nodes must have run."""
     needed = fixed = node_solves = expected = batched = 0
     for r in records:
@@ -324,7 +341,7 @@ def lanes_done_early(lane_iters, most):
 
 
 def iters_exact(rec):
-    """The IF nodes ran exactly the iterations the solves needed."""
+    """The WHILE nodes ran exactly the iterations the solves needed."""
     return rec["if_bodies_run"] == rec["if_bodies_expected"]
 
 
@@ -386,15 +403,16 @@ def phase_device():
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          # whether torch offers CUDA-graph IF nodes itself (it does not
-          # in 2.11; `graphs.run_if` takes `csrc/graph_cond.cu`'s)
+          # whether torch offers CUDA-graph conditional nodes itself (it
+          # does not in 2.11; `graphs.run_while` takes
+          # `csrc/graph_cond.cu`'s)
           "torch_if_node": hasattr(torch.cuda.CUDAGraph,
                                    "begin_capture_to_if_node")})
 
 
 def phase_build():
     t0 = time.perf_counter()
-    names = ["lk", "graph_cond", "factors"]
+    names = ["lk", "graph_cond", "factors", "lm_accept"]
     paths = cuda_build.build(names)
     for n in names:
         cuda_build.load(n)
@@ -568,63 +586,271 @@ def phase_k1_level():
             "bound_by": levels[0]["bound_by"]}
 
 
-IF_NODES_TIMED = 100
+LOOP_ITERS = 12
+LOOP_CONVERGE_AT = 5
 
 
-def phase_if_node():
-    """The LM's exit node (`graphs.run_if`: the set kernel of
-    `csrc/graph_cond.cu` and a CUDA-graph IF node) at the LM's shapes: a
-    0-dim device bool and a body that updates its carry in place, held to
-    its plain version, `torch.where(pred, body(carry), carry)`, for both
-    values of the bool. Times by CUDA events over one replay of a graph of
-    `IF_NODES_TIMED` nodes whose bool is false (the set kernel and the
-    node, the body skipped), beside the plain select captured the same
-    way; the bound is one byte read over the HBM rate."""
-    dev = torch.device("cuda")
-    carry0 = torch.linspace(-1.0, 1.0, 16, device=dev)
+def k4_loop(st, trial, ne_t, max_iters, converge_at, plain=False):
+    """A solve's iterations with the trial fixed (`trial`, `ne_t`), its
+    cost the state's times 0.95 (accepted, not converged) before iteration
+    `converge_at` and times 0.999 from it (accepted, converged: done
+    there): as `lm.solve_window_fixed` runs them, the first iteration
+    through K4's functional instance setting the WHILE node's handle, the
+    later ones a `graphs.run_while` body through its in-place instance;
+    `plain`: every iteration through the plain version, functional, as the
+    solve ran before the WHILE node."""
+    opts = SolveOptions(max_iters=max_iters, tol=1e-2)
 
-    def body(c):
-        c.mul_(2.0).add_(1.0)
+    def cost_t(s):
+        late = (s.iters >= converge_at - 1).to(s.cost.dtype)
+        return s.cost * (0.95 + 0.049 * late)
 
-    def node(x, p):
-        y = x.clone()
-        graphs.run_if(p, body, y)
-        return y
+    if plain:
+        for _ in range(max_iters):
+            st = k4.accept_step_plain(st, trial, ne_t, cost_t(st),
+                                      opts.lm_lambda_down,
+                                      opts.lm_lambda_up, opts.tol)
+        return st
+    handle = graphs.while_handle(st.cost.device)
+    st = k4.accept_step(st, trial, ne_t, cost_t(st), opts, handle)
 
-    def plain(x, p):
-        return torch.where(p, x * 2.0 + 1.0, x)
+    def body(s, h):
+        k4.accept_step(s, trial, ne_t, cost_t(s), opts, h, in_place=True)
 
-    def nodes(x, p):
-        y = x.clone()
-        for _ in range(IF_NODES_TIMED):
-            graphs.run_if(p, body, y)
-        return y
+    graphs.run_while(body, st, max_iters - 1, handle)
+    return st
 
-    def plains(x, p):
-        y = x.clone()
-        for _ in range(IF_NODES_TIMED):
-            y = plain(y, p)
-        return y
 
-    cache = graphs.ProgramCache()
+def loop_args(cfg, device):
+    """`k4_loop`'s inputs at `cfg`: the accepted case's state, trial and
+    normal equations, in f32, the state before a solve's first iteration
+    (no step accepted, none run)."""
+    st, trial, ne_t, _, _ = accept_case(cfg, torch.float32, device,
+                                        "accepted")
+    st = st._replace(n_acc=torch.zeros_like(st.n_acc),
+                     iters=torch.zeros_like(st.iters))
+    return st, trial, ne_t
+
+
+def tree_err(got, ref):
+    """Largest absolute difference over two trees' leaves (NaN where both
+    are NaN counts as equal); inf where an integer or bool leaf differs."""
     err = 0.0
-    for v in (True, False):
-        p = torch.tensor(v, device=dev)
-        got = cache.get(node, (carry0, p), dev)(carry0, p).clone()
-        err = max(err, float((got - plain(carry0, p)).abs().max()))
-    off = torch.tensor(False, device=dev)
-    t_node = replay_times(cache.get(nodes, (carry0, off), dev), reps=20)
-    t_plain = replay_times(cache.get(plains, (carry0, off), dev), reps=20)
-    rec = {"phase": "if_node", "max_abs_err": err,
-           "ms": t_node["replay_device_ms"] / IF_NODES_TIMED,
-           "plain_ms": t_plain["replay_device_ms"] / IF_NODES_TIMED,
-           "bound_ms": 1 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-           "library_ms": None}
+    for a, b in zip(graphs.leaves(got), graphs.leaves(ref)):
+        if a.is_floating_point():
+            same_nan = torch.isnan(a) & torch.isnan(b)
+            d = torch.where(same_nan, torch.zeros_like(a),
+                            (a.double() - b.double()).abs())
+            err = max(err, float(torch.nan_to_num(d, nan=float("inf")).max()))
+        elif not torch.equal(a, b):
+            err = float("inf")
+    return err
+
+
+def traced_kernels(fn, name):
+    """The device kernels whose name holds `name` that a torch.profiler
+    trace of `fn()` saw (a kernel inside a conditional node's body, which
+    the card launches itself, included only if the tracer sees it)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(name in e.name() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == cuda)
+
+
+def phase_while_node():
+    """The LM's exit (`graphs.run_while`: a CUDA-graph WHILE node from
+    `csrc/graph_cond.cu` whose condition K4 sets) on `k4_loop` at the e2e
+    window, f32: the captured program replayed, held bit for bit to the
+    plain loop and to the same loop run eagerly (every trip), for a solve
+    that converges at iteration LOOP_CONVERGE_AT (the node ran
+    LOOP_CONVERGE_AT - 1 trips, counted on the card, K4 launched once a
+    trip and once before the node) and one that runs all LOOP_ITERS. Times
+    by CUDA events over replays: the node's program, the plain loop's
+    program (every iteration, as captured solves ran before the node), ms
+    an iteration each; and the K4 launches a torch.profiler trace of one
+    replay sees (whether the tracer sees kernels inside the node's
+    body)."""
+    dev = torch.device("cuda")
+    cfg = FACTOR_WINDOWS["e2e"]
+    args = loop_args(cfg, dev)
+    cache = graphs.ProgramCache()
+    rec = {"phase": "while_node", "window": dict(cfg._asdict()),
+           "max_iters": LOOP_ITERS}
+    err = 0.0
+    for conv in (LOOP_CONVERGE_AT, LOOP_ITERS + 1):
+        static = dict(max_iters=LOOP_ITERS, converge_at=conv)
+        prog = cache.get(k4_loop, args, dev, static)
+        reset_counts()
+        got = graphs.clone(prog(*args))
+        st_g = graphs.stats()
+        launches = k4.counts()["lm_accept"]
+        eager = k4_loop(*graphs.clone(args), **static)
+        plain = k4_loop(*graphs.clone(args), **static, plain=True)
+        torch.cuda.synchronize()
+        key = "converging" if conv <= LOOP_ITERS else "full"
+        rec[key] = {"iters": int(got.iters), "done": bool(got.done),
+                    "trips": st_g["if_bodies_run"],
+                    "k4_launches_replayed": launches,
+                    "err_plain": tree_err(got, plain),
+                    "err_eager": tree_err(got, eager)}
+        err = max(err, rec[key]["err_plain"], rec[key]["err_eager"])
+        rec[key]["traced_k4_launches"] = traced_kernels(
+            lambda: prog(*args), "lm_accept_kernel")
+        t_node = replay_times(prog, reps=20)
+        t_plain = replay_times(cache.get(k4_loop, args, dev,
+                                         {**static, "plain": True}), reps=20)
+        rec[key].update(node_ms=t_node["replay_device_ms"],
+                        plain_ms=t_plain["replay_device_ms"])
+    full, conv = rec["full"], rec["converging"]
+    rec.update(max_abs_err=err,
+               ms_per_iteration=full["node_ms"] / LOOP_ITERS,
+               plain_ms_per_iteration=full["plain_ms"] / LOOP_ITERS)
     emit(rec)
-    if err != 0.0:
-        raise SystemExit(f"the IF node disagrees with its plain version: "
-                         f"{rec}")
+    if not (err == 0.0 and conv["iters"] == LOOP_CONVERGE_AT and conv["done"]
+            and conv["trips"] == LOOP_CONVERGE_AT - 1
+            and conv["k4_launches_replayed"] == LOOP_CONVERGE_AT
+            and full["iters"] == LOOP_ITERS
+            and full["trips"] == LOOP_ITERS - 1):
+        raise SystemExit(f"the WHILE node disagrees with its plain loop, "
+                         f"or ran other trips than the loop needed: {rec}")
     return rec
+
+
+ACCEPT_LANES = 8
+
+
+def stack_tree(items):
+    """Equal-shaped trees of tensors (named or plain tuples) stacked into
+    one with a leading lane axis."""
+    first = items[0]
+    if isinstance(first, tuple):
+        parts = [stack_tree(list(f)) for f in zip(*items)]
+        return type(first)(*parts) if hasattr(first, "_fields") else tuple(
+            parts)
+    return torch.stack(items)
+
+
+def accept_bound_ms(leaves, dtype, moved):
+    """K4's least time: `moved` (the leaves copied: 1 on an accept or in
+    the functional instance, 0 on an in-place rejection) times every
+    leaf read once and written once, over the HBM rate, beside its
+    operations (a few dozen a lane) over the card's rate for `dtype`."""
+    byts = moved * 2 * sum(t.numel() * t.element_size() for t in leaves)
+    rate = F64_FLOP_PER_S if dtype == torch.float64 else F32_FLOP_PER_S
+    t_bytes, t_ops = byts / HBM_BYTES_PER_S * 1e3, 30 / rate * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": byts}
+
+
+def phase_lm_accept():
+    """K4 (`csrc/lm_accept.cu`) against its plain version on the card at
+    the e2e window, f32 and f64, in every case of `ACCEPT_CASES`
+    (accepted, rejected, done, NaN and infinite trial cost, at `tol`,
+    lambda at both clamps): the functional instance, the in-place one,
+    and the functional one under torch.func.vmap over ACCEPT_LANES lanes
+    of mixed cases (one launch); every output equal bit for bit
+    (`max_abs_err` 0 gated), one launch counted a call. Times by CUDA
+    events over the replay of a graph of launches: the functional
+    instance on an accept (`ms`), the in-place one on an accept and on a
+    rejection, the vmapped launch; the plain version as a replayed graph,
+    functional (`plain_ms`) and in place (its copy into the state, as the
+    IF nodes' bodies ran it before K4). First a line of each instance's
+    resources (`lm_kernels.kernel_attributes`) beside the ptxas log."""
+    dev = torch.device("cuda")
+    cfg = FACTOR_WINDOWS["e2e"]
+    attributes = k4.kernel_attributes()
+    emit({"phase": "lm_accept", "attributes": attributes,
+          "ptxas": [ln.strip() for ln in
+                    cuda_build.build_log.get("lm_accept", "").splitlines()
+                    if "Compiling entry" in ln or "registers" in ln
+                    or "spill" in ln]})
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        rec = {"phase": "lm_accept", "dtype": str(dtype),
+               "window": dict(cfg._asdict()), "err": {}, "counted": True}
+        for case in ACCEPT_CASES:
+            st, trial, ne_t, cost_t, opts = accept_case(cfg, dtype, dev, case)
+            ref = k4.accept_step_plain(st, trial, ne_t, cost_t,
+                                       opts.lm_lambda_down,
+                                       opts.lm_lambda_up, opts.tol)
+            n0 = k4.accept_step.launches
+            got = k4.accept_step(st, trial, ne_t, cost_t, opts)
+            inp = graphs.clone(st)
+            k4.accept_step(inp, trial, ne_t, cost_t, opts, in_place=True)
+            torch.cuda.synchronize()
+            rec["counted"] &= k4.accept_step.launches == n0 + 2
+            rec["err"][case] = max(tree_err(got, ref), tree_err(inp, ref))
+        # vmapped: lane k in case k mod the cases, its own draw
+        names = list(ACCEPT_CASES)
+        lanes = [accept_case(cfg, dtype, dev, names[k % len(names)], seed=k)
+                 for k in range(ACCEPT_LANES)]
+        opts = lanes[0][4]
+        stacked = [stack_tree([ln[k] for ln in lanes]) for k in range(4)]
+
+        def one(s, tr, ne, c):
+            return k4.accept_step(s, tr, ne, c, opts)
+
+        n0 = k4.accept_step.launches
+        got = torch.func.vmap(one)(*stacked)
+        rec["vmapped_launches"] = k4.accept_step.launches - n0
+        rec["vmapped_err"] = max(
+            tree_err(graphs.tree_map(lambda t, k=k: t[k], got),
+                     k4.accept_step_plain(*ln[:4], opts.lm_lambda_down,
+                                          opts.lm_lambda_up, opts.tol))
+            for k, ln in enumerate(lanes))
+        # times at the accepted case
+        st, trial, ne_t, cost_t, opts = accept_case(cfg, dtype, dev,
+                                                    "accepted")
+        leaves = graphs.leaves(st.p) + list(st.ne)
+        work = graphs.clone(st)
+        cost0 = st.cost.clone()
+
+        def in_place_accept():
+            work.cost.copy_(cost0)  # accept again: 8 bytes
+            k4.accept_step(work, trial, ne_t, cost_t, opts, in_place=True)
+
+        rejected = graphs.clone(st)._replace(
+            cost=torch.zeros((), dtype=dtype, device=dev))
+        work_plain = graphs.clone(st)
+        rec.update(
+            ms=graph_ms(lambda: k4.accept_step(st, trial, ne_t, cost_t,
+                                               opts), 20),
+            in_place_accept_ms=graph_ms(in_place_accept, 20),
+            in_place_reject_ms=graph_ms(
+                lambda: k4.accept_step(rejected, trial, ne_t, cost_t, opts,
+                                       in_place=True), 20),
+            vmapped_ms=graph_ms(lambda: torch.func.vmap(one)(*stacked), 10),
+            plain_ms=graph_ms(lambda: k4.accept_step_plain(
+                st, trial, ne_t, cost_t, opts.lm_lambda_down,
+                opts.lm_lambda_up, opts.tol), 5),
+            plain_in_place_ms=graph_ms(lambda: k4.accept_step_plain(
+                work_plain, trial, ne_t, cost_t, opts.lm_lambda_down,
+                opts.lm_lambda_up, opts.tol, in_place=True), 5),
+            in_place_reject_bound_ms=accept_bound_ms(leaves, dtype, 0)[
+                "bound_ms"],
+            **accept_bound_ms(leaves, dtype, 1))
+        rec["max_abs_err"] = max(max(rec["err"].values()), rec["vmapped_err"])
+        emit(rec)
+        out[str(dtype)] = rec
+        if not (rec["max_abs_err"] == 0.0 and rec["counted"]
+                and rec["vmapped_launches"] == 1):
+            raise SystemExit(f"K4 lm_accept disagrees with its plain version "
+                             f"(bit for bit, one launch a call, vmapped one "
+                             f"launch): {rec}")
+    f32 = out[str(torch.float32)]
+    return {**{k: f32[k] for k in (
+        "ms", "in_place_accept_ms", "in_place_reject_ms", "vmapped_ms",
+        "plain_ms", "plain_in_place_ms", "bound_ms", "bound_by",
+        "in_place_reject_bound_ms")},
+        "max_abs_err": max(r["max_abs_err"] for r in out.values()),
+        "f64": {k: out[str(torch.float64)][k]
+                for k in ("ms", "plain_ms", "bound_ms")},
+        "attributes": attributes}
 
 
 def phase_k1_track():
@@ -1073,8 +1299,10 @@ def replay(sim, imgs, camera, tcfg, vio_cfg, device, probe=None):
 def device_share(prof, prof_s, frame_ms):
     """Device time of the profiled frame (kernels and copies on the card),
     its share of `frame_ms` (the median host time of an unprofiled frame:
-    the profiler slows the host, not the card), device operations, and the
-    five kernels that took the most device time."""
+    the profiler slows the host, not the card), device operations, the
+    five kernels that took the most device time, and the K4 and K2
+    launches the trace holds (one K4 an LM iteration the frame ran, if
+    the tracer sees the kernels of a WHILE node's body)."""
     dev = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in dev) * 1e-3
@@ -1084,27 +1312,34 @@ def device_share(prof, prof_s, frame_ms):
             "device_busy_share": busy_ms / frame_ms if dev else None,
             "device_ops": sum(e.count for e in dev),
             "top_device_ms": {e.key[:80]: e.self_device_time_total * 1e-3
-                              for e in top}}
+                              for e in top},
+            **{f"traced_{k}_launches": sum(e.count for e in dev
+                                           if name in e.key)
+               for k, name in (("k4", "lm_accept_kernel"),
+                               ("k2", "image_rows_kernel"))}}
 
 
 # the record_function ranges of the megastep and the window solve
 # (`solver/assemble.py`, `solver/lm.py`, `estimator/stream.py`), the
-# kernels each factor range launches once a call, and the most other
-# device operations a call of it may make: a factor range's are the
-# wrapper's casts and copies (4); the residual summary's are the masked
+# kernels each factor range and the LM's accept step launch once a call,
+# and the most other device operations a call of it may make: a factor
+# range's are the wrapper's casts and copies (4), the accept step's none
+# (held to the same 4); the residual summary's are the masked
 # sums, the bias residual, the prior's boxminus and product: 105 on an
 # NVIDIA H100 80GB HBM3 at 700 W (the `e2e` line's
 # `eager_megastep_stages`, a `python3 chip_smoke.py` run)
 STAGES = ("image factors", "IMU factors", "normal equations", "Schur solve",
-          "retract", "QR prior", "slide", "residual summary")
+          "retract", "LM accept", "QR prior", "slide", "residual summary")
 STAGE_KERNELS = {"image factors": ("image_rows_kernel",),
                  "IMU factors": ("imu_rows_kernel",),
+                 "LM accept": ("lm_accept_kernel",),
                  "residual summary": ("image_residuals_kernel",
                                       "imu_residuals_kernel")}
 STAGE_OTHER_OPS = 4
 SUMMARY_OTHER_OPS = 105
 STAGE_OTHER_LIMIT = {"image factors": STAGE_OTHER_OPS,
                      "IMU factors": STAGE_OTHER_OPS,
+                     "LM accept": STAGE_OTHER_OPS,
                      "residual summary": SUMMARY_OTHER_OPS}
 
 
@@ -1166,7 +1401,8 @@ def eager_megastep_stages(prog):
     its inputs (after one eager warm run), profiled with CPU and CUDA
     activity: `stage_split` of it, and its host seconds. A replayed graph
     carries no host ranges; the eager run computes what the replay does,
-    every LM iteration included (eagerly the IF nodes' bodies all run)."""
+    every LM iteration included (eagerly the WHILE node's body runs every
+    trip)."""
     prog.run_eagerly(graphs.clone(prog.inputs))
     torch.cuda.synchronize()
     inputs = graphs.clone(prog.inputs)
@@ -1184,8 +1420,9 @@ def eager_megastep_stages(prog):
 
 
 def stages_hold_their_kernels(st):
-    """Each factor range's every call launched each of its kernels once
-    and at most STAGE_OTHER_LIMIT other device operations."""
+    """Each factor range's and the accept step's every call launched each
+    of its kernels once and at most STAGE_OTHER_LIMIT other device
+    operations."""
     return all(st["ranges"][n]["calls"] > 0
                and st["ranges"][n]["min_kernel_launches_per_call"] == 1
                and st["ranges"][n]["max_kernel_launches_per_call"] == 1
@@ -1267,7 +1504,7 @@ def phase_main():
     # the f64 bootstrap BA
     if not captured_once(g, 6):
         raise SystemExit(f"main path captured a program twice: {rec}")
-    if not (iters_exact(rec) and g["if_node_launches_replayed"] > 0):
+    if not (iters_exact(rec) and g["while_nodes"] > 0):
         raise SystemExit(f"main path: the LM's exit nodes did not run "
                          f"exactly the iterations its solves needed: {rec}")
     return rec, (sim, imgs, cam, tcfg)
@@ -1534,8 +1771,9 @@ def phase_e2e():
         raise SystemExit(f"e2e: the LM's exit nodes did not run exactly the "
                          f"iterations its solves needed: {rec}")
     if not stages_hold_their_kernels(stages):
-        raise SystemExit(f"e2e: an eager megastep's factor ranges did not "
-                         f"each launch each of their kernels once and at "
+        raise SystemExit(f"e2e: an eager megastep's factor and accept "
+                         f"ranges did not each launch each of their kernels "
+                         f"once and at "
                          f"most {STAGE_OTHER_LIMIT} other device operations "
                          f"a call: {stages}")
     return rec
@@ -2307,21 +2545,25 @@ SUMMARY_PATHS = ("e2e", "image_textured", "serve", "cli")
 
 
 def check_factor_launches(paths):
-    """Every path launched K2 and K3, the streamed paths K2r and K3r too
-    (counted through replays), and none ran a plain version."""
+    """Every path launched K2 and K3 and, in its LM solves, K4, the
+    streamed paths K2r and K3r too (counted through replays), and none ran
+    the plain residuals or the plain accept step."""
     bad = {p: {k: r[k] for k in ("k2_launches", "k3_launches", "k2r_launches",
-                                 "k3r_launches", "plain_factor_calls",
-                                 "plain_residual_calls")}
+                                 "k3r_launches", "k4_launches",
+                                 "plain_factor_calls", "plain_residual_calls",
+                                 "plain_accept_calls")}
            for p, r in paths.items()
            if not (r["k2_launches"] > 0 and r["k3_launches"] > 0
+                   and r["k4_launches"] > 0
                    and r["plain_residual_calls"] == 0
+                   and r["plain_accept_calls"] == 0
                    and (p not in SUMMARY_PATHS
                         or (r["k2r_launches"] > 0
                             and r["k3r_launches"] > 0)))}
     if bad:
-        raise SystemExit(f"paths that did not linearize through K2 and K3, "
-                         f"or whose residual summary did not go through K2r "
-                         f"and K3r: {bad}")
+        raise SystemExit(f"paths that did not linearize through K2 and K3 "
+                         f"and accept through K4, or whose residual summary "
+                         f"did not go through K2r and K3r: {bad}")
 
 
 def sim_frames(sims, k):
@@ -2885,7 +3127,7 @@ def phase_cli():
            "k1_level_launches": stats["k1_level_launches"],
            "plain_lk_track_calls": stats["plain_lk_track_calls"],
            "plain_lk_level_calls": stats["plain_lk_level_calls"],
-           **factor_fields(stats["factor_kernels"]),
+           **factor_fields(stats["factor_kernels"], stats["lm_kernels"]),
            "html_bytes": html.stat().st_size,
            "card": card_name_and_power_limit(),
            "timing_s": stats["timing_s"],
@@ -3017,7 +3259,8 @@ def phase_bench():
            "ne_ab": {"seconds": ne_ab_s, **ne_ab},
            "entry": entry_rec, "card": card_name_and_power_limit(),
            "image_graphs": graph_fields(stats["graphs"]),
-           "image_factor_kernels": factor_fields(stats["factor_kernels"])}
+           "image_factor_kernels": factor_fields(stats["factor_kernels"],
+                                                 stats["lm_kernels"])}
     if not (list(e2e) == BENCH_E2E_KEYS and e2e["gt"] == "lissajous"
             and e2e["ate_online_cm"] < 10 and e2e["ate_posthoc_cm"] < 10
             and e2e["ld_err_us"] < 2):
@@ -3110,7 +3353,8 @@ def main():
         phase_build()
         level = phase_k1_level()
         k1 = phase_k1_track()
-        if_node = phase_if_node()
+        accept = phase_lm_accept()
+        while_node = phase_while_node()
         factors = phase_factor_kernels()
         # the kernel checks above have the card to themselves
         sides = [start_side("phase_serve", "phase_batch"),
@@ -3176,16 +3420,24 @@ def main():
         "bench_launches": {
             "image": bench["image"]["stats"]["k1_track_launches_by_levels"],
             "image_frames": bench["image"]["stats"]["frames"]}}, {
-        "name": "LM exit: IF node set kernel", "route": "cuda",
-        "source": "ctrlvio_tpu_torch/csrc/graph_cond.cu",
-        "replaces": "ctrlvio_tpu/solver/lm.py:247",
-        "launches": main_rec["if_node_launches_replayed"],
-        "max_abs_err": if_node["max_abs_err"], "ms": if_node["ms"],
-        "plain_ms": if_node["plain_ms"], "bound_ms": if_node["bound_ms"],
-        "bound_by": if_node["bound_by"], "library_ms": None,
-        "e2e_launches": e2e["if_node_launches_replayed"],
-        "textured_launches": textured["if_node_launches_replayed"],
-        "serve_launches": serve["if_node_launches_replayed"]}]
+        "name": "K4 lm_accept", "route": "cuda",
+        "source": "ctrlvio_tpu_torch/csrc/lm_accept.cu",
+        "replaces": "ctrlvio_tpu/solver/lm.py:232",
+        "replaces_note": "not a TPU kernel: XLA's fusion of the JAX "
+                         "package's LM body's accept test, selects and "
+                         "scalars and its while_loop's cond (lm.py:232-249)",
+        "launches": e2e["k4_launches"], "max_abs_err": accept["max_abs_err"],
+        **{k: accept[k] for k in (
+            "ms", "in_place_accept_ms", "in_place_reject_ms", "vmapped_ms",
+            "plain_ms", "plain_in_place_ms", "bound_ms", "bound_by",
+            "in_place_reject_bound_ms", "f64", "attributes")},
+        "library_ms": None,
+        "while_node": {k: while_node[k] for k in (
+            "ms_per_iteration", "plain_ms_per_iteration")},
+        "launches_by_path": {p: r["k4_launches"] for p, r in paths.items()},
+        "e2e_range": "LM accept",
+        "e2e_range_launches": e2e["eager_megastep_stages"]["ranges"][
+            "LM accept"]["kernel_launches"]}]
     replaced = {
         "k2": ("ctrlvio_tpu/solver/assemble.py:49", "vmapped _image_blocks "
                "and its one-hot expansion into dense rows"),

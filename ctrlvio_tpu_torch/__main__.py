@@ -37,7 +37,7 @@ def _cmd_run(args):
     from ctrlvio_tpu_torch.estimator.odometry import CtrlVIO
     from ctrlvio_tpu_torch.io import dataset
     from ctrlvio_tpu_torch.io.config import load_config
-    from ctrlvio_tpu_torch.ops import factor_kernels, lk
+    from ctrlvio_tpu_torch.ops import factor_kernels, lk, lm_kernels
     from ctrlvio_tpu_torch.utils import graphs
     from ctrlvio_tpu_torch.utils.device import resolve_device
     from ctrlvio_tpu_torch.utils.export import export_vio_trajectory
@@ -79,6 +79,7 @@ def _cmd_run(args):
 
     lk.reset_counts()
     factor_kernels.reset_counts()
+    lm_kernels.reset_counts()
     graphs.reset_counts()
     frame_s = []
     t0 = time.perf_counter()
@@ -91,6 +92,7 @@ def _cmd_run(args):
           f"({n / max(wall, 1e-9):.1f} fps) "
           f"line_delay={vio.traj.line_delay * 1e6:.3f} us", file=sys.stderr)
     init_t = out[0][0] if out else None
+    graphs.settle()
     stats = {
         "device": str(device), "stream": cfg.stream,
         "frames": len(seq.frame_t_ns), "poses": n, "wall_s": wall,
@@ -106,6 +108,7 @@ def _cmd_run(args):
         "plain_lk_track_calls": lk.lk_track_plain.calls,
         "plain_lk_level_calls": lk.lk_level_plain.calls,
         "factor_kernels": factor_kernels.counts(),
+        "lm_kernels": lm_kernels.counts(),
         "graphs": graphs.stats(),
         "lm_iters": vio.lm_iters_record(),
         "timing_s": dict(vio.timing),

@@ -333,13 +333,14 @@ def bench_image(args):
     f64, synchronous, `lag=0`, the plain LK. Gates: ATE < 0.15 m, line-delay
     error < 5 us. Its stderr ends with `[bench-image] stats {json}`: K1
     launches by level count, plain LK calls, the factor kernels' launches
-    (`ops/factor_kernels.py::counts`) and the captured programs
+    (`ops/factor_kernels.py::counts`), K4's (`ops/lm_kernels.py::counts`)
+    and the captured programs
     (`utils/graphs.py::stats`: on the card every capture, its replays and
     the K1 launches they made), counted over the replay."""
     from ctrlvio_tpu_torch.frontend.fused import FusedTracker, rotation_flow
     from ctrlvio_tpu_torch.frontend.klt import KLTConfig
     from ctrlvio_tpu_torch.frontend.tracker import TrackerConfig
-    from ctrlvio_tpu_torch.ops import factor_kernels, lk
+    from ctrlvio_tpu_torch.ops import factor_kernels, lk, lm_kernels
     from ctrlvio_tpu_torch.sim import render
     from ctrlvio_tpu_torch.utils import graphs
 
@@ -378,6 +379,7 @@ def bench_image(args):
         klt=KLTConfig(pred_levels=3))
     lk.reset_counts()
     factor_kernels.reset_counts()
+    lm_kernels.reset_counts()
     graphs.reset_counts()
     tracker = FusedTracker(tcfg, cam, (H, W), lag=1 if on_card else 0,
                            device=device)
@@ -432,6 +434,7 @@ def bench_image(args):
     vio.flush()
     sync(device)
     wall = time.perf_counter() - t_run0
+    graphs.settle()
     stats = {"device": str(device), "frames": len(sim.frames),
              "solved": len(est), "wall_s": wall,
              "k1_track_launches": lk.lk_track.launches,
@@ -441,6 +444,7 @@ def bench_image(args):
              "plain_lk_track_calls": lk.lk_track_plain.calls,
              "plain_lk_level_calls": lk.lk_level_plain.calls,
              "factor_kernels": factor_kernels.counts(),
+             "lm_kernels": lm_kernels.counts(),
              "n_rejected": tracker.n_rejected,
              "counts": dict(vio.counts), "graphs": graphs.stats()}
     print("[bench-image] stats " + json.dumps(stats), file=sys.stderr)

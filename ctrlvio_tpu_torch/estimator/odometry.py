@@ -29,8 +29,9 @@ place; the synchronous solve, prior build and predict solve shared by
 every estimator of the process with the same configuration
 (`_SYNC_PROGRAMS`), the first window's f64 bootstrap solve among them.
 Each solve leaves its LM loop on the device once it has converged (a
-CUDA-graph IF node a later iteration, `lm.solve_window_fixed`); `lm_iters`
-lists every solve's iteration count.
+CUDA-graph WHILE node holds the later iterations, its condition set by the
+accept step, K4: `lm.solve_window_fixed`); `lm_iters` lists every solve's
+iteration count.
 
 Initialization: external (`set_initial_state`, e.g. from
 `initializer.bootstrap_from_sim`), static (stillness, with the IMU

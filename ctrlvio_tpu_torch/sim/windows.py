@@ -1,7 +1,9 @@
 """A solve window of `bench.py`'s default sequence, for holding the factor
 kernels (K2, K3) to their plain versions and timing them at the shapes the
 estimator gives them: `chip_smoke.py`'s `factor_kernels` phase, the gpu
-tests and `tools/factor_geometry.py`."""
+tests and `tools/factor_geometry.py`; and an LM state and trial at a
+window's shapes in the accept step's cases, for K4 (`accept_case`:
+`chip_smoke.py`'s `lm_accept` phase and the tests)."""
 
 from __future__ import annotations
 
@@ -11,10 +13,12 @@ import numpy as np
 import torch
 
 from ctrlvio_tpu_torch.estimator import packing
+from ctrlvio_tpu_torch.ops.lm_kernels import LMState
 from ctrlvio_tpu_torch.ops import so3np
 from ctrlvio_tpu_torch.ops.factors import CamExtrinsics
 from ctrlvio_tpu_torch.sim import synthetic
-from ctrlvio_tpu_torch.solver.layout import WindowConfig, WindowParams
+from ctrlvio_tpu_torch.solver.layout import (SolveOptions, WindowConfig,
+                                             WindowParams)
 from ctrlvio_tpu_torch.utils.convert import from_numpy, tensor
 
 # the windows the factor kernels are held and timed at: the e2e phase's
@@ -91,3 +95,65 @@ def factor_window(cfg, dtype, device, seed=7):
     return (params, from_numpy(img, device, dtype),
             from_numpy(imu, device, dtype), ext, t(sim.gravity_vec),
             t([250.0] * 3 + [12.5] * 3), t(800.0))
+
+
+# the accept step's cases: the state's cost, lambda and done, the trial's
+# cost and `tol` (the accepted count 3 and the iteration count 4 of
+# `max_iters` 12 in every case)
+ACCEPT_CASES = {
+    "accepted": dict(cost=10.0, cost_t=8.0, lam=1e-4, done=False, tol=1e-2),
+    "rejected": dict(cost=10.0, cost_t=12.0, lam=1e-4, done=False, tol=1e-2),
+    "done": dict(cost=10.0, cost_t=8.0, lam=1e-4, done=True, tol=1e-2),
+    "nan_cost_t": dict(cost=10.0, cost_t=float("nan"), lam=1e-4, done=False,
+                       tol=1e-2),
+    "inf_cost_t": dict(cost=10.0, cost_t=-float("inf"), lam=1e-4,
+                       done=False, tol=1e-2),
+    # rel_dec exactly tol (not below it: not done); and exactly tol
+    # rounded to float32 (0.7 rounds down: below tol in double, not done
+    # in float32, as torch and JAX compare)
+    "rel_dec_at_tol": dict(cost=1.0, cost_t=0.75, lam=1e-4, done=False,
+                           tol=0.25),
+    "rel_dec_at_f32_tol": dict(cost=1.0, cost_t=0.3, lam=1e-4, done=False,
+                               tol=0.7),
+    "converged": dict(cost=10.0, cost_t=9.99, lam=1e-4, done=False,
+                      tol=1e-2),
+    # lambda down past 1e-10 and up past 1e8
+    "lam_floor": dict(cost=10.0, cost_t=8.0, lam=1.5e-10, done=False,
+                      tol=1e-2),
+    "lam_ceiling": dict(cost=10.0, cost_t=12.0, lam=5e7, done=False,
+                        tol=1e-2)}
+ACCEPT_N_ACC, ACCEPT_ITERS, ACCEPT_MAX_ITERS = 3, 4, 12
+
+
+def accept_shapes(cfg: WindowConfig):
+    """The LM state's leaves' shapes at `cfg`: the window parameters
+    (knots_q, knots_p, bg, ba, dinv, ld) and the normal equations (H, g,
+    h_ll, g_l, H_cl)."""
+    C = cfg.C
+    return [(cfg.KW, 4), (cfg.KW, 3), (cfg.NB, 3), (cfg.NB, 3), (cfg.LM,),
+            (), (C, C), (C,), (cfg.LM,), (cfg.LM,), (cfg.LM, C)]
+
+
+def accept_case(cfg: WindowConfig, dtype, device, case="accepted", seed=0):
+    """An LM state and a trial at `cfg`'s shapes in `dtype` on `device`,
+    their leaves drawn from `seed`, their scalars `ACCEPT_CASES[case]`'s.
+    Returns (state, trial params, trial normal equations, trial cost,
+    SolveOptions with the case's tol and `ACCEPT_MAX_ITERS`)."""
+    c = ACCEPT_CASES[case]
+    rng = np.random.default_rng(seed)
+    npdt = np.float64 if dtype == torch.float64 else np.float32
+
+    def draw():
+        return [torch.from_numpy(rng.normal(size=s).astype(npdt)).to(device)
+                for s in accept_shapes(cfg)]
+
+    state, trial = draw(), draw()
+    scalar = lambda x, dt=dtype: torch.tensor(x, dtype=dt, device=device)  # noqa: E731
+    st = LMState(WindowParams(*state[:6]), tuple(state[6:]),
+                 scalar(c["cost"]), scalar(c["lam"]),
+                 scalar(ACCEPT_N_ACC, torch.int64),
+                 scalar(c["done"], torch.bool),
+                 scalar(ACCEPT_ITERS, torch.int64))
+    opts = SolveOptions(max_iters=ACCEPT_MAX_ITERS, tol=c["tol"])
+    return (st, WindowParams(*trial[:6]), tuple(trial[6:]),
+            scalar(c["cost_t"]), opts)

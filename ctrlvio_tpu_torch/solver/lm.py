@@ -4,24 +4,27 @@ port of `ctrlvio_tpu/solver/lm.py`).
 Per iteration: normal equations (camera system H (C,C), diagonal landmark
 block, coupling H_cl) -> damped Schur-complement solve (Jacobi-scaled
 Cholesky, or fixed-count block-Jacobi PCG) -> landmark back-substitution
--> robust-cost accept/reject with the lambda schedule. Two loops share
-that iteration body:
+-> robust-cost accept/reject with the lambda schedule, which is one
+launch of kernel K4 on the card (`ops/lm_kernels.py::accept_step`: every
+piece of state selected on a device `accept` that is false once a device
+flag `done`, an accepted step with relative cost decrease below
+`opts.tol`, is set). Two loops share that iteration body:
 
-- `solve_window` stops at `opts.max_iters` or at the first accepted step
-  whose relative cost decrease is below `opts.tol`, reading the device
-  twice an iteration to decide;
-- `solve_window_fixed` never reads the device: a device flag `done` (set
-  by the same rule) freezes every piece of state, so its result equals the
-  other's. Its iterations after the first each sit behind
-  `graphs.run_if(~done, ...)`: in a captured program a CUDA-graph IF node
-  skips them once the solve is done, as the JAX package's device-side
-  while loop leaves; run eagerly (and on the CPU) all `opts.max_iters`
-  run, the frozen ones changing nothing. Every captured solve uses it.
+- `solve_window` stops at `opts.max_iters` or once `done` is set, reading
+  the device once an iteration to decide;
+- `solve_window_fixed` never reads the device, so its result equals the
+  other's. Its iterations after the first are the body of
+  `graphs.run_while`: in a captured program a CUDA-graph WHILE node whose
+  condition K4 sets (not done, fewer than `max_iters` iterations), as the
+  JAX package's device-side while loop runs; run eagerly (and on the CPU)
+  all `opts.max_iters` run, the frozen ones changing nothing. Every
+  captured solve uses it.
 
 `SolveStats.iters` is the iteration at which `done` was set, or
 `max_iters` (≙ the JAX loop's `it` carry at its exit). The normal
-equations, the Schur solve and the retraction run inside
-`torch.profiler.record_function` ranges of those names.
+equations, the Schur solve, the retraction and the accept step run inside
+`torch.profiler.record_function` ranges of those names ("LM accept" for
+the last).
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ from typing import NamedTuple, Optional
 import torch
 from torch.profiler import record_function
 
+from ctrlvio_tpu_torch.ops.lm_kernels import (  # noqa: F401
+    LMState, accept_step, accept_step_plain)
 from ctrlvio_tpu_torch.utils import graphs
 
 from . import assemble
@@ -45,18 +50,6 @@ class SolveStats(NamedTuple):
     lm_lambda: torch.Tensor
     accepted: torch.Tensor  # number of accepted steps
     iters: torch.Tensor     # iterations until done, or max_iters (int64)
-
-
-class _LMState(NamedTuple):
-    """What one LM iteration carries to the next."""
-
-    p: WindowParams
-    ne: tuple
-    cost: torch.Tensor
-    lam: torch.Tensor
-    n_acc: torch.Tensor
-    done: torch.Tensor
-    iters: torch.Tensor
 
 
 def cholesky_nan(A):
@@ -224,10 +217,10 @@ def _setup(params: WindowParams, img: ImageFactors, imu: ImuFactors,
     return cmask, lm_mask, ne_at
 
 
-def _trial(p, ne, cost, lam, cmask, lm_mask, ne_at, cfg: WindowConfig,
+def _trial(p, ne, lam, cmask, lm_mask, ne_at, cfg: WindowConfig,
            opts: SolveOptions):
     """One LM iteration's trial step from p: (trial params, its normal
-    equations, its cost, device bool `accept`)."""
+    equations, its cost)."""
     with record_function("Schur solve"):
         dx, dx_lm = schur_solve(*ne, lam, cmask, solver=opts.solver,
                                 cg_iters=opts.cg_iters)
@@ -235,8 +228,36 @@ def _trial(p, ne, cost, lam, cmask, lm_mask, ne_at, cfg: WindowConfig,
         trial = retract(p, dx, cfg, opts)
         trial = trial._replace(dinv=p.dinv + dx_lm * lm_mask)
     ne_t, cost_t = ne_at(trial)
-    accept = (cost_t < cost) & torch.isfinite(cost_t)
-    return trial, ne_t, cost_t, accept
+    return trial, ne_t, cost_t
+
+
+def _iteration(st: LMState, cmask, lm_mask, ne_at, cfg: WindowConfig,
+               opts: SolveOptions, handle=None,
+               in_place: bool = False) -> LMState:
+    """One LM iteration: the trial, then the accept step (K4 on the card;
+    `handle`, `in_place` as `accept_step` takes them)."""
+    trial, ne_t, cost_t = _trial(st.p, st.ne, st.lam, cmask, lm_mask, ne_at,
+                                 cfg, opts)
+    with record_function("LM accept"):
+        return accept_step(st, trial, ne_t, cost_t, opts, handle, in_place)
+
+
+def _start(params, ne_at, opts: SolveOptions) -> LMState:
+    """The state before the first iteration."""
+    dtype, dev = params.knots_p.dtype, params.knots_p.device
+    ne, cost0 = ne_at(params)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    return LMState(p=params, ne=ne, cost=cost0,
+                   lam=torch.full((), opts.lm_lambda_init, dtype=dtype,
+                                  device=dev),
+                   n_acc=zero, done=torch.zeros((), dtype=torch.bool,
+                                                device=dev),
+                   iters=zero)
+
+
+def _stats(cost0, st: LMState) -> SolveStats:
+    return SolveStats(cost0=cost0, cost=st.cost, lm_lambda=st.lam,
+                      accepted=st.n_acc, iters=st.iters)
 
 
 def solve_window(params: WindowParams, img: ImageFactors, imu: ImuFactors,
@@ -245,7 +266,7 @@ def solve_window(params: WindowParams, img: ImageFactors, imu: ImuFactors,
                  cfg: WindowConfig, opts: SolveOptions,
                  ne_mode: str = "chunked", chunk: Optional[int] = None):
     """Run up to `opts.max_iters` LM iterations, leaving the loop on the
-    host at the first accepted step with relative decrease below `tol`.
+    host once an accepted step's relative decrease is below `tol`.
 
     fixed_knots: (KW,) bool, knots held constant.
     ne_mode: "chunked" (`assemble.accumulate_normal_equations`, `chunk`
@@ -253,53 +274,16 @@ def solve_window(params: WindowParams, img: ImageFactors, imu: ImuFactors,
     hoisted out of the loop) or "dense" (`assemble.linearize` +
     `build_normal_equations`); the two are algebraically identical.
     Returns (params, SolveStats)."""
-    dtype, dev = params.knots_p.dtype, params.knots_p.device
     cmask, lm_mask, ne_at = _setup(params, img, imu, bias, prior, fixed_knots,
                                    ext, gravity, imu_info, sqrt_info_img, cfg,
                                    opts, ne_mode, chunk)
-    ne, cost = ne_at(params)
-    cost0 = cost
-    p = params
-    lam = torch.full((), opts.lm_lambda_init, dtype=dtype, device=dev)
-    n_acc = n_it = 0
+    st = _start(params, ne_at, opts)
+    cost0 = st.cost
     for _ in range(opts.max_iters):
-        n_it += 1
-        trial, ne_t, cost_t, accept = _trial(p, ne, cost, lam, cmask, lm_mask,
-                                             ne_at, cfg, opts)
-        if bool(accept):
-            rel_dec = (cost - cost_t) / torch.clamp(cost, min=1e-30)
-            p, ne, cost = trial, ne_t, cost_t
-            lam = torch.clamp(lam * opts.lm_lambda_down, 1e-10, 1e8)
-            n_acc += 1
-            if bool(rel_dec < opts.tol):
-                break
-        else:
-            lam = torch.clamp(lam * opts.lm_lambda_up, 1e-10, 1e8)
-    return p, SolveStats(cost0=cost0, cost=cost, lm_lambda=lam,
-                         accepted=torch.tensor(n_acc, device=dev),
-                         iters=torch.tensor(n_it, device=dev))
-
-
-def _iteration(st: _LMState, cmask, lm_mask, ne_at, cfg: WindowConfig,
-               opts: SolveOptions) -> _LMState:
-    """One LM iteration of `solve_window_fixed`: every piece of state
-    selected by `torch.where` on a device `accept` that is false once
-    `done` is set, so an iteration after `done` changes nothing."""
-    p, ne, cost, lam, n_acc, done, iters = st
-    trial, ne_t, cost_t, accept = _trial(p, ne, cost, lam, cmask, lm_mask,
-                                         ne_at, cfg, opts)
-    accept = accept & ~done
-    rel_dec = (cost - cost_t) / torch.clamp(cost, min=1e-30)
-    lam_next = torch.clamp(torch.where(accept, lam * opts.lm_lambda_down,
-                                       lam * opts.lm_lambda_up), 1e-10, 1e8)
-    return _LMState(
-        p=type(p)(*(torch.where(accept, b, a) for a, b in zip(p, trial))),
-        ne=tuple(torch.where(accept, b, a) for a, b in zip(ne, ne_t)),
-        cost=torch.where(accept, cost_t, cost),
-        lam=torch.where(done, lam, lam_next),
-        n_acc=n_acc + accept.to(torch.int64),
-        done=done | (accept & (rel_dec < opts.tol)),
-        iters=iters + (~done).to(torch.int64))
+        st = _iteration(st, cmask, lm_mask, ne_at, cfg, opts)
+        if bool(st.done):
+            break
+    return st.p, _stats(cost0, st)
 
 
 def solve_window_fixed(params: WindowParams, img: ImageFactors,
@@ -309,44 +293,35 @@ def solve_window_fixed(params: WindowParams, img: ImageFactors,
                        ne_mode: str = "chunked",
                        chunk: Optional[int] = None, reduce=None,
                        exit_node: bool = True):
-    """`solve_window` with no host exit. Each iteration selects params,
-    normal equations, cost, lambda and the accepted count by `torch.where`
-    on a device `accept` that is false once `done` (an accepted step with
-    relative decrease below `tol`) is set. Same result as `solve_window`;
-    nothing is read back.
+    """`solve_window` with no host exit. Each iteration's accept step
+    selects params, normal equations, cost, lambda and the accepted count
+    on a device `accept` that is false once `done` is set. Same result as
+    `solve_window`; nothing is read back.
 
-    exit_node: iterations 2..`max_iters` each run behind
-    `graphs.run_if(~done, ...)`, updating the state's buffers (made by the
-    first iteration) in place: a captured program skips them once the
-    solve is done, eagerly all run. False runs every iteration
-    unconditionally: the form `torch.func.vmap` takes (a batched `done` is
-    no scalar predicate), and the form a reduced solve takes (`reduce`,
-    see `_setup`), so that ranks that each hold a shard of the factors
-    make the same collectives in the same order whatever the card
-    skips."""
-    dtype, dev = params.knots_p.dtype, params.knots_p.device
+    exit_node: iterations 2..`max_iters` are one `graphs.run_while` body,
+    updating the state's tensors (made by the first iteration) in place,
+    its accept step (K4) setting the WHILE node's condition: a captured
+    program stops once the solve is done, eagerly all run. False runs
+    every iteration unconditionally, each making fresh tensors: the form
+    `torch.func.vmap` takes (a batched `done` is no scalar condition),
+    and the form a reduced solve takes (`reduce`, see `_setup`), so that
+    ranks that each hold a shard of the factors make the same collectives
+    in the same order whatever the card skips."""
     cmask, lm_mask, ne_at = _setup(params, img, imu, bias, prior, fixed_knots,
                                    ext, gravity, imu_info, sqrt_info_img, cfg,
                                    opts, ne_mode, chunk, reduce)
-    ne, cost0 = ne_at(params)
-    zero = torch.zeros((), dtype=torch.int64, device=dev)
-    st = _LMState(p=params, ne=ne, cost=cost0,
-                  lam=torch.full((), opts.lm_lambda_init, dtype=dtype,
-                                 device=dev),
-                  n_acc=zero, done=torch.zeros((), dtype=torch.bool,
-                                               device=dev),
-                  iters=zero)
+    st = _start(params, ne_at, opts)
+    cost0 = st.cost
+    if not (exit_node and reduce is None) or opts.max_iters < 2:
+        for _ in range(opts.max_iters):
+            st = _iteration(st, cmask, lm_mask, ne_at, cfg, opts)
+        return st.p, _stats(cost0, st)
+    handle = graphs.while_handle(params.knots_p.device)
+    # fresh tensors: the ones the later iterations update
+    st = _iteration(st, cmask, lm_mask, ne_at, cfg, opts, handle)
 
-    def step(s):
-        return _iteration(s, cmask, lm_mask, ne_at, cfg, opts)
+    def body(s, h):
+        _iteration(s, cmask, lm_mask, ne_at, cfg, opts, h, in_place=True)
 
-    if opts.max_iters > 0:
-        st = step(st)  # fresh tensors: the buffers the later ones update
-    for _ in range(1, opts.max_iters):
-        if exit_node and reduce is None:
-            graphs.run_if(~st.done,
-                          lambda s: graphs.copy_tree(s, step(s)), st)
-        else:
-            st = step(st)
-    return st.p, SolveStats(cost0=cost0, cost=st.cost, lm_lambda=st.lam,
-                            accepted=st.n_acc, iters=st.iters)
+    graphs.run_while(body, st, opts.max_iters - 1, handle)
+    return st.p, _stats(cost0, st)

@@ -38,23 +38,29 @@ one at a time on the current stream of the thread that runs them, and
 each keeps its own outputs alive: a replay writes only into its own
 outputs and into intermediates that no live tensor holds.
 
-`run_if(pred, body, carry)` is the one control-flow primitive (≙ the
-exit of `lax.while_loop`): while a graph is captured it records `body`
-into a CUDA-graph IF node on the 0-dim device bool `pred`, so a replay
-runs the body only where `pred` is true; run eagerly (the warm-up before
-a capture, the CPU) the body always runs. `body` writes its results into
-the `carry` tensors in place, and nothing made inside it is read after
-it. The installed torch (2.11) has no conditional node of its own, so
-the node comes from `csrc/graph_cond.cu` (built at first use, like the
-kernels): a one-thread kernel sets the node's condition from `pred` on
-each replay, and the body is captured on a stream of its own, its memory
-from a graph pool of its own. Each recorded body also adds one to a
-device counter, so `stats` reports the bodies the replays ran.
+`run_while(body, carry, max_trips, handle)` is the one control-flow
+primitive (≙ `lax.while_loop`): while a graph is captured it records
+`body(carry, handle)` once into a CUDA-graph WHILE node on the
+conditional handle `handle` (`while_handle`, made on the captured graph
+before the kernel that first sets it), so a replay runs the body while the
+handle is non-zero, testing it before each trip; a kernel of the body sets
+it again (the LM's accept step, K4). Run eagerly (the warm-up before a
+capture, the CPU: `while_handle` gives None) the body runs `max_trips`
+times. `body` writes its results into the `carry` tensors in place, and
+nothing made inside it is read after it. The installed torch (2.11) has no
+conditional node of its own, so the node comes from `csrc/graph_cond.cu`
+(built at first use, like the kernels): the body is captured on a stream
+of its own, its memory from a graph pool of its own, and added to the
+node as a child graph. Each recorded body also adds one to its node's
+device counter of trips, so `stats` reports the trips the replays ran.
 
 A kernel wrapper registered with `register_counter` counts its kernel's
 launches as they run. A launch made while a graph is captured runs nothing:
 its count is taken back, held by the program, and added again on each
-replay. `stats` lists the captures (key, seconds, reserved device memory
+replay; a launch recorded into a WHILE node's body is held by the node
+instead, and counts once for each trip the node's counter shows when the
+counts are settled (`settle`, which `stats` calls: a read of the device).
+`stats` lists the captures (key, seconds, reserved device memory
 before and after) and counts the replays and the launches they made.
 """
 
@@ -74,13 +80,15 @@ _COUNTERS: List = []
 # every live cache, for the size of their pools (`pool_mb`)
 _CACHES = weakref.WeakSet()
 _STATS: Dict = {}
-# device -> int64 tensor: the recorded `run_if` bodies the replays ran
-_BODIES: Dict = {}
+# device -> int64 tensor (MAX_WHILE_NODES,): each recorded WHILE node's
+# trips run by the replays, a slot a node
+_TRIPS: Dict = {}
+MAX_WHILE_NODES = 1024
+# each recorded WHILE node: [its device's trip counters, its slot, the
+# launches its body holds, the trips already settled]
+_NODES: List = []
 # device -> (the stream bodies are captured on, their graph pool)
 _BODY_STREAMS: Dict = {}
-# launches of the IF nodes' set kernel (`csrc/graph_cond.cu`), a counter
-# like a kernel wrapper's: a capture holds them, each replay adds them
-_IF_LAUNCHES: Dict[str, int] = {"if_node_set": 0}
 
 
 def register_counter(read: Callable[[], Dict[str, int]],
@@ -89,28 +97,19 @@ def register_counter(read: Callable[[], Dict[str, int]],
     _COUNTERS.append((read, add))
 
 
-def _read_if_launches():
-    return dict(_IF_LAUNCHES)
-
-
-def _add_if_launches(d):
-    for k, v in d.items():
-        _IF_LAUNCHES[k] += v
-
-
 def reset_counts():
     """Forget the recorded captures and set the replay counts to 0 (the
     programs themselves stay captured)."""
     _STATS.clear()
     _STATS.update(captures=[], replays=0, launches_replayed={},
-                  launches_warm_up={}, if_nodes=0)
-    for t in _BODIES.values():
+                  launches_warm_up={}, while_nodes=0)
+    for t in _TRIPS.values():
         t.zero_()
-    _IF_LAUNCHES["if_node_set"] = 0
+    for node in _NODES:
+        node[3] = 0
 
 
 reset_counts()
-register_counter(_read_if_launches, _add_if_launches)
 
 
 def _read_counts():
@@ -223,38 +222,40 @@ def _indexed(device: torch.device) -> torch.device:
     return device
 
 
-def _body_counter(device: torch.device) -> torch.Tensor:
-    """The device's counter of recorded bodies run, made by `Program`
-    before its capture: one made during a capture would be the graph's
+def _trip_counters(device: torch.device) -> torch.Tensor:
+    """The device's counters of WHILE-node trips, made by `Program` before
+    its capture: counters made during a capture would be the graph's
     memory, zeroed by a kernel of the graph."""
     device = _indexed(device)
-    if device not in _BODIES:
+    if device not in _TRIPS:
         if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("graphs.run_if records its node only in a "
+            raise RuntimeError("graphs.run_while records its node only in a "
                                "`Program`'s capture")
-        _BODIES[device] = torch.zeros((), dtype=torch.int64, device=device)
-    return _BODIES[device]
+        _TRIPS[device] = torch.zeros((MAX_WHILE_NODES,), dtype=torch.int64,
+                                     device=device)
+    return _TRIPS[device]
 
 
 def _cond_lib():
-    """The IF-node helper (`csrc/graph_cond.cu`), built at first use."""
+    """The WHILE-node helper (`csrc/graph_cond.cu`), built at first use."""
     import ctypes
 
     from . import cuda_build
 
     lib = cuda_build.load("graph_cond")
     p = ctypes.c_void_p
-    lib.if_stream_create.argtypes = [ctypes.POINTER(p)]
-    lib.if_begin.argtypes = [p, p, p, ctypes.POINTER(p)]
-    lib.if_end.argtypes = [p, p]
-    lib.if_error_string.argtypes = [ctypes.c_int]
-    lib.if_error_string.restype = ctypes.c_char_p
+    lib.cond_stream_create.argtypes = [ctypes.POINTER(p)]
+    lib.cond_handle_create.argtypes = [p, ctypes.POINTER(ctypes.c_ulonglong)]
+    lib.while_begin.argtypes = [p, ctypes.c_ulonglong, p, ctypes.POINTER(p)]
+    lib.while_end.argtypes = [p, p]
+    lib.cond_error_string.argtypes = [ctypes.c_int]
+    lib.cond_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def _cond_check(lib, err: int, what: str):
     if err != 0:
-        raise RuntimeError(f"{what}: {lib.if_error_string(err).decode()}")
+        raise RuntimeError(f"{what}: {lib.cond_error_string(err).decode()}")
 
 
 def _body_stream(device: torch.device):
@@ -269,7 +270,7 @@ def _body_stream(device: torch.device):
         lib = _cond_lib()
         raw = ctypes.c_void_p()
         with torch.cuda.device(device):
-            _cond_check(lib, lib.if_stream_create(ctypes.byref(raw)),
+            _cond_check(lib, lib.cond_stream_create(ctypes.byref(raw)),
                         "creating the body stream")
         _BODY_STREAMS[device] = (torch.cuda.ExternalStream(raw.value,
                                                            device=device),
@@ -277,36 +278,79 @@ def _body_stream(device: torch.device):
     return _BODY_STREAMS[device]
 
 
-def run_if(pred: torch.Tensor, body: Callable, carry) -> None:
-    """`body(carry)` where the 0-dim bool tensor `pred` is true: recorded
-    into a CUDA-graph IF node while the current stream is captured, run
-    unconditionally otherwise (see the module notes). `body` updates the
-    tensors of `carry` in place."""
-    if not (pred.is_cuda and torch.cuda.is_current_stream_capturing()):
-        body(carry)
+def while_handle(device) -> Optional[int]:
+    """A conditional handle for `run_while`'s node, made on the graph that
+    the current stream of `device` is capturing (1 at each replay until a
+    kernel sets it); None when no capture is active, where `run_while`
+    runs its body eagerly."""
+    device = torch.device(device)
+    if not (device.type == "cuda"
+            and torch.cuda.is_current_stream_capturing()):
+        return None
+    import ctypes
+
+    lib = _cond_lib()
+    h = ctypes.c_ulonglong()
+    _cond_check(lib, lib.cond_handle_create(
+        torch.cuda.current_stream(device).cuda_stream, ctypes.byref(h)),
+        "making a conditional handle")
+    return h.value
+
+
+def run_while(body: Callable, carry, max_trips: int,
+              handle: Optional[int]) -> None:
+    """`body(carry, handle)` as a loop: with a `handle` (`while_handle`,
+    inside a capture) recorded once into a CUDA-graph WHILE node on it,
+    which a replay runs while the handle is non-zero; with None, run
+    `max_trips` times (see the module notes). `body` updates the tensors
+    of `carry` in place, and a kernel of it sets the handle."""
+    if handle is None:
+        for _ in range(max_trips):
+            body(carry, None)
         return
     import ctypes
 
     lib = _cond_lib()
-    device = pred.device
-    counter = _body_counter(device)
+    device = _indexed(leaves(carry)[0].device)
+    trips = _trip_counters(device)
+    slot = sum(1 for n in _NODES if n[0] is trips)
+    if slot >= MAX_WHILE_NODES:
+        raise RuntimeError(f"more than {MAX_WHILE_NODES} WHILE nodes "
+                           f"recorded on {device}")
     side, pool = _body_stream(device)
-    pred = pred.to(torch.bool).contiguous()
     node_body = ctypes.c_void_p()
-    _cond_check(lib, lib.if_begin(
-        torch.cuda.current_stream(device).cuda_stream, pred.data_ptr(),
-        side.cuda_stream, ctypes.byref(node_body)), "adding an IF node")
-    _IF_LAUNCHES["if_node_set"] += 1
+    _cond_check(lib, lib.while_begin(
+        torch.cuda.current_stream(device).cuda_stream, handle,
+        side.cuda_stream, ctypes.byref(node_body)), "adding a WHILE node")
     torch._C._cuda_beginAllocateCurrentThreadToPool(device.index, pool)
     try:
-        with torch.cuda.stream(side):
-            body(carry)
-            counter.add_(1)
+        with torch.cuda.stream(side), held_launches() as held:
+            body(carry, handle)
+            trips[slot: slot + 1].add_(1)
     finally:
         torch._C._cuda_endAllocateToPool(device.index, pool)
-        err = lib.if_end(side.cuda_stream, node_body)
-    _cond_check(lib, err, "ending an IF node's body")
-    _STATS["if_nodes"] += 1
+        err = lib.while_end(side.cuda_stream, node_body)
+    _cond_check(lib, err, "ending a WHILE node's body")
+    _NODES.append([trips, slot, held, 0])
+    _STATS["while_nodes"] += 1
+
+
+def settle():
+    """Add the launches of the WHILE nodes' bodies to the registered
+    counts and to the replays' launches, once for each trip the nodes'
+    device counters show since the last settle (a read of the device)."""
+    if not _NODES:
+        return
+    read = {id(t): t.tolist() for t in _TRIPS.values()}
+    for node in _NODES:
+        trips, slot, held, done = node
+        n = read[id(trips)][slot] - done
+        if n:
+            deltas = [{k: v * n for k, v in d.items()} for d in held]
+            for (_, add), d in zip(_COUNTERS, deltas):
+                add(d)
+            _tally(_STATS["launches_replayed"], deltas)
+            node[3] += n
 
 
 # ---------------------------------------------------------------------------
@@ -405,7 +449,7 @@ class Program:
         self.inputs = tree_map(on_device, args)
         self._body, self._device = body, device
         if device.type == "cuda":
-            _body_counter(device)
+            _trip_counters(device)
         with _cusolver(device), _capture_stream(device) as stream:
             t0 = time.perf_counter()
             before = _read_counts()
@@ -488,17 +532,19 @@ class ProgramCache:
 
 
 def stats() -> dict:
-    """What the programs of this process did since `reset_counts`:
-    `graphs_captured` (one record a capture: its warm-up and capture
-    seconds), `capture_s` (both, summed), `graph_pool_mb`
-    (`pool_mb`), `replays`, and the registered kernels' launches made by
-    replays and by the warm-up runs before captures; `if_nodes`, the
-    `run_if` nodes captured, and `if_bodies_run`, the recorded bodies the
-    replays ran (a read of the device counters)."""
+    """What the programs of this process did since `reset_counts`, the
+    counts settled first (`settle`): `graphs_captured` (one record a
+    capture: its warm-up and capture seconds), `capture_s` (both,
+    summed), `graph_pool_mb` (`pool_mb`), `replays`, and the registered
+    kernels' launches made by replays (WHILE bodies' once a trip) and by
+    the warm-up runs before captures; `while_nodes`, the `run_while`
+    nodes captured, and `if_bodies_run`, the trips their bodies ran on
+    replays (a read of the device counters)."""
+    settle()
     caps = list(_STATS["captures"])
     return {"graphs_captured": caps,
-            "if_nodes": _STATS["if_nodes"],
-            "if_bodies_run": sum(int(t) for t in _BODIES.values()),
+            "while_nodes": _STATS["while_nodes"],
+            "if_bodies_run": sum(int(t.sum()) for t in _TRIPS.values()),
             "capture_s": sum(c["warm_up_s"] + c["s"] for c in caps),
             "graph_pool_mb": pool_mb(),
             "replays": _STATS["replays"],

@@ -4,7 +4,7 @@ CPU through the test-only replay stand-in (`tests/torch_graph_standin.py`):
 lane by lane bit-equal to the eager `torch.func.vmap`, with JAX's
 `lm.solve_window` on each lane's own inputs as the oracle (as
 `tests/test_torch_batch.py`), which also holds the replayed single solve
-of `tests/test_torch_lm_exit.py`, whose IF nodes skip what it froze. One
+of `tests/test_torch_lm_exit.py`, whose WHILE node stops once it froze. One
 JAX compile for the file: every JAX solve shares its options."""
 
 import warnings
@@ -78,7 +78,7 @@ def test_batched_program_equals_eager_vmap(prob, lanes):
 
 
 def test_replayed_exit_solve_matches_jax(prob, lanes):
-    """The single f64 chol solve replayed with its IF nodes (the lm_exit
+    """The single f64 chol solve replayed with its WHILE node (the lm_exit
     file's case, lane 0 here) against JAX's `lm.solve_window` on the same
     numpy inputs, at `tests/test_torch_lm.py`'s tolerances: the same
     accepted steps, cost0, damping, cost to 1e-8 and params to 1e-7."""

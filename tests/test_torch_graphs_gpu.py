@@ -111,9 +111,11 @@ def test_megastep_program_matches_eager(cuda, marg_old):
     assert prog.replays == 2
 
 
-def test_batched_program_matches_eager(cuda):
+def test_batched_program_matches_eager(cuda, deterministic):
     """The batched megastep's program over a MARGIN_OLD lane and a
-    MARGIN_SECOND_NEW lane against the eager vmapped call."""
+    MARGIN_SECOND_NEW lane against the eager vmapped call, both under
+    deterministic algorithms (CUDA's atomic `index_add` sums in another
+    order on each run otherwise, which the LM iterations amplify)."""
     pa = [port_args(build_case(m), cuda, torch.float32)[0]
           for m in (True, False)]
     _, _, ext, g, info, w, cfg, opts = pa[0]
@@ -271,11 +273,12 @@ def _equal(a, b):
 @pytest.mark.parametrize("marg_old", [True, False])
 def test_megastep_exit_nodes_bit_equal_and_skip(cuda, deterministic,
                                                 marg_old):
-    """The solo megastep's program with the LM's exit nodes, under
+    """The solo megastep's program with the LM's exit node, under
     deterministic algorithms: its state and summary equal the eager call's
     bit for bit (the eager call runs every iteration, the frozen ones
-    changing nothing), and the replay ran the IF nodes' bodies of the
-    iterations before `iters` only (the device counter of bodies run)."""
+    changing nothing), and the replay ran the WHILE node's body for the
+    iterations after the first up to `iters` only (the device counter of
+    trips), K4 once before the node and once a trip."""
     args, static = _megastep(build_case(marg_old), cuda)
     ref = stream.megastep(*graphs.clone(args), **static)
     prog = graphs.ProgramCache().get(stream.megastep, graphs.clone(args),
@@ -289,8 +292,7 @@ def test_megastep_exit_nodes_bit_equal_and_skip(cuda, deterministic,
     assert _equal(got, ref)
     assert 1 <= iters < static["opts"].max_iters
     assert st["if_bodies_run"] == iters - 1
-    assert st["launches_replayed"]["if_node_set"] == \
-        static["opts"].max_iters - 1
+    assert st["launches_replayed"]["lm_accept"] == iters
 
 
 def test_batched_solver_program_bit_equal(cuda, deterministic):
@@ -390,12 +392,12 @@ HOST_READ_IN_NODE = """
 import torch
 from ctrlvio_tpu_torch.utils import graphs
 calls = []
-def body(c):
+def body(c, h):
     calls.append(1)
     c.add_(float(c.sum()))
 def reads_host_in_node(x):
     y = x * 2.0
-    graphs.run_if(y.sum() > 0, body, y)
+    graphs.run_while(body, y, 1, graphs.while_handle(y.device))
     return y
 try:
     graphs.ProgramCache().get(reads_host_in_node,
@@ -407,9 +409,9 @@ except RuntimeError:
 
 
 def test_capture_of_a_host_read_in_a_node_raises(cuda):
-    """A host read inside an IF node's body cannot be captured either: the
-    capture raises (the body ran twice: the warm-up, then the attempted
-    capture), in a process of its own."""
+    """A host read inside a WHILE node's body cannot be captured either:
+    the capture raises (the body ran twice: the warm-up, then the
+    attempted capture), in a process of its own."""
     out = subprocess.run([sys.executable, "-c", HOST_READ_IN_NODE],
                          cwd=ROOT, capture_output=True, text=True,
                          timeout=300)

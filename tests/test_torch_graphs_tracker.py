@@ -4,7 +4,7 @@ f64 bootstrap BA as a program, on the CPU through the test-only replay
 stand-in (`tests/torch_graph_standin.py`), against the eager runs: equal
 bit for bit. Also a short sequence through the synchronous estimator at
 the default LM depths, whose replayed solves skip the iterations after
-convergence (the stand-in models the IF nodes of `graphs.run_if`), and
+convergence (the stand-in models the WHILE node of `graphs.run_while`), and
 the bootstrap's timing keys."""
 
 import numpy as np
@@ -20,7 +20,7 @@ from ctrlvio_tpu_torch.ops import lk
 from ctrlvio_tpu_torch.sim import render, synthetic
 from ctrlvio_tpu_torch.solver import gauge, lm
 from ctrlvio_tpu_torch.utils import graphs
-from tests.torch_graph_standin import (IF_COUNTS, assert_same_estimate,
+from tests.torch_graph_standin import (WHILE_COUNTS, assert_same_estimate,
                                        captured, replayed_programs, run)
 from tests.torch_parity import one_torch_thread  # noqa: F401
 
@@ -103,7 +103,7 @@ def runs():
             got = run(s, **kw)
         finally:
             odometry.window_solve = solve
-        counts, keys = dict(IF_COUNTS), captured()
+        counts, keys = dict(WHILE_COUNTS), captured()
     return eager, got, counts, keys, boot
 
 

@@ -1,6 +1,8 @@
 """The port's hand-written CUDA kernels on the card, against their plain
 PyTorch versions: K1 (`csrc/lk.cu`), K2 and K3 and their residual-only
-instances K2r and K3r (`csrc/factors.cu`). Every test here needs a CUDA
+instances K2r and K3r (`csrc/factors.cu`), K4 (`csrc/lm_accept.cu`, the
+LM's accept step, and the WHILE node whose condition it sets). Every
+test here needs a CUDA
 device and skips without one. The file imports neither JAX nor the JAX package, so that it runs on
 a machine that has only PyTorch:
 
@@ -12,14 +14,18 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (CASE_LEVELS, FACTOR_TOL, FACTOR_WINDOWS,
+from chip_smoke import (CASE_LEVELS, FACTOR_TOL, FACTOR_WINDOWS, LOOP_ITERS,
                         SEARCH_MARGIN, TRACK_CASES, factor_calls,
-                        factor_window, rel_err, residual_calls,
-                        textured_pair, track_case)
+                        factor_window, k4_loop, loop_args, rel_err,
+                        residual_calls,
+                        stack_tree, textured_pair, track_case, tree_err)
 from ctrlvio_tpu_torch.frontend import klt
 from ctrlvio_tpu_torch.ops import factor_kernels as fk
 from ctrlvio_tpu_torch.ops import lk
+from ctrlvio_tpu_torch.ops import lm_kernels as k4
 from ctrlvio_tpu_torch.parallel.batch import stack
+from ctrlvio_tpu_torch.sim.windows import ACCEPT_CASES, accept_case
+from ctrlvio_tpu_torch.utils import graphs
 
 pytestmark = pytest.mark.gpu
 
@@ -515,3 +521,107 @@ def test_residual_wrappers_reject_what_the_kernels_do_not_take(cuda):
         k3r(p=params._replace(bg=params.bg[:-1]))
     assert (fk.image_factor_residuals.launches,
             fk.imu_factor_residuals.launches) == (n2, n3)
+
+
+def _accept_plain(st, trial, ne_t, cost_t, opts):
+    return k4.accept_step_plain(st, trial, ne_t, cost_t, opts.lm_lambda_down,
+                                opts.lm_lambda_up, opts.tol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("in_place", [False, True])
+def test_k4_matches_plain_version(cuda, dtype, in_place):
+    """K4 at the e2e window in every accept case, the functional instance
+    and the in-place one: the plain version's bits, one launch a call."""
+    cfg = FACTOR_WINDOWS["e2e"]
+    for case in ACCEPT_CASES:
+        st, trial, ne_t, cost_t, opts = accept_case(cfg, dtype, cuda, case)
+        ref = _accept_plain(st, trial, ne_t, cost_t, opts)
+        work = graphs.clone(st) if in_place else st
+        n = k4.accept_step.launches
+        got = k4.accept_step(work, trial, ne_t, cost_t, opts,
+                             in_place=in_place)
+        assert k4.accept_step.launches == n + 1
+        torch.cuda.synchronize()
+        assert tree_err(got, ref) == 0.0, case
+        assert (got is work) == in_place
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k4_vmapped_equals_its_lanes(cuda, dtype):
+    """Under torch.func.vmap over 8 lanes of mixed cases K4 launches
+    once, and each lane is the plain version's bits."""
+    cfg = FACTOR_WINDOWS["e2e"]
+    names = list(ACCEPT_CASES)
+    lanes = [accept_case(cfg, dtype, cuda, names[k % len(names)], seed=k)
+             for k in range(8)]
+    opts = lanes[0][4]
+    n = k4.accept_step.launches
+    got = torch.func.vmap(
+        lambda s, tr, ne, c: k4.accept_step(s, tr, ne, c, opts))(
+        *[stack_tree([ln[k] for ln in lanes]) for k in range(4)])
+    assert k4.accept_step.launches == n + 1
+    for k, ln in enumerate(lanes):
+        assert tree_err(graphs.tree_map(lambda t: t[k], got),
+                        _accept_plain(*ln[:4], opts)) == 0.0
+
+
+def test_k4_in_place_writes_nothing_on_a_rejection(cuda):
+    """The in-place instance on a rejected and a done case leaves every
+    leaf's bits as they were, and its arrival counter at zero."""
+    cfg = FACTOR_WINDOWS["e2e"]
+    for case in ("rejected", "done", "nan_cost_t"):
+        st, trial, ne_t, cost_t, opts = accept_case(cfg, torch.float32,
+                                                    cuda, case)
+        before = graphs.clone(st)
+        k4.accept_step(st, trial, ne_t, cost_t, opts, in_place=True)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in
+                   zip(graphs.leaves(st)[:11], graphs.leaves(before)[:11]))
+        assert int(k4._ARRIVE[st.cost.device].sum()) == 0
+
+
+@pytest.mark.parametrize("converge_at", [3, LOOP_ITERS + 1])
+def test_k4_sets_the_while_node_condition(cuda, converge_at):
+    """A solve's iterations as a captured program (`chip_smoke.k4_loop`:
+    K4 before a WHILE node and in its body) replayed twice: the plain
+    loop's bits, the node's trips (counted on the card) those of the
+    iterations after the first up to `iters`, K4 launched once before the
+    node and once a trip."""
+    args = loop_args(FACTOR_WINDOWS["e2e"], cuda)
+    static = dict(max_iters=LOOP_ITERS, converge_at=converge_at)
+    plain = k4_loop(*graphs.clone(args), **static, plain=True)
+    prog = graphs.ProgramCache().get(k4_loop, args, cuda, static)
+    iters = min(converge_at, LOOP_ITERS)
+    for _ in range(2):
+        graphs.reset_counts()
+        k4.reset_counts()
+        got = prog(*args)
+        torch.cuda.synchronize()
+        st_g = graphs.stats()
+        assert tree_err(got, plain) == 0.0
+        assert int(got.iters) == iters
+        assert st_g["if_bodies_run"] == iters - 1
+        assert k4.counts()["lm_accept"] == iters
+
+
+def test_k4_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    """The wrapper raises on what K4 does not take, and launches
+    nothing."""
+    cfg = FACTOR_WINDOWS["e2e"]
+    st, trial, ne_t, cost_t, opts = accept_case(cfg, torch.float32, cuda)
+    n = k4.accept_step.launches
+    with pytest.raises(TypeError):
+        k4.accept_step(st._replace(n_acc=st.n_acc.int()), trial, ne_t,
+                       cost_t, opts)
+    with pytest.raises(TypeError):
+        k4.accept_step(st, trial, ne_t, cost_t.double(), opts)
+    with pytest.raises(ValueError):
+        k4.accept_step(st, trial._replace(dinv=trial.dinv[:-1]), ne_t,
+                       cost_t, opts)
+    with pytest.raises(ValueError):
+        k4.accept_step(st, trial, ne_t, cost_t.cpu(), opts)
+    strided = st._replace(ne=(st.ne[0].t(), *st.ne[1:]))
+    with pytest.raises(ValueError):
+        k4.accept_step(strided, trial, ne_t, cost_t, opts, in_place=True)
+    assert k4.accept_step.launches == n

@@ -1,8 +1,9 @@
 """The LM's exit on the device (`solver/lm.py::solve_window_fixed`, its
-iterations after the first behind `utils/graphs.py::run_if`), on the CPU
-through the test-only replay stand-in (`tests/torch_graph_standin.py`),
-which skips a recorded body on replay where its predicate is false, as a
-CUDA-graph IF node does: a replayed solve that converges before
+iterations after the first the body of `utils/graphs.py::run_while`), on
+the CPU through the test-only replay stand-in
+(`tests/torch_graph_standin.py`), which on replay runs a recorded body
+while the solve is not done, as the CUDA-graph WHILE node does whose
+condition K4 sets: a replayed solve that converges before
 `max_iters` executes exactly `iters` iterations and equals, bit for bit,
 the eager `solve_window_fixed` (every iteration run, the frozen ones
 changing nothing) and the host-exit `lm.solve_window`; `iters` is the
@@ -19,7 +20,7 @@ from ctrlvio_tpu_torch.solver import lm as tlm
 from ctrlvio_tpu_torch.utils import graphs
 from ctrlvio_tpu_torch.utils.convert import tensor
 from tests.test_torch_solver import TCFG, args, prob  # noqa: F401
-from tests.torch_graph_standin import IF_COUNTS, replayed_programs
+from tests.torch_graph_standin import WHILE_COUNTS, replayed_programs
 from tests.torch_parity import one_torch_thread  # noqa: F401
 
 MAX_ITERS, TOL = 12, 1e-2
@@ -47,7 +48,7 @@ def replayed(a, opts):
         prog = graphs.ProgramCache().get(
             tlm.solve_window_fixed, a, "cpu", dict(cfg=TCFG, opts=opts))
         out = graphs.clone(prog(*a))
-        counts = dict(IF_COUNTS)
+        counts = dict(WHILE_COUNTS)
     return out, counts
 
 
@@ -64,13 +65,13 @@ def f64_chol(prob):
 
 
 def test_replayed_solve_executes_iters(f64_chol):
-    """The replayed f64 chol solve: 11 IF nodes recorded, the bodies of
-    iterations 2..iters run and the rest skipped."""
+    """The replayed f64 chol solve: one WHILE node recorded, whose body
+    ran for iterations 2..iters and not for the rest."""
     (_, st), counts = f64_chol
     iters = int(st.iters)
     assert 1 < iters < MAX_ITERS
     assert counts == {"run": iters - 1, "skipped": MAX_ITERS - iters,
-                      "nodes": MAX_ITERS - 1}
+                      "nodes": 1}
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])

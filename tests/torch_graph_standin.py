@@ -15,9 +15,13 @@ graph does not give fails here as it would on the card:
   input in place of copying into it is not seen. Kernel launch counts made
   while the function runs are taken back: the program adds the launches
   it holds, as on the card;
-- `graphs.run_if` records its body at "capture" and, on "replay", runs it
-  only where its predicate is true, as a CUDA-graph IF node does; the
-  bodies run and skipped on replays are counted (`IF_COUNTS`).
+- `graphs.run_while` records its body at "capture" and, on "replay", runs
+  it while the condition that the body's accept step (K4) sets on the
+  card holds, tested before each trip as a CUDA-graph WHILE node tests
+  it: the carry, an LM state, is not done (and fewer than `max_trips`
+  trips have run, which K4's "iters < max_iters" amounts to); the trips
+  run and those a fixed count would have run beyond them are counted
+  (`WHILE_COUNTS`).
 """
 
 import contextlib
@@ -37,23 +41,25 @@ from ctrlvio_tpu_torch.solver.layout import WindowConfig
 from ctrlvio_tpu_torch.utils import graphs
 
 
-# run_if bodies on replays: run (predicate true) and skipped (false), and
-# the nodes recorded by captures
-IF_COUNTS = {"run": 0, "skipped": 0, "nodes": 0}
+# run_while trips on replays: run, and skipped (of the `max_trips` a
+# fixed count runs), and the nodes recorded by captures
+WHILE_COUNTS = {"run": 0, "skipped": 0, "nodes": 0}
 _MODE = [None]  # "capture" or "replay" while the stand-in runs a body
 
 
-def standin_run_if(pred, body, carry):
+def standin_run_while(body, carry, max_trips, handle):
     if _MODE[0] == "replay":
-        if bool(pred):
-            IF_COUNTS["run"] += 1
-            body(carry)
-        else:
-            IF_COUNTS["skipped"] += 1
+        trips = 0
+        while trips < max_trips and not bool(carry.done):
+            body(carry, handle)
+            trips += 1
+        WHILE_COUNTS["run"] += trips
+        WHILE_COUNTS["skipped"] += max_trips - trips
         return
     if _MODE[0] == "capture":
-        IF_COUNTS["nodes"] += 1
-    body(carry)
+        WHILE_COUNTS["nodes"] += 1
+    for _ in range(max_trips):
+        body(carry, handle)
 
 
 @contextlib.contextmanager
@@ -89,12 +95,12 @@ def replayed_programs():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(graphs, "graphed_on", lambda device: True)
         mp.setattr(graphs, "capture", standin_capture)
-        mp.setattr(graphs, "run_if", standin_run_if)
+        mp.setattr(graphs, "run_while", standin_run_while)
         mp.setattr(odometry, "_SYNC_PROGRAMS", graphs.ProgramCache())
         mp.setattr(batch, "_PROGRAMS", graphs.ProgramCache())
         mp.setattr(tracker_mod, "_PROGRAMS", graphs.ProgramCache())
         graphs.reset_counts()
-        IF_COUNTS.update(run=0, skipped=0, nodes=0)
+        WHILE_COUNTS.update(run=0, skipped=0, nodes=0)
         yield
 
 
