@@ -66,8 +66,9 @@ Phases, each printed as one JSON line:
                warmup handoff, and no synchronizing CUDA call inside any
                streamed dispatch; per-frame times (warmup and streamed
                apart), sustained fps, the estimator's phases, a
-               torch.profiler trace of one streamed frame, and one
-               megastep run eagerly and profiled by stage range (image
+               torch.profiler trace of one streamed frame (its sums lower
+               bounds where the tracer missed trips of a WHILE node), and
+               one megastep run eagerly and profiled by stage range (image
                and IMU factors, normal equations, Schur solve, retract,
                LM accept, QR prior, slide, residual summary: device ms and
                operations each; each factor range one K2 or K3 launch and
@@ -96,8 +97,10 @@ Phases, each printed as one JSON line:
                each lane to bench.py's serve gates (ATE < 0.10 m,
                line-delay error < 5 us), >= 30 batched steps, no
                synchronizing call in the coordinator's dispatch, a traced
-               step's device operations at most twice e2e's single-lane
-               frame's; step times, aggregate frames/s, the host split;
+               step's device operations (the trace complete: every K4
+               launch seen) at most twice those of e2e's single-lane
+               megastep run eagerly; step times, aggregate frames/s, the
+               host split;
   9. batch   - `bench.py --mode batch`'s sweep: make_batched_solver over
                B = 1, 2, 4, 8, 16 copies of the bench's window against the
                single solve, and the CG Schur path beside chol at B = 8,
@@ -152,7 +155,11 @@ Phases, each printed as one JSON line:
                12 frames of the classic tracker, the batched solver at
                B = 8; `main` and `e2e` (LM exit nodes inside) and the
                batched solver bit for bit, the rest within the gpu tests'
-               tolerances, ATE within 1 mm, host ms a frame both ways;
+               tolerances, ATE within 1 mm, host ms a frame both ways; the
+               e2e run's last streamed megastep and synchronous window
+               solve replayed from their held inputs (CUDA events, from
+               one state under deterministic algorithms: times that
+               compare across trees);
  14. kernels - one line listing every kernel with launches, error and times
                (K2, K3 and K4 with their launches on every path; every
                path must have launched them, and run no plain accept
@@ -198,7 +205,7 @@ import torch.distributed as dist
 
 from ctrlvio_tpu_torch.bench import started_vio, tumrs_camera
 from ctrlvio_tpu_torch.entry import entry
-from ctrlvio_tpu_torch.estimator import native, odometry
+from ctrlvio_tpu_torch.estimator import native, odometry, stream
 from ctrlvio_tpu_torch.estimator.odometry import (CtrlVIO, VIOConfig,
                                                   iters_histogram)
 from ctrlvio_tpu_torch.frontend import klt
@@ -250,13 +257,11 @@ def reset_counts():
 
 def factor_fields(counts=None, k4_counts=None):
     """K2's and K3's launches in a phase (`factor_kernels.counts()` of this
-    process, settled first, or `counts` from a subprocess's stats line),
-    their residual instances' (K2r, K3r), K4's (`lm_kernels.counts()`,
-    or `k4_counts`), and the runs of their plain versions. A launch
-    recorded into a captured program counts on each replay, one inside a
-    WHILE node's body once a trip the node ran (`graphs.settle`)."""
-    if counts is None:
-        graphs.settle()
+    process, or `counts` from a subprocess's stats line), their residual
+    instances' (K2r, K3r), K4's (`lm_kernels.counts()`, or `k4_counts`),
+    and the runs of their plain versions. A launch recorded into a
+    captured program counts on each replay, one inside a WHILE node's
+    body once a trip the node ran."""
     c = counts or fk.counts()
     a = k4_counts or k4.counts()
     return {"k4_launches": a["lm_accept"],
@@ -370,6 +375,29 @@ def replay_times(prog, reps=5):
     torch.cuda.synchronize()
     return {"replay_device_ms": a.elapsed_time(b) / reps,
             "replay_host_ms": host * 1e3, "program": prog.label}
+
+
+def replays_from_held(prog, reps=20):
+    """`reps` replays of a captured program, each from the inputs it holds
+    now (copied back before every replay, outside the timing), timed by
+    CUDA events around the replay alone: ms a replay, the mean and the
+    fewest. From a state reached under deterministic algorithms every run
+    of a tree, and every tree whose solves give the same bits, replays the
+    same work, so the times compare across trees (run them in turns on
+    one card)."""
+    start = graphs.clone(prog.inputs)
+    ms = []
+    for _ in range(reps):
+        graphs.copy_tree(prog.inputs, start)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        prog(*prog.inputs)
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+    return {"program": prog.label, "reps": reps,
+            "ms_mean": float(np.mean(ms)), "ms_min": float(np.min(ms))}
 
 
 def program(cache, *words):
@@ -1224,12 +1252,19 @@ def image_vio_config(stream, marg_on_host=True):
         stream=stream, marg_on_host=marg_on_host)
 
 
+@contextlib.contextmanager
 def device_trace():
     """A torch.profiler session over the card's activity only: the traced
     frame's kernels and copies (what `device_share` reads); aggregating a
-    frame's host events as well took the profiler up to a minute."""
-    return torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CUDA])
+    frame's host events as well took the profiler up to a minute. On
+    exit the session's `k4_run` holds the K4 launches the traced span ran
+    (the settled counts: a WHILE node's trips included), which
+    `device_share` holds the trace's own K4 launches to."""
+    k0 = k4.counts()["lm_accept"]
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        yield prof
+    prof.k4_run = k4.counts()["lm_accept"] - k0
 
 
 def replay(sim, imgs, camera, tcfg, vio_cfg, device, probe=None):
@@ -1296,27 +1331,42 @@ def replay(sim, imgs, camera, tcfg, vio_cfg, device, probe=None):
                 prof_s=t_last, captures_in_timed_frames=captures)
 
 
+# what `device_share` reads off a trace, which a trace that misses
+# kernels only bounds from below
+TRACE_SUMS = ("device_ms", "device_busy_share", "device_ops",
+              "top_device_ms")
+
+
 def device_share(prof, prof_s, frame_ms):
     """Device time of the profiled frame (kernels and copies on the card),
     its share of `frame_ms` (the median host time of an unprofiled frame:
     the profiler slows the host, not the card), device operations, the
     five kernels that took the most device time, and the K4 and K2
-    launches the trace holds (one K4 an LM iteration the frame ran, if
-    the tracer sees the kernels of a WHILE node's body)."""
+    launches the trace holds beside the K4 launches the frame ran
+    (`device_trace`'s `k4_run`). The tracer does not always see the
+    kernels of a WHILE node's body: where it saw fewer K4 launches than
+    ran, `trace_complete` is false and the TRACE_SUMS fields carry the
+    suffix `_lower_bound`."""
     dev = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in dev) * 1e-3
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
-    return {"profiled_frame_wall_ms": prof_s * 1e3,
-            "device_ms": busy_ms,
-            "device_busy_share": busy_ms / frame_ms if dev else None,
-            "device_ops": sum(e.count for e in dev),
-            "top_device_ms": {e.key[:80]: e.self_device_time_total * 1e-3
-                              for e in top},
-            **{f"traced_{k}_launches": sum(e.count for e in dev
-                                           if name in e.key)
-               for k, name in (("k4", "lm_accept_kernel"),
-                               ("k2", "image_rows_kernel"))}}
+    rec = {"profiled_frame_wall_ms": prof_s * 1e3,
+           "device_ms": busy_ms,
+           "device_busy_share": busy_ms / frame_ms if dev else None,
+           "device_ops": sum(e.count for e in dev),
+           "top_device_ms": {e.key[:80]: e.self_device_time_total * 1e-3
+                             for e in top},
+           **{f"traced_{k}_launches": sum(e.count for e in dev
+                                          if name in e.key)
+              for k, name in (("k4", "lm_accept_kernel"),
+                              ("k2", "image_rows_kernel"))},
+           "k4_launches_run": prof.k4_run}
+    rec["trace_complete"] = rec["traced_k4_launches"] == prof.k4_run
+    if not rec["trace_complete"]:
+        for k in TRACE_SUMS:
+            rec[f"{k}_lower_bound"] = rec.pop(k)
+    return rec
 
 
 # the record_function ranges of the megastep and the window solve
@@ -2201,6 +2251,12 @@ def phase_serve():
     t0 = time.perf_counter()
     profile = device_share(prof, prof_s, per_step * 1e3)
     profile["analysis_s"] = time.perf_counter() - t0
+    if not profile["trace_complete"]:
+        raise SystemExit(f"serve: the trace of the batched step saw "
+                         f"{profile['traced_k4_launches']} of the "
+                         f"{prof.k4_run} K4 launches it ran: its device "
+                         f"operations, which the serve gate reads, are "
+                         f"not all there")
     rec = {"phase": "serve", "lanes": SERVE_LANES, "duration_s": SERVE_S,
            "frames": n_frames, "setup_s": t_setup, "wall_s": wall,
            "timed_from": timed_from, "timed_steps": len(times),
@@ -2322,12 +2378,16 @@ def graphs_main(seq):
             "frontend_ms_median_eager": e["fe_ms"]}
 
 
-def graphs_e2e():
+def graphs_e2e(held):
     """About 20 streamed frames of the e2e sequence (`phase_e2e`'s: f32,
     the bench's window, the native table) from the ground-truth bootstrap
     with 4 warmup frames, so that the stream starts after 15 frames: the
     forecast poses, the post-hoc trajectory at the frame times, the
-    consumed summaries' statistics, host ms a streamed frame."""
+    consumed summaries' statistics, host ms a streamed frame. The graphed
+    run's megastep program (the slide that marginalizes the oldest
+    keyframe) and synchronous window solve program are left in `held`,
+    with their last inputs, each as (name, program, a reader of the LM
+    iterations its last replay ran)."""
     sim = synthetic.generate(synthetic.reference_noise(
         duration=4.0, n_landmarks=300, seed=3, speed=1.0))
     cfg = VIOConfig(
@@ -2358,6 +2418,14 @@ def graphs_e2e():
                     ms=float(np.median(ms[2:])) * 1e3)
 
     g, e = both_ways(run)
+    held[:] = [("megastep", program(g["vio"]._programs, "marg_old=True",
+                                    "host_seeds=False"),
+                lambda p: stream.unpack_summary(
+                    p.outputs.double().cpu().numpy(),
+                    cfg.window_config)["iters"]),
+               ("window_solve", program(odometry._SYNC_PROGRAMS,
+                                        "window_solve", "restore=True"),
+                lambda p: float(p.outputs[-1]))]
     sg, se = g["vio"].last_solve_stats, e["vio"].last_solve_stats
     return {"frames": len(sim.frames), "streamed": g["vio"].counts["megastep"],
             "streamed_eager": e["vio"].counts["megastep"],
@@ -2484,13 +2552,13 @@ def phase_graphs():
     both ways."""
     t0 = time.perf_counter()
     reset_counts()
-    seq = []
+    seq, held = [], []
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.use_deterministic_algorithms(True, warn_only=True)
         try:
             rec = {"phase": "graphs", "deterministic": True,
-                   "main": graphs_main(seq), "e2e": graphs_e2e(),
+                   "main": graphs_main(seq), "e2e": graphs_e2e(held),
                    "serve": graphs_serve(), "classic": graphs_classic(*seq),
                    "batch": graphs_batch()}
         finally:
@@ -2499,6 +2567,10 @@ def phase_graphs():
                ops_without_deterministic_version=sorted({
                    str(w.message).split(" does not")[0] for w in caught
                    if "deterministic" in str(w.message)}))
+    # after the counts above: these replays are measurement, not the run
+    rec["e2e"]["replays_from_held"] = {
+        name: {**replays_from_held(prog), "lm_iters": int(iters(prog))}
+        for name, prog, iters in held}
     m, e2e, sv = rec["main"], rec["e2e"], rec["serve"]
     cl, bt = rec["classic"], rec["batch"]
     ok = (m["max_pos_dev_m"] == 0.0 and e2e["max_pos_dev_m"] == 0.0
@@ -2528,15 +2600,18 @@ def phase_graphs():
 
 def check_serve_device_ops(serve, e2e_device_ops):
     """The traced batched step (8 lanes) has at most twice the device
-    operations of e2e's traced single-lane streamed frame: a per-lane loop
-    or a vmap fallback would multiply them by the lanes."""
+    operations of e2e's single-lane megastep run eagerly (every LM
+    iteration, as the batched step runs them, each operation launched from
+    the host, so the profiler sees all of them; in a replayed frame it
+    misses trips of the WHILE node): a per-lane loop or a vmap fallback
+    would multiply them by the lanes."""
     ops = serve["profile_batched_step"]["device_ops"]
     serve["e2e_device_ops"] = e2e_device_ops
     serve["device_ops_ratio_to_e2e"] = ops / max(e2e_device_ops, 1)
     if not 0 < ops <= 2 * e2e_device_ops:
         raise SystemExit(f"serve: a batched step made {ops} device "
                          f"operations, not within 2x e2e's single-lane "
-                         f"frame ({e2e_device_ops})")
+                         f"megastep ({e2e_device_ops})")
 
 
 # the paths that run the streamed megastep, whose summary computes the
@@ -3381,7 +3456,7 @@ def main():
             if proc.is_alive():
                 proc.terminate()
                 proc.join()
-    check_serve_device_ops(serve, e2e["profile_streamed_frame"]["device_ops"])
+    check_serve_device_ops(serve, e2e["eager_megastep_stages"]["device_ops"])
     paths = {"main": main_rec, "main_marg_dev": marg_dev, "e2e": e2e,
              "image_textured": textured, "classic": textured["classic"],
              "serve": serve, "batch": batched, "cli": cli_rec,

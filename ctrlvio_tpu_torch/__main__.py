@@ -92,7 +92,6 @@ def _cmd_run(args):
           f"({n / max(wall, 1e-9):.1f} fps) "
           f"line_delay={vio.traj.line_delay * 1e6:.3f} us", file=sys.stderr)
     init_t = out[0][0] if out else None
-    graphs.settle()
     stats = {
         "device": str(device), "stream": cfg.stream,
         "frames": len(seq.frame_t_ns), "poses": n, "wall_s": wall,

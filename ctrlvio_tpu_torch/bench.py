@@ -434,7 +434,6 @@ def bench_image(args):
     vio.flush()
     sync(device)
     wall = time.perf_counter() - t_run0
-    graphs.settle()
     stats = {"device": str(device), "frames": len(sim.frames),
              "solved": len(est), "wall_s": wall,
              "k1_track_launches": lk.lk_track.launches,

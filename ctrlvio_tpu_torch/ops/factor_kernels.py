@@ -42,7 +42,8 @@ Each wrapper's `launches` counts its kernel's launches (and nothing
 else); `*_plain.calls` count runs of the plain versions; `counts()` reads
 them all, `reset_counts` sets them to 0. The counts are registered with
 `utils/graphs.py`: a launch recorded into a captured graph counts on each
-replay of it.
+replay of it, one in a WHILE node's body on each trip (`counts()` settles
+them first).
 """
 
 import ctypes
@@ -860,7 +861,7 @@ def reset_counts():
         setattr(fn, attr, 0)
 
 
-def counts():
+def _counts():
     """Every count of this module by name: the launches of K2
     (`image_factor_rows`), K3 (`imu_factor_rows`) and their residual
     instances (`*_factor_residuals`), and the runs of their plain
@@ -875,4 +876,4 @@ def _add_counts(delta):
 
 
 reset_counts()
-graphs.register_counter(counts, _add_counts)
+counts = graphs.register_counter(_counts, _add_counts)

@@ -33,7 +33,8 @@ and the `while_loop`'s cond).
 `kernel_attributes()` reads the four instances' registers, spill bytes,
 shared bytes and threads a block on the card. `accept_step.launches`
 counts K4's launches and `accept_step_plain.calls` the plain version's
-runs; `counts()` reads them, `reset_counts()` zeroes them; both are
+runs; `counts()` reads them (the launches in WHILE nodes' bodies
+settled first, once a trip), `reset_counts()` zeroes them; both are
 registered with `utils/graphs.py`.
 """
 
@@ -422,7 +423,7 @@ def reset_counts():
     accept_step_plain.calls = 0
 
 
-def counts():
+def _counts():
     """K4's launches (`lm_accept`) and the plain version's runs
     (`lm_accept_plain`)."""
     return {"lm_accept": accept_step.launches,
@@ -435,4 +436,4 @@ def _add_counts(delta):
 
 
 reset_counts()
-graphs.register_counter(counts, _add_counts)
+counts = graphs.register_counter(_counts, _add_counts)

@@ -34,8 +34,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch.profiler import record_function
 
-from ctrlvio_tpu_torch.ops.lm_kernels import (  # noqa: F401
-    LMState, accept_step, accept_step_plain)
+from ctrlvio_tpu_torch.ops.lm_kernels import LMState, accept_step
 from ctrlvio_tpu_torch.utils import graphs
 
 from . import assemble

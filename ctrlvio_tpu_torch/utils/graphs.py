@@ -53,13 +53,18 @@ conditional node of its own, so the node comes from `csrc/graph_cond.cu`
 of its own, its memory from a graph pool of its own, and added to the
 node as a child graph. Each recorded body also adds one to its node's
 device counter of trips, so `stats` reports the trips the replays ran.
+The counters belong to the program that recorded the nodes: it makes them
+before its capture, one for each `run_while` its warm-up ran, and they go
+with it.
 
 A kernel wrapper registered with `register_counter` counts its kernel's
 launches as they run. A launch made while a graph is captured runs nothing:
 its count is taken back, held by the program, and added again on each
 replay; a launch recorded into a WHILE node's body is held by the node
 instead, and counts once for each trip the node's counter shows when the
-counts are settled (`settle`, which `stats` calls: a read of the device).
+counts are settled (`settle`: a read of the device). The reader that
+`register_counter` returns, and `stats`, settle first; the trips of a
+program collected since are settled too.
 `stats` lists the captures (key, seconds, reserved device memory
 before and after) and counts the replays and the launches they made.
 """
@@ -80,21 +85,42 @@ _COUNTERS: List = []
 # every live cache, for the size of their pools (`pool_mb`)
 _CACHES = weakref.WeakSet()
 _STATS: Dict = {}
-# device -> int64 tensor (MAX_WHILE_NODES,): each recorded WHILE node's
-# trips run by the replays, a slot a node
-_TRIPS: Dict = {}
-MAX_WHILE_NODES = 1024
-# each recorded WHILE node: [its device's trip counters, its slot, the
-# launches its body holds, the trips already settled]
-_NODES: List = []
+# the live programs that recorded WHILE nodes, and the nodes of programs
+# collected since the counts were last settled
+_WHILE_PROGRAMS = weakref.WeakSet()
+_RETIRED: List = []
+# the `run_while` calls of each warm-up running now, and the nodes of each
+# capture recording now (innermost last)
+_WARM_UPS: List[int] = []
+_RECORDING: List = []
 # device -> (the stream bodies are captured on, their graph pool)
 _BODY_STREAMS: Dict = {}
 
 
 def register_counter(read: Callable[[], Dict[str, int]],
                      add: Callable[[Dict[str, int]], None]):
-    """Register a kernel wrapper's launch counts (see the module notes)."""
+    """Register a kernel wrapper's launch counts (see the module notes).
+    Returns `read` settling the counts first: the wrapper's `counts`."""
     _COUNTERS.append((read, add))
+
+    @functools.wraps(read)
+    def settled():
+        settle()
+        return read()
+
+    return settled
+
+
+class _WhileNodes:
+    """The WHILE nodes one program records: their device counter of
+    trips, one int64 a node, made before the capture (a counter made in
+    it would be the graph's memory, zeroed by a kernel of the graph); the
+    launches each node's body holds, and its trips already settled."""
+
+    def __init__(self, n: int, device: torch.device):
+        self.trips = torch.zeros((n,), dtype=torch.int64, device=device)
+        self.held: List = []
+        self.settled: List[int] = []
 
 
 def reset_counts():
@@ -102,11 +128,11 @@ def reset_counts():
     programs themselves stay captured)."""
     _STATS.clear()
     _STATS.update(captures=[], replays=0, launches_replayed={},
-                  launches_warm_up={}, while_nodes=0)
-    for t in _TRIPS.values():
-        t.zero_()
-    for node in _NODES:
-        node[3] = 0
+                  launches_warm_up={}, while_nodes=0, trips=0)
+    for prog in list(_WHILE_PROGRAMS):
+        prog._nodes.trips.zero_()
+        prog._nodes.settled = [0] * len(prog._nodes.held)
+    _RETIRED.clear()
 
 
 reset_counts()
@@ -222,20 +248,6 @@ def _indexed(device: torch.device) -> torch.device:
     return device
 
 
-def _trip_counters(device: torch.device) -> torch.Tensor:
-    """The device's counters of WHILE-node trips, made by `Program` before
-    its capture: counters made during a capture would be the graph's
-    memory, zeroed by a kernel of the graph."""
-    device = _indexed(device)
-    if device not in _TRIPS:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("graphs.run_while records its node only in a "
-                               "`Program`'s capture")
-        _TRIPS[device] = torch.zeros((MAX_WHILE_NODES,), dtype=torch.int64,
-                                     device=device)
-    return _TRIPS[device]
-
-
 def _cond_lib():
     """The WHILE-node helper (`csrc/graph_cond.cu`), built at first use."""
     import ctypes
@@ -297,6 +309,24 @@ def while_handle(device) -> Optional[int]:
     return h.value
 
 
+@contextlib.contextmanager
+def recorded_node():
+    """Record one WHILE node into the program capturing now: yields the
+    node's counter of trips (a one-entry view, to which the body adds
+    one); on exit the node holds the launches counted inside."""
+    nodes = _RECORDING[-1] if _RECORDING else None
+    slot = len(nodes.held) if nodes is not None else 0
+    if nodes is None or slot >= len(nodes.trips):
+        raise RuntimeError("graphs.run_while records a node only in a "
+                           "`Program`'s capture, one for each run_while "
+                           "of its warm-up")
+    with held_launches() as held:
+        yield nodes.trips[slot: slot + 1]
+    nodes.held.append(held)
+    nodes.settled.append(0)
+    _STATS["while_nodes"] += 1
+
+
 def run_while(body: Callable, carry, max_trips: int,
               handle: Optional[int]) -> None:
     """`body(carry, handle)` as a loop: with a `handle` (`while_handle`,
@@ -305,6 +335,8 @@ def run_while(body: Callable, carry, max_trips: int,
     `max_trips` times (see the module notes). `body` updates the tensors
     of `carry` in place, and a kernel of it sets the handle."""
     if handle is None:
+        if _WARM_UPS:
+            _WARM_UPS[-1] += 1
         for _ in range(max_trips):
             body(carry, None)
         return
@@ -312,45 +344,51 @@ def run_while(body: Callable, carry, max_trips: int,
 
     lib = _cond_lib()
     device = _indexed(leaves(carry)[0].device)
-    trips = _trip_counters(device)
-    slot = sum(1 for n in _NODES if n[0] is trips)
-    if slot >= MAX_WHILE_NODES:
-        raise RuntimeError(f"more than {MAX_WHILE_NODES} WHILE nodes "
-                           f"recorded on {device}")
     side, pool = _body_stream(device)
-    node_body = ctypes.c_void_p()
-    _cond_check(lib, lib.while_begin(
-        torch.cuda.current_stream(device).cuda_stream, handle,
-        side.cuda_stream, ctypes.byref(node_body)), "adding a WHILE node")
-    torch._C._cuda_beginAllocateCurrentThreadToPool(device.index, pool)
-    try:
-        with torch.cuda.stream(side), held_launches() as held:
-            body(carry, handle)
-            trips[slot: slot + 1].add_(1)
-    finally:
-        torch._C._cuda_endAllocateToPool(device.index, pool)
-        err = lib.while_end(side.cuda_stream, node_body)
-    _cond_check(lib, err, "ending a WHILE node's body")
-    _NODES.append([trips, slot, held, 0])
-    _STATS["while_nodes"] += 1
+    with recorded_node() as trips:
+        node_body = ctypes.c_void_p()
+        _cond_check(lib, lib.while_begin(
+            torch.cuda.current_stream(device).cuda_stream, handle,
+            side.cuda_stream, ctypes.byref(node_body)),
+            "adding a WHILE node")
+        torch._C._cuda_beginAllocateCurrentThreadToPool(device.index, pool)
+        try:
+            with torch.cuda.stream(side):
+                body(carry, handle)
+                trips.add_(1)
+        finally:
+            torch._C._cuda_endAllocateToPool(device.index, pool)
+            err = lib.while_end(side.cuda_stream, node_body)
+        _cond_check(lib, err, "ending a WHILE node's body")
+
+
+def _settle(groups) -> None:
+    for nodes in groups:
+        for i, n in enumerate(nodes.trips.tolist()[: len(nodes.held)]):
+            gained = n - nodes.settled[i]
+            if gained:
+                deltas = [{k: v * gained for k, v in d.items()}
+                          for d in nodes.held[i]]
+                for (_, add), d in zip(_COUNTERS, deltas):
+                    add(d)
+                _tally(_STATS["launches_replayed"], deltas)
+                _STATS["trips"] += gained
+                nodes.settled[i] = n
+
+
+def _settle_retired() -> None:
+    retired = _RETIRED[:]
+    _RETIRED.clear()
+    _settle(retired)
 
 
 def settle():
     """Add the launches of the WHILE nodes' bodies to the registered
     counts and to the replays' launches, once for each trip the nodes'
-    device counters show since the last settle (a read of the device)."""
-    if not _NODES:
-        return
-    read = {id(t): t.tolist() for t in _TRIPS.values()}
-    for node in _NODES:
-        trips, slot, held, done = node
-        n = read[id(trips)][slot] - done
-        if n:
-            deltas = [{k: v * n for k, v in d.items()} for d in held]
-            for (_, add), d in zip(_COUNTERS, deltas):
-                add(d)
-            _tally(_STATS["launches_replayed"], deltas)
-            node[3] += n
+    device counters show since the last settle (a read of the device), for
+    the live programs and those collected since."""
+    _settle_retired()
+    _settle([p._nodes for p in list(_WHILE_PROGRAMS)])
 
 
 # ---------------------------------------------------------------------------
@@ -448,21 +486,33 @@ class Program:
 
         self.inputs = tree_map(on_device, args)
         self._body, self._device = body, device
-        if device.type == "cuda":
-            _trip_counters(device)
+        _settle_retired()
         with _cusolver(device), _capture_stream(device) as stream:
             t0 = time.perf_counter()
             before = _read_counts()
-            with (torch.cuda.stream(stream) if stream is not None
-                  else contextlib.nullcontext()):
-                body(tree_map(on_device, args))
+            _WARM_UPS.append(0)
+            try:
+                with (torch.cuda.stream(stream) if stream is not None
+                      else contextlib.nullcontext()):
+                    body(tree_map(on_device, args))
+            finally:
+                n_nodes = _WARM_UPS.pop()
             warm = _gained(before, _read_counts())
             t1 = time.perf_counter()
             mb0 = _reserved_mb(device)
-            with held_launches() as held:
-                self.outputs, self._replay = capture(body, self.inputs,
-                                                     device, pool, stream)
+            self._nodes = (_WhileNodes(n_nodes, device) if n_nodes
+                           else None)
+            _RECORDING.append(self._nodes)
+            try:
+                with held_launches() as held:
+                    self.outputs, self._replay = capture(
+                        body, self.inputs, device, pool, stream)
+            finally:
+                _RECORDING.pop()
         self._held = held
+        if self._nodes is not None and self._nodes.held:
+            _WHILE_PROGRAMS.add(self)
+            weakref.finalize(self, _RETIRED.append, self._nodes)
         _tally(_STATS["launches_warm_up"], warm)
         _STATS["captures"].append({
             "key": self.label, "device": str(device),
@@ -544,7 +594,7 @@ def stats() -> dict:
     caps = list(_STATS["captures"])
     return {"graphs_captured": caps,
             "while_nodes": _STATS["while_nodes"],
-            "if_bodies_run": sum(int(t.sum()) for t in _TRIPS.values()),
+            "if_bodies_run": _STATS["trips"],
             "capture_s": sum(c["warm_up_s"] + c["s"] for c in caps),
             "graph_pool_mb": pool_mb(),
             "replays": _STATS["replays"],

@@ -82,7 +82,8 @@ def test_replayed_exit_solve_matches_jax(prob, lanes):
     file's case, lane 0 here) against JAX's `lm.solve_window` on the same
     numpy inputs, at `tests/test_torch_lm.py`'s tolerances: the same
     accepted steps, cost0, damping, cost to 1e-8 and params to 1e-7."""
-    (p, st), counts = replayed(_inputs(prob, torch.float64), _opts("chol"))
+    (p, st), counts, _ = replayed(_inputs(prob, torch.float64),
+                                  _opts("chol"))
     pj, sj = lanes[1][0]
     assert counts["run"] == int(st.iters) - 1 < MAX_ITERS - 1
     assert int(sj.accepted) == int(st.accepted)

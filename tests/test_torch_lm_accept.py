@@ -1,14 +1,14 @@
 """The LM's accept step (`ctrlvio_tpu_torch/ops/lm_kernels.py`, kernel K4
 on the card) on the CPU.
 
-- The plain version, `lm.accept_step_plain`, against the JAX package's
-  rule, transcribed with jnp from `ctrlvio_tpu/solver/lm.py:232-249` (the
-  `while_loop`'s body's accept test, selects and scalars, applied where
-  its `cond` holds), on the same numpy-drawn state and trial: equal bit
-  for bit, float32 and float64, in every case of
-  `sim/windows.py::ACCEPT_CASES` (accepted, rejected, done already set,
-  NaN and infinite trial cost, the relative decrease at `tol`, lambda at
-  both clamps).
+- The plain version, `lm_kernels.accept_step_plain`, against the JAX
+  package's rule, transcribed with jnp from
+  `ctrlvio_tpu/solver/lm.py:232-249` (the `while_loop`'s body's accept
+  test, selects and scalars, applied where its `cond` holds), on the
+  same numpy-drawn state and trial: equal bit for bit, float32 and
+  float64, in every case of `sim/windows.py::ACCEPT_CASES` (accepted,
+  rejected, done already set, NaN and infinite trial cost, the relative
+  decrease at `tol`, lambda at both clamps).
 - K4's own code (`csrc/lm_accept.cu`): `tests/torch_lm_accept_host.cpp`
   includes it and runs each lane's blocks one after another, thread by
   thread, with the in-place instance's last-arrival scalar update, through
@@ -35,7 +35,6 @@ import torch
 
 from ctrlvio_tpu_torch.ops import lm_kernels as lk4
 from ctrlvio_tpu_torch.sim.windows import ACCEPT_CASES, accept_case
-from ctrlvio_tpu_torch.solver import lm as tlm
 from ctrlvio_tpu_torch.solver.layout import WindowConfig
 from ctrlvio_tpu_torch.utils import graphs
 from tests.torch_parity import one_torch_thread  # noqa: F401
@@ -55,7 +54,7 @@ def _np(t):
 def _plain(case, dtype, in_place=False, seed=0):
     st, trial, ne_t, cost_t, opts = accept_case(WIN, dtype, "cpu", case,
                                                 seed)
-    return tlm.accept_step_plain(st, trial, ne_t, cost_t,
+    return lk4.accept_step_plain(st, trial, ne_t, cost_t,
                                  opts.lm_lambda_down, opts.lm_lambda_up,
                                  opts.tol, in_place)
 
@@ -106,9 +105,8 @@ def _same(got, ref):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_plain_step_is_the_jax_rule(dtype):
-    """`lm.accept_step_plain` against the JAX package's LM body and cond
-    in every case: bit for bit."""
-    assert tlm.accept_step_plain is lk4.accept_step_plain
+    """`lm_kernels.accept_step_plain` against the JAX package's LM body
+    and cond in every case: bit for bit."""
     for case in CASES:
         got = [_np(t) for t in graphs.leaves(_plain(case, dtype))]
         _same(got, _jax_rule(case, dtype))
@@ -282,7 +280,7 @@ def test_host_kernel_reads_shared_inputs_at_lane_stride_0(host, dtype):
         st, tr, ne_t, cost_t, o = accept_case(WIN, dtype, "cpu", case,
                                               seed=ln)
         tr0 = accept_case(WIN, dtype, "cpu", cases[0], seed=0)
-        ref = tlm.accept_step_plain(st, tr0[1], tr0[2], cost_t,
+        ref = lk4.accept_step_plain(st, tr0[1], tr0[2], cost_t,
                                     o.lm_lambda_down, o.lm_lambda_up, o.tol)
         _same([_np(t[ln]) for t in got], [_np(t) for t in
                                           graphs.leaves(ref)])
@@ -323,7 +321,7 @@ def test_op_vmap_rule_is_one_call_over_the_lanes(dtype, monkeypatch):
     tr0 = accept_case(WIN, dtype, "cpu", cases[0], seed=0)
     for ln, case in enumerate(cases):
         st, _, _, cost_t, o = accept_case(WIN, dtype, "cpu", case, seed=ln)
-        ref = tlm.accept_step_plain(st, tr0[1], tr0[2], cost_t,
+        ref = lk4.accept_step_plain(st, tr0[1], tr0[2], cost_t,
                                     o.lm_lambda_down, o.lm_lambda_up, o.tol)
         _same([_np(t[ln, 0]) for t in out],
               [_np(t) for t in graphs.leaves(ref)])

@@ -12,6 +12,8 @@ with its prior, at tol 1e-2, where chol stops at iteration 6 and CG at 11
 of 12. `test_torch_graphs_batch.py` holds the replayed f64 chol solve to
 the JAX package's `lm.solve_window` (one JAX compile a file)."""
 
+from typing import NamedTuple
+
 import pytest
 import torch
 
@@ -43,13 +45,15 @@ def _opts(solver):
 
 def replayed(a, opts):
     """`solve_window_fixed` as a program through the stand-in, called
-    once; returns a copy of its output and the bodies run and skipped."""
+    once; returns a copy of its output, the bodies run and skipped, and
+    `graphs.stats()` after the call."""
     with replayed_programs():
         prog = graphs.ProgramCache().get(
             tlm.solve_window_fixed, a, "cpu", dict(cfg=TCFG, opts=opts))
         out = graphs.clone(prog(*a))
         counts = dict(WHILE_COUNTS)
-    return out, counts
+        st = graphs.stats()
+    return out, counts, st
 
 
 def _equal(a, b):
@@ -67,7 +71,7 @@ def f64_chol(prob):
 def test_replayed_solve_executes_iters(f64_chol):
     """The replayed f64 chol solve: one WHILE node recorded, whose body
     ran for iterations 2..iters and not for the rest."""
-    (_, st), counts = f64_chol
+    (_, st), counts, _ = f64_chol
     iters = int(st.iters)
     assert 1 < iters < MAX_ITERS
     assert counts == {"run": iters - 1, "skipped": MAX_ITERS - iters,
@@ -88,7 +92,7 @@ def test_iters_is_the_host_exit_count(prob, f64_chol, dtype, solver):
     assert n < MAX_ITERS  # the host loop left early
     assert int(eager[1].iters) == n and _equal(eager, host)
     if (dtype, solver) == (torch.float64, "chol"):
-        got, counts = f64_chol
+        got, counts, _ = f64_chol
         assert int(got[1].iters) == n and counts["run"] == n - 1
         assert _equal(got, eager)
 
@@ -113,3 +117,52 @@ def test_ne_ab_times_its_variants_as_programs():
     assert got.keys() == eager.keys()
     for k in got:
         assert _equal(got[k], eager[k]), k
+
+
+def test_settled_counts_are_the_trips(f64_chol):
+    """The counts settled from the node's counter of trips
+    (`graphs.stats`): the trips the replay ran, and the accept step (its
+    plain version on the CPU) once before the node and once a trip."""
+    (_, st), _, stats = f64_chol
+    iters = int(st.iters)
+    assert stats["while_nodes"] == 1
+    assert stats["if_bodies_run"] == iters - 1
+    assert stats["launches_replayed"]["lm_accept_plain"] == iters
+
+
+class _Loop(NamedTuple):
+    x: torch.Tensor
+    done: torch.Tensor
+
+
+def _count_to(x, n):
+    """x counted up to n by a `graphs.run_while` of at most 5 trips."""
+    c = _Loop(x.clone(), x >= n)
+
+    def body(c, handle):
+        c.x.add_(1)
+        c.done.copy_(c.x >= n)
+
+    graphs.run_while(body, c, 5, graphs.while_handle(x.device))
+    return c.x
+
+
+def test_released_programs_take_their_nodes_along():
+    """More programs with a WHILE node each than the 1024 node counters
+    a device once had, captured one after another through the stand-in
+    and released in between, as streamed sessions come and go: every
+    capture succeeds, the trips of each released program are settled
+    (3 each), and nothing of them stays held."""
+    n_programs = 1100
+    x = torch.zeros(())
+    with replayed_programs():
+        for _ in range(n_programs):
+            prog = graphs.ProgramCache().get(_count_to, (x,), "cpu",
+                                             dict(n=3))
+            assert float(prog(x)) == 3.0
+            del prog
+        st = graphs.stats()
+        assert WHILE_COUNTS["run"] == 3 * n_programs
+    assert st["while_nodes"] == n_programs
+    assert st["if_bodies_run"] == 3 * n_programs
+    assert not graphs._RETIRED and not list(graphs._WHILE_PROGRAMS)

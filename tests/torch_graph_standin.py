@@ -15,13 +15,18 @@ graph does not give fails here as it would on the card:
   input in place of copying into it is not seen. Kernel launch counts made
   while the function runs are taken back: the program adds the launches
   it holds, as on the card;
-- `graphs.run_while` records its body at "capture" and, on "replay", runs
-  it while the condition that the body's accept step (K4) sets on the
-  card holds, tested before each trip as a CUDA-graph WHILE node tests
-  it: the carry, an LM state, is not done (and fewer than `max_trips`
-  trips have run, which K4's "iters < max_iters" amounts to); the trips
-  run and those a fixed count would have run beyond them are counted
-  (`WHILE_COUNTS`).
+- `graphs.run_while` records its body at "capture" as a node of the
+  capturing program (`graphs.recorded_node`: the body's launches are
+  held by the node) and, on "replay", runs it while the condition that
+  the body's accept step (K4) sets on the card holds, tested before each
+  trip as a CUDA-graph WHILE node tests it: the carry, an LM state, is
+  not done (and fewer than `max_trips` trips have run, which K4's
+  "iters < max_iters" amounts to). Each trip adds one to the node's
+  counter, as the body's last kernel does on the card, and its launches
+  are taken back: they count when the counts are settled. The trips run
+  and those a fixed count would have run beyond them are also counted
+  here (`WHILE_COUNTS`). Outside a capture or a replay (a program's
+  warm-up, an eager run) it is `graphs.run_while` itself.
 """
 
 import contextlib
@@ -44,42 +49,51 @@ from ctrlvio_tpu_torch.utils import graphs
 # run_while trips on replays: run, and skipped (of the `max_trips` a
 # fixed count runs), and the nodes recorded by captures
 WHILE_COUNTS = {"run": 0, "skipped": 0, "nodes": 0}
-_MODE = [None]  # "capture" or "replay" while the stand-in runs a body
+# "capture" or "replay" while the stand-in runs a body, and the nodes'
+# counters of trips of the program's capture, in the order recorded
+_MODE = [None, None]
+_RUN_WHILE = graphs.run_while
 
 
 def standin_run_while(body, carry, max_trips, handle):
-    if _MODE[0] == "replay":
+    mode, counters = _MODE
+    if mode == "replay":
+        trips_of_node = counters.pop(0)
         trips = 0
         while trips < max_trips and not bool(carry.done):
             body(carry, handle)
             trips += 1
+        trips_of_node += trips
         WHILE_COUNTS["run"] += trips
         WHILE_COUNTS["skipped"] += max_trips - trips
-        return
-    if _MODE[0] == "capture":
+    elif mode == "capture":
         WHILE_COUNTS["nodes"] += 1
-    for _ in range(max_trips):
-        body(carry, handle)
+        with graphs.recorded_node() as trips_of_node:
+            body(carry, handle)
+        counters.append(trips_of_node)
+    else:
+        _RUN_WHILE(body, carry, max_trips, handle)
 
 
 @contextlib.contextmanager
-def _mode(mode):
-    _MODE[0] = mode
+def _mode(mode, counters):
+    _MODE[:] = [mode, counters]
     try:
         yield
     finally:
-        _MODE[0] = None
+        _MODE[:] = [None, None]
 
 
 def standin_capture(body, inputs, device, pool, stream):
-    with _mode("capture"):
+    counters = []
+    with _mode("capture", counters):
         out = body(graphs.clone(inputs))
     for t in graphs.leaves(out):
         if t.is_floating_point():
             t.fill_(float("nan"))
 
     def replay():
-        with graphs.held_launches(), _mode("replay"):
+        with graphs.held_launches(), _mode("replay", list(counters)):
             new = body(inputs)
         for o, n in zip(graphs.leaves(out), graphs.leaves(new)):
             o.copy_(n)
