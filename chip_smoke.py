@@ -28,16 +28,17 @@ Phases, each printed as one JSON line:
                bit against the plain loop, its trips counted on the card;
                then factor_kernels: K2 and K3 (`csrc/factors.cu`, every
                image and IMU factor's rows, residuals and cost in one
-               launch each) and their residual-only instances K2r and
-               K3r (each slot's raw residual and its cost, the streamed
-               frame's residual summary) against their plain versions at
-               e2e's and batch's windows (a window of the e2e sequence,
-               perturbed), f32 and f64, K2 and K3 with marg_mode off and
-               on, and vmapped over 8 lanes equal to each lane's own
-               launch bit for bit; times by graph replay, the plain
-               versions' times, the bounds; each instance's registers,
-               spill bytes, shared bytes and threads a block beside the
-               build's ptxas log;
+               launch each) and K5 (the same file, the streamed frame's
+               whole residual summary: image, IMU, bias and prior sums
+               into five numbers, one launch) against their plain
+               versions at e2e's and batch's windows (a window of the e2e
+               sequence, perturbed; K5's with bias pairs and a prior),
+               f32 and f64, K2 and K3 with marg_mode off and on,
+               vmapped over 8 lanes equal to each lane's own launch bit
+               for bit, two replays of a launch bit for bit; times by
+               graph replay, the plain versions' times,
+               the bounds; each instance's registers, spill bytes, shared
+               bytes and threads a block beside the build's ptxas log;
   5. main    - the image-in path of `bench.py --mode image --scene blobs`:
                4 s of rendered 1280x1024 Kannala-Brandt rolling-shutter frames
                through the port's FusedTracker, rotation_flow and the
@@ -71,11 +72,11 @@ Phases, each printed as one JSON line:
                one megastep run eagerly and profiled by stage range (image
                and IMU factors, normal equations, Schur solve, retract,
                LM accept, QR prior, slide, residual summary: device ms and
-               operations each; each factor range one K2 or K3 launch and
-               at most 4 other device operations a call, the residual
-               summary one K2r and one K3r launch and at most
-               SUMMARY_OTHER_OPS others, the LM accept range one K4
-               launch and at most STAGE_OTHER_OPS others);
+               operations each; each factor range one K2 or K3 launch,
+               the residual summary one K5 launch and the LM accept range
+               one K4 launch, each with at most STAGE_OTHER_OPS other
+               device operations a call); no capture of a program on a
+               timed frame;
   7. image_textured - `bench.py --mode image` as its chip preset runs it,
                its 12 s cut to 10 s of the textured ray-cast scene
                (moving occluders, photometric drift, pixel noise) through
@@ -99,8 +100,8 @@ Phases, each printed as one JSON line:
                synchronizing call in the coordinator's dispatch, a traced
                step's device operations (the trace complete: every K4
                launch seen) at most twice those of e2e's single-lane
-               megastep run eagerly; step times, aggregate frames/s, the
-               host split;
+               megastep run eagerly, no capture of a program on a timed
+               step; step times, aggregate frames/s, the host split;
   9. batch   - `bench.py --mode batch`'s sweep: make_batched_solver over
                B = 1, 2, 4, 8, 16 copies of the bench's window against the
                single solve, and the CG Schur path beside chol at B = 8,
@@ -141,8 +142,11 @@ Phases, each printed as one JSON line:
                process beside them: `python -m ctrlvio_tpu_torch.bench` at
                the accuracy matrix's lissajous row (e2e, seed 3, 1.0x, cut
                from 16 s to 12 s; bench.py's keys and gates) and
-               `--mode image --scene blobs --duration 4` (one 3-level K1
-               launch a frame, read from its stats line), then
+               `--mode image --scene blobs --duration 12` (the card
+               preset's length: frames timed after the stream's warm-up,
+               a positive frame rate, at least one megastep and one K5
+               launch, one 3-level K1 launch a frame, read from its stats
+               line), then
                `python -m ctrlvio_tpu_torch.tools.profile_serve --sweep`
                (ms a batched megastep at B = 1..16), `tools.ne_ab` (dense
                against chunked normal equations, each variant's program
@@ -161,9 +165,10 @@ Phases, each printed as one JSON line:
                one state under deterministic algorithms: times that
                compare across trees);
  14. kernels - one line listing every kernel with launches, error and times
-               (K2, K3 and K4 with their launches on every path; every
-               path must have launched them, and run no plain accept
-               step).
+               (K2, K3, K4 and K5 with their launches on every path;
+               every path must have launched K2, K3 and K4, every
+               streamed path K5, and none run a plain accept step or a
+               plain summary).
 Every path runs as the port runs on the card: each per-frame program (the
 streamed and batched megasteps, the synchronous solve, prior and predict,
 the f64 bootstrap BA, the fused front end, the classic tracker's four
@@ -174,7 +179,8 @@ phase's line lists the graphs it captured (key, seconds, reserved memory
 before and after), their seconds, the shared graph pool's size, the
 replays and the K1 launches made by replays and by the warm-up runs before
 captures; "one K1 launch a frame" counts through replays, and a capture on
-a timed (steady) frame fails the phase. The estimator lines add each
+a timed (steady) frame fails the e2e and serve phases (the other lines
+count them, `captures_in_timed_frames`). The estimator lines add each
 solve kind's histogram of LM iterations (`lm_iters_hist`), the iterations
 needed, executed (the WHILE nodes' trips the card ran, counted on the
 card, `if_bodies_run`) and those a fixed count would run; the trips run
@@ -220,7 +226,8 @@ from ctrlvio_tpu_torch.parallel import mesh as pmesh
 from ctrlvio_tpu_torch.parallel.stream_batch import BatchedStream
 from ctrlvio_tpu_torch.sim import render, synthetic, tiny
 from ctrlvio_tpu_torch.sim.windows import (ACCEPT_CASES, FACTOR_WINDOWS,
-                                           accept_case, factor_window)
+                                           accept_case, factor_window,
+                                           summary_window)
 from ctrlvio_tpu_torch.solver import assemble, lm
 from ctrlvio_tpu_torch.solver.layout import (SolveOptions, WindowConfig,
                                              column_mask, retract)
@@ -256,10 +263,10 @@ def reset_counts():
 
 
 def factor_fields(counts=None, k4_counts=None):
-    """K2's and K3's launches in a phase (`factor_kernels.counts()` of this
-    process, or `counts` from a subprocess's stats line), their residual
-    instances' (K2r, K3r), K4's (`lm_kernels.counts()`, or `k4_counts`),
-    and the runs of their plain versions. A launch recorded into a
+    """K2's, K3's and K5's launches in a phase (`factor_kernels.counts()`
+    of this process, or `counts` from a subprocess's stats line), K4's
+    (`lm_kernels.counts()`, or `k4_counts`), and the runs of their plain
+    versions (K5's and its per-slot pieces'). A launch recorded into a
     captured program counts on each replay, one inside a WHILE node's
     body once a trip the node ran."""
     c = counts or fk.counts()
@@ -268,11 +275,11 @@ def factor_fields(counts=None, k4_counts=None):
             "plain_accept_calls": a["lm_accept_plain"],
             "k2_launches": c["image_factor_rows"],
             "k3_launches": c["imu_factor_rows"],
-            "k2r_launches": c["image_factor_residuals"],
-            "k3r_launches": c["imu_factor_residuals"],
+            "k5_launches": c["residual_summary"],
             "plain_factor_calls": c["image_factor_rows_plain"]
             + c["imu_factor_rows_plain"],
-            "plain_residual_calls": c["image_factor_residuals_plain"]
+            "plain_summary_calls": c["residual_summary_plain"]
+            + c["image_factor_residuals_plain"]
             + c["imu_factor_residuals_plain"]}
 
 
@@ -989,19 +996,31 @@ FACTOR_LANES = 8
 # operations (~3 real operations each) and ~2 a row entry (6 x 259)
 K2_OPS_SLOT = 6000
 K3_OPS_SLOT = 28000
-# the residual instances, likewise: K2r ~0.45k for each observation time
-# (blending, 3 deltas, the spline's 3 exponentials and products, position)
-# and ~0.15k for the transfer, residual and cost; K3r ~0.75k (deltas,
-# body rate, rotation, acceleration, residual and |r|^2)
-K2R_OPS_SLOT = 1050
-K3R_OPS_SLOT = 750
+# K5, likewise: an image slot ~0.45k for each observation time (blending,
+# 3 deltas, the spline's 3 exponentials and products, position) and ~0.15k
+# for the transfer, residual, cost and terms; an IMU slot ~0.75k (deltas,
+# body rate, rotation, acceleration, residual and |r|^2); a knot's
+# boxminus ~0.1k (3 entries, each a product, a log); 4 an entry of J (its
+# product with x [-] x0 and its square); the sums a few a term
+K5_OPS_IMAGE_SLOT = 1050
+K5_OPS_IMU_SLOT = 750
+K5_OPS_KNOT = 100
+K5_OPS_J_ENTRY = 4
 # each factor kernel's name in the kernels line and the record_function
 # range of the megastep that runs it
 FACTOR_KERNELS = {
     "k2": ("K2 image_factor_rows", "image factors"),
     "k3": ("K3 imu_factor_rows", "IMU factors"),
-    "k2r": ("K2r image_factor_residuals", "residual summary"),
-    "k3r": ("K3r imu_factor_residuals", "residual summary")}
+    "k5": ("K5 residual_summary", "residual summary")}
+# K5 against its plain version: each of its five outputs within this of
+# that output's largest entry (f32 FACTOR_TOL's)
+SUMMARY_TOL = {torch.float32: 1e-4, torch.float64: 1e-12}
+
+
+def k5_ops(cfg):
+    """K5's operations at `cfg`'s window (what its bound counts)."""
+    return (K5_OPS_IMAGE_SLOT * cfg.OBS + K5_OPS_IMU_SLOT * cfg.MIMU
+            + K5_OPS_KNOT * cfg.KW + K5_OPS_J_ENTRY * cfg.C * cfg.C)
 # H100 SXM f64 rate outside the tensor cores (NVIDIA data sheet)
 F64_FLOP_PER_S = 34e12
 
@@ -1024,66 +1043,70 @@ def factor_calls(window, cfg, marg_mode):
             lambda: k3(fk.imu_factor_rows_plain))
 
 
-def residual_calls(window, cfg):
-    """(K2r call, K2r plain call, K3r call, K3r plain call) on `window` as
-    `assemble._residuals` makes them."""
-    params, img, imu, ext, grav, info, w = window
+def summary_calls(window, cfg):
+    """(K5 call, K5 plain call) on `window` (`summary_window`'s) as
+    `assemble.residual_rms` and `total_cost` make them."""
     c = SolveOptions().cauchy_c
 
-    def k2r(f=fk.image_factor_residuals):
-        return f(params, img, ext, w, c, cfg)
+    def k5(f=fk.residual_summary):
+        return f(*window, c, cfg)
 
-    def k3r(f=fk.imu_factor_residuals):
-        return f(params, imu, grav, info, cfg)
-
-    return (k2r, lambda: k2r(fk.image_factor_residuals_plain), k3r,
-            lambda: k3r(fk.imu_factor_residuals_plain))
+    return k5, lambda: k5(fk.residual_summary_plain)
 
 
 def kernel_calls(kname, window, cfg, marg_mode=False):
-    """(kernel call, plain call) of `kname` ("k2", "k3", "k2r", "k3r") on
-    `window`; marg_mode for K2 and K3."""
-    if kname in ("k2", "k3"):
-        calls = factor_calls(window, cfg, marg_mode)
-    else:
-        calls = residual_calls(window, cfg)
-    k = 0 if kname.startswith("k2") else 2
+    """(kernel call, plain call) of `kname` ("k2", "k3", "k5") on `window`
+    (K5's a `summary_window`); marg_mode for K2 and K3. Each call returns
+    a tuple of its outputs."""
+    if kname == "k5":
+        k5, p5 = summary_calls(window, cfg)
+        return (lambda: (k5(),)), (lambda: (p5(),))
+    calls = factor_calls(window, cfg, marg_mode)
+    k = 0 if kname == "k2" else 2
     return calls[k], calls[k + 1]
 
 
 def kernel_wrapper(kname):
     """The wrapper whose `launches` counts `kname`'s launches."""
     return {"k2": fk.image_factor_rows, "k3": fk.imu_factor_rows,
-            "k2r": fk.image_factor_residuals,
-            "k3r": fk.imu_factor_residuals}[kname]
+            "k5": fk.residual_summary}[kname]
 
 
 def kernel_inputs(kname, window):
     """The op's tensor inputs of `kname` on `window` (what its bound
     counts as read)."""
+    if kname == "k5":
+        return fk.summary_inputs(*window)
     params, img, imu, ext, grav, info, w = window
     return {"k2": lambda: fk.image_inputs(params, img, img.valid, ext, w),
-            "k3": lambda: fk.imu_inputs(params, imu, imu.valid, grav, info),
-            "k2r": lambda: fk.image_residual_inputs(params, img, ext, w),
-            "k3r": lambda: fk.imu_residual_inputs(params, imu, grav,
-                                                  info)}[kname]()
+            "k3": lambda: fk.imu_inputs(params, imu, imu.valid, grav,
+                                        info)}[kname]()
+
+
+def lane_args(kname, window):
+    """What of `window` is a lane's own under torch.func.vmap: its
+    parameters and `kname`'s factors (K5: every factor and the prior)."""
+    if kname == "k5":
+        return window[:5]
+    return window[0], window[1 if kname == "k2" else 2]
 
 
 def lane_call(kname, cfg, side):
-    """`kname`'s wrapper as a function of one lane's (params, factors),
-    the window's constants `side` (ext, gravity, imu_info, sqrt_info)
-    shared: what torch.func.vmap maps over the lanes."""
+    """`kname`'s wrapper as a function of one lane's `lane_args`, the
+    window's constants `side` (ext, gravity, imu_info, sqrt_info) shared:
+    what torch.func.vmap maps over the lanes. Returns a tuple of its
+    outputs."""
     ext, grav, info, w = side
     c = SolveOptions().cauchy_c
 
-    def call(p, fa):
+    def call(p, *fa):
         if kname == "k2":
-            return fk.image_factor_rows(p, fa, fa.valid, ext, w, c, cfg)
+            return fk.image_factor_rows(p, fa[0], fa[0].valid, ext, w, c,
+                                        cfg)
         if kname == "k3":
-            return fk.imu_factor_rows(p, fa, fa.valid, grav, info, cfg)
-        if kname == "k2r":
-            return fk.image_factor_residuals(p, fa, ext, w, c, cfg)
-        return fk.imu_factor_residuals(p, fa, grav, info, cfg)
+            return fk.imu_factor_rows(p, fa[0], fa[0].valid, grav, info,
+                                      cfg)
+        return (fk.residual_summary(p, *fa, ext, grav, info, w, c, cfg),)
 
     return call
 
@@ -1114,24 +1137,55 @@ def factor_bound_ms(inputs, outputs, ops, dtype):
             "bytes": byts, "operations": ops}
 
 
+def replays_equal(fn):
+    """Whether two replays of a CUDA graph of one fn() give the same bits
+    (no atomic, no order that changes from replay to replay)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    first = [x.clone() for x in out]
+    graph.replay()
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(first, out))
+
+
+def col_rel_err(got, ref):
+    """K5's largest deviation from its plain version over its outputs,
+    each relative to that output's largest entry over the lanes."""
+    a, b = got[0].double().reshape(-1, 5), ref[0].double().reshape(-1, 5)
+    return float(((a - b).abs().amax(0)
+                  / b.abs().amax(0).clamp(min=1e-300)).max())
+
+
 def phase_factor_kernels():
-    """K2 and K3, and their residual instances K2r and K3r, against their
-    plain versions on the card, at e2e's window and batch's, in f32 (the
-    per-frame solve and residual summary) and f64 (the bootstrap BA, the
-    host-side prior), K2 and K3 with `marg_mode` off and on: every output
-    within FACTOR_TOL of its largest entry, one launch counted a call;
-    unbatched, and under torch.func.vmap over FACTOR_LANES windows (each
-    lane its own perturbation of the window, the constants shared): one
-    launch, every lane equal bit for bit to its own unbatched launch.
-    Int32 indices give int64's results bit for bit (K2, K2r). Times: `ms` by CUDA events over the replay of a graph of launches
-    (the card's time a launch), `call_ms` by events over back-to-back
-    calls (with the host's dispatch), `plain_ms` the plain version's by
-    events over back-to-back calls, `plain_graph_ms` by a graph's replay
-    (what a captured solve paid for it before these kernels);
-    `vmapped_ms` one launch over the lanes by a graph's replay. First a
-    line of each instance's resources (`factor_kernels.kernel_attributes`:
-    registers, local spill bytes, static shared bytes, threads a block)
-    beside the ptxas log of the build."""
+    """K2, K3 and K5 against their plain versions on the card, at e2e's
+    window and batch's (K5's with bias pairs and a prior,
+    `sim/windows.py::summary_window`), in f32 (the per-frame solve and
+    residual summary) and f64 (the bootstrap BA, the host-side prior), K2
+    and K3 with `marg_mode` off and on: every output of K2 and K3 within
+    FACTOR_TOL of its largest entry, each of K5's five within SUMMARY_TOL
+    of itself, one launch counted a call; unbatched, and under
+    torch.func.vmap over FACTOR_LANES windows (each lane its own
+    perturbation of the window, the constants shared): one launch, every
+    lane equal bit for bit to its own unbatched launch; two replays of a
+    graph of one launch give the same bits. Int32 indices give int64's
+    results bit for bit (K2, K5). Times: `ms` by CUDA events over
+    the replay of a graph of launches (the card's time a launch),
+    `call_ms` by events over back-to-back calls (with the host's
+    dispatch), `plain_ms` the plain version's by events over back-to-back
+    calls, `plain_graph_ms` by a graph's replay (what a captured solve
+    paid for it before these kernels); `vmapped_ms` one launch over the
+    lanes by a graph's replay. First a line of each instance's resources
+    (`factor_kernels.kernel_attributes`: registers, local spill bytes,
+    static shared bytes, threads a block) beside the ptxas log of the
+    build."""
     dev = torch.device("cuda")
     attributes = fk.kernel_attributes()
     emit({"phase": "factor_kernels", "attributes": attributes,
@@ -1143,76 +1197,90 @@ def phase_factor_kernels():
     for name, cfg in FACTOR_WINDOWS.items():
         for dtype in (torch.float32, torch.float64):
             window = factor_window(cfg, dtype, dev)
-            params, img, imu = window[:3]
             lanes = [factor_window(cfg, dtype, dev, seed=7 + k)
                      for k in range(FACTOR_LANES)]
-            stacked = [batch.stack([w[k] for w in lanes]) for k in range(3)]
+            windows = {"k2": (window, lanes), "k3": (window, lanes), "k5": (
+                summary_window(cfg, dtype, dev, window=window),
+                [summary_window(cfg, dtype, dev, seed=7 + k, window=w)
+                 for k, w in enumerate(lanes)])}
+            params, img, imu = window[:3]
             rec = {"phase": "factor_kernels", "window": name,
                    "cfg": dict(cfg._asdict()), "dtype": str(dtype),
                    "image_slots_valid": int(img.valid.sum()),
                    "image_slots_marg": int((img.valid & img.marg_drop).sum()),
                    "imu_slots_valid": int(imu.valid.sum())}
-            ops_slot = {"k2": K2_OPS_SLOT * cfg.OBS, "k3": K3_OPS_SLOT * cfg.MIMU,
-                        "k2r": K2R_OPS_SLOT * cfg.OBS,
-                        "k3r": K3R_OPS_SLOT * cfg.MIMU}
+            ops = {"k2": K2_OPS_SLOT * cfg.OBS, "k3": K3_OPS_SLOT * cfg.MIMU,
+                   "k5": k5_ops(cfg)}
             for kname in FACTOR_KERNELS:
+                win, win_lanes = windows[kname]
                 counter = kernel_wrapper(kname)
                 k = {"rel_err": {}, "abs_err": {}, "counted": True}
                 for marg in ((False, True) if kname in ("k2", "k3")
                              else (False,)):
-                    kern, plain = kernel_calls(kname, window, cfg, marg)
+                    kern, plain = kernel_calls(kname, win, cfg, marg)
                     n0 = counter.launches
                     got = kern()
                     k["counted"] &= counter.launches == n0 + 1
                     ref = plain()
                     torch.cuda.synchronize()
                     key = "marg" if marg else "solve"
-                    k["rel_err"][key] = rel_err(got, ref)
+                    k["rel_err"][key] = (col_rel_err(got, ref)
+                                         if kname == "k5"
+                                         else rel_err(got, ref))
                     k["abs_err"][key] = abs_err(got, ref)
+                    if kname == "k5":
+                        k["values"] = got[0].tolist()
                 # vmapped over the lanes against each lane's own launch
-                vmapped = lane_call(kname, cfg, window[3:])
-                fa_idx = 1 if kname.startswith("k2") else 2
+                vmapped = lane_call(kname, cfg, win[3:] if kname != "k5"
+                                    else win[5:])
+                own = [lane_args(kname, w) for w in win_lanes]
+                stacked = [batch.stack([a[i] for a in own])
+                           for i in range(len(own[0]))]
                 n0 = counter.launches
-                got_b = torch.func.vmap(vmapped)(stacked[0],
-                                                 stacked[fa_idx])
+                got_b = torch.func.vmap(vmapped)(*stacked)
                 k["vmapped_launches"] = counter.launches - n0
-                each = [vmapped(w[0], w[fa_idx]) for w in lanes]
+                each = [vmapped(*a) for a in own]
                 k["vmapped_equal"] = all(
                     torch.equal(got_b[f][ln], each[ln][f])
                     for ln in range(FACTOR_LANES) for f in range(len(got_b)))
-                if kname.startswith("k2") and dtype == torch.float32:
+                if kname != "k3" and dtype == torch.float32:
                     # the same window with int32 indices
-                    img32 = img._replace(**{f: getattr(img, f).to(torch.int32)
-                                            for f in ("i0_i", "i0_j",
-                                                      "lm_idx")})
-                    a = vmapped(params, img32)
-                    b = vmapped(params, img)
-                    k["int32_equal"] = all(torch.equal(x, y)
-                                           for x, y in zip(a, b))
-                kern, plain = kernel_calls(kname, window, cfg)
+                    a = list(lane_args(kname, win))
+                    a[1] = a[1]._replace(**{
+                        f: getattr(a[1], f).to(torch.int32)
+                        for f in ("i0_i", "i0_j", "lm_idx")})
+                    if kname == "k5":
+                        a[2] = a[2]._replace(**{
+                            f: getattr(a[2], f).to(torch.int32)
+                            for f in ("i0", "bias_idx")})
+                    k["int32_equal"] = all(
+                        torch.equal(x, y) for x, y in zip(
+                            vmapped(*a), vmapped(*lane_args(kname, win))))
+                kern, plain = kernel_calls(kname, win, cfg)
+                k["replays_equal"] = replays_equal(kern)
                 k["ms"] = graph_ms(kern, 20)
                 k["call_ms"] = time_cuda(kern, 50)
                 k["plain_ms"] = time_cuda(plain, 5)
                 k["plain_graph_ms"] = graph_ms(plain, 2)
                 k["vmapped_ms"] = graph_ms(lambda: torch.func.vmap(vmapped)(
-                    stacked[0], stacked[fa_idx]), 10)
-                k.update(factor_bound_ms(kernel_inputs(kname, window), kern(),
-                                         ops_slot[kname], dtype))
+                    *stacked), 10)
+                k.update(factor_bound_ms(kernel_inputs(kname, win), kern(),
+                                         ops[kname], dtype))
                 rec[kname] = k
             emit(rec)
             out[(name, str(dtype))] = rec
-            tol = FACTOR_TOL[dtype]
             for kname in FACTOR_KERNELS:
                 k = rec[kname]
+                tol = (SUMMARY_TOL if kname == "k5" else FACTOR_TOL)[dtype]
                 if not (max(k["rel_err"].values()) <= tol and k["counted"]
                         and k["vmapped_launches"] == 1
-                        and k["vmapped_equal"]
+                        and k["vmapped_equal"] and k["replays_equal"]
                         and k.get("int32_equal", True)):
                     raise SystemExit(f"{FACTOR_KERNELS[kname][0]} disagrees "
                                      f"with its plain version (within {tol} "
                                      f"of the largest entry, one launch a "
-                                     f"call, vmapped equal to its lanes): "
-                                     f"{rec}")
+                                     f"call, vmapped equal to its lanes, two "
+                                     f"replays equal): {rec}")
 
     def summary(kname):
         main = out[("e2e", str(torch.float32))][kname]
@@ -1221,7 +1289,8 @@ def phase_factor_kernels():
                                    for r in out.values()),
                 **{f: main[f] for f in ("ms", "call_ms", "plain_ms",
                                         "plain_graph_ms", "vmapped_ms",
-                                        "bound_ms", "bound_by")},
+                                        "bound_ms", "bound_by", "bytes",
+                                        "operations")},
                 "f64": {f: out[("e2e", str(torch.float64))][kname][f]
                         for f in ("ms", "plain_ms", "bound_ms")},
                 "batch_window": {f: out[("batch", str(torch.float32))][kname][f]
@@ -1371,26 +1440,19 @@ def device_share(prof, prof_s, frame_ms):
 
 # the record_function ranges of the megastep and the window solve
 # (`solver/assemble.py`, `solver/lm.py`, `estimator/stream.py`), the
-# kernels each factor range and the LM's accept step launch once a call,
-# and the most other device operations a call of it may make: a factor
-# range's are the wrapper's casts and copies (4), the accept step's none
-# (held to the same 4); the residual summary's are the masked
-# sums, the bias residual, the prior's boxminus and product: 105 on an
-# NVIDIA H100 80GB HBM3 at 700 W (the `e2e` line's
-# `eager_megastep_stages`, a `python3 chip_smoke.py` run)
+# kernels each factor range, the LM's accept step and the residual summary
+# launch once a call, and the most other device operations a call of it
+# may make: a factor range's are the wrapper's casts and copies (4), the
+# accept step's none and the summary's the zeroing of its arrival
+# counters (both held to the same 4)
 STAGES = ("image factors", "IMU factors", "normal equations", "Schur solve",
           "retract", "LM accept", "QR prior", "slide", "residual summary")
 STAGE_KERNELS = {"image factors": ("image_rows_kernel",),
                  "IMU factors": ("imu_rows_kernel",),
                  "LM accept": ("lm_accept_kernel",),
-                 "residual summary": ("image_residuals_kernel",
-                                      "imu_residuals_kernel")}
+                 "residual summary": ("residual_summary_kernel",)}
 STAGE_OTHER_OPS = 4
-SUMMARY_OTHER_OPS = 105
-STAGE_OTHER_LIMIT = {"image factors": STAGE_OTHER_OPS,
-                     "IMU factors": STAGE_OTHER_OPS,
-                     "LM accept": STAGE_OTHER_OPS,
-                     "residual summary": SUMMARY_OTHER_OPS}
+STAGE_OTHER_LIMIT = {n: STAGE_OTHER_OPS for n in STAGE_KERNELS}
 
 
 def stage_split(prof):
@@ -1470,9 +1532,9 @@ def eager_megastep_stages(prog):
 
 
 def stages_hold_their_kernels(st):
-    """Each factor range's and the accept step's every call launched each
-    of its kernels once and at most STAGE_OTHER_LIMIT other device
-    operations."""
+    """Each factor range's, the accept step's and the residual summary's
+    every call launched each of its kernels once and at most
+    STAGE_OTHER_LIMIT other device operations."""
     return all(st["ranges"][n]["calls"] > 0
                and st["ranges"][n]["min_kernel_launches_per_call"] == 1
                and st["ranges"][n]["max_kernel_launches_per_call"] == 1
@@ -1821,11 +1883,14 @@ def phase_e2e():
         raise SystemExit(f"e2e: the LM's exit nodes did not run exactly the "
                          f"iterations its solves needed: {rec}")
     if not stages_hold_their_kernels(stages):
-        raise SystemExit(f"e2e: an eager megastep's factor and accept "
-                         f"ranges did not each launch each of their kernels "
-                         f"once and at "
+        raise SystemExit(f"e2e: an eager megastep's factor, accept and "
+                         f"summary ranges did not each launch each of their "
+                         f"kernels once and at "
                          f"most {STAGE_OTHER_LIMIT} other device operations "
                          f"a call: {stages}")
+    if captures != 0:
+        raise SystemExit(f"e2e captured {captures} programs on timed frames "
+                         f"(PERF.md's limit: none): {rec}")
     return rec
 
 
@@ -2295,6 +2360,9 @@ def phase_serve():
     if not iters_exact(rec):
         raise SystemExit(f"serve: the lanes' synchronous solves' exit nodes "
                          f"did not run exactly the iterations needed: {rec}")
+    if captures != 0:
+        raise SystemExit(f"serve captured {captures} programs on timed steps "
+                         f"(PERF.md's limit: none): {rec}")
     return rec
 
 
@@ -2616,29 +2684,27 @@ def check_serve_device_ops(serve, e2e_device_ops):
 
 # the paths that run the streamed megastep, whose summary computes the
 # window's residual RMS every frame
-SUMMARY_PATHS = ("e2e", "image_textured", "serve", "cli")
+SUMMARY_PATHS = ("e2e", "image_textured", "serve", "cli", "bench_image")
 
 
 def check_factor_launches(paths):
     """Every path launched K2 and K3 and, in its LM solves, K4, the
-    streamed paths K2r and K3r too (counted through replays), and none ran
-    the plain residuals or the plain accept step."""
-    bad = {p: {k: r[k] for k in ("k2_launches", "k3_launches", "k2r_launches",
-                                 "k3r_launches", "k4_launches",
-                                 "plain_factor_calls", "plain_residual_calls",
+    streamed paths K5 too (counted through replays), and none ran the
+    plain summary or the plain accept step."""
+    bad = {p: {k: r[k] for k in ("k2_launches", "k3_launches", "k5_launches",
+                                 "k4_launches", "plain_factor_calls",
+                                 "plain_summary_calls",
                                  "plain_accept_calls")}
            for p, r in paths.items()
            if not (r["k2_launches"] > 0 and r["k3_launches"] > 0
                    and r["k4_launches"] > 0
-                   and r["plain_residual_calls"] == 0
+                   and r["plain_summary_calls"] == 0
                    and r["plain_accept_calls"] == 0
-                   and (p not in SUMMARY_PATHS
-                        or (r["k2r_launches"] > 0
-                            and r["k3r_launches"] > 0)))}
+                   and (p not in SUMMARY_PATHS or r["k5_launches"] > 0))}
     if bad:
         raise SystemExit(f"paths that did not linearize through K2 and K3 "
                          f"and accept through K4, or whose residual summary "
-                         f"did not go through K2r and K3r: {bad}")
+                         f"did not go through K5: {bad}")
 
 
 def sim_frames(sims, k):
@@ -3251,11 +3317,12 @@ def phase_cli():
 # the bench phase: the port's measuring entry points as a user runs them.
 # e2e at the accuracy matrix's row 7 (lissajous ground truth, seed 3,
 # 1.0x), its 16 s cut to 12 s as the e2e phase's; the blobs image run at
-# 4 s, as the main phase
+# the card preset's 12 s (`ctrlvio_tpu_torch/bench.py`): its timing starts
+# after the stream's warm-up and 10 frames more, frame 50
 BENCH_DIR = ROOT / "build" / "bench"
 BENCH_E2E = ("--mode", "e2e", "--gt", "lissajous", "--seed", 3, "--speed",
              1.0, "--duration", 12)
-BENCH_IMAGE = ("--mode", "image", "--scene", "blobs", "--duration", 4)
+BENCH_IMAGE = ("--mode", "image", "--scene", "blobs", "--duration", 12)
 # the keys of bench.py's e2e line (`bench.py:365-374`)
 BENCH_E2E_KEYS = ["metric", "value", "unit", "vs_baseline", "ate_online_cm",
                   "ate_posthoc_cm", "ld_err_us", "gt", "seed", "speed"]
@@ -3273,11 +3340,12 @@ def phase_bench():
     code 0, its JSON line with bench.py's keys and `gt == "lissajous"`,
     and bench.py's gates read from that line (online and post-hoc ATE
     < 10 cm, line-delay error < 2 us); `--mode image --scene blobs
-    --duration 4` (FusedTracker with lag=1 and K1, the streaming
-    estimator from the ground-truth bootstrap), gated on exit code 0, its
-    JSON line and, from its `[bench-image] stats` line (counts zeroed
-    before its replay and read after), one 3-level K1 launch a frame and
-    no plain LK call; `python -m ctrlvio_tpu_torch.tools.profile_serve
+    --duration 12` (FusedTracker with lag=1 and K1, the streaming
+    estimator from the ground-truth bootstrap, frames timed from the 50th,
+    after the stream's warm-up), gated on exit code 0, its JSON line with
+    a positive frame rate and, from its `[bench-image] stats` line (counts
+    zeroed before its replay and read after), at least one megastep and
+    one K5 launch, one 3-level K1 launch a frame and no plain LK call; `python -m ctrlvio_tpu_torch.tools.profile_serve
     --sweep --reps 3`: ms a batched megastep at B = 1..16; `python -m
     ctrlvio_tpu_torch.tools.ne_ab` at its defaults (dense against
     chunked/128 normal equations at B = 1 and 16, each variant's batched
@@ -3342,7 +3410,13 @@ def phase_bench():
         raise SystemExit(f"bench: the lissajous e2e row's line fails "
                          f"bench.py's keys or gates: {rec}")
     if not (image["metric"] == "image_frames_per_sec_per_chip"
-            and k1_once_a_frame(stats["k1_track_launches"],
+            and image["value"] > 0
+            and stats["counts"].get("megastep", 0) >= 1
+            and stats["factor_kernels"]["residual_summary"] >= 1):
+        raise SystemExit(f"bench: the image run timed no streamed frame "
+                         f"(a positive frame rate, a megastep and a K5 "
+                         f"launch): {rec}")
+    if not (k1_once_a_frame(stats["k1_track_launches"],
                                 rec["image_graphs"], frames)
             and stats["k1_track_launches_by_levels"] == {
                 "3": stats["k1_track_launches"]}
@@ -3518,10 +3592,9 @@ def main():
                "and its one-hot expansion into dense rows"),
         "k3": ("ctrlvio_tpu/solver/assemble.py:84", "vmapped _imu_blocks "
                "and its one-hot expansion into dense rows"),
-        "k2r": ("ctrlvio_tpu/solver/assemble.py:419", "residual_rms's "
-                "(and total_cost's, :481) vmapped reproj_residual"),
-        "k3r": ("ctrlvio_tpu/solver/assemble.py:419", "residual_rms's "
-                "(and total_cost's, :481) vmapped imu_residual")}
+        "k5": ("ctrlvio_tpu/solver/assemble.py:419", "residual_rms and "
+               "total_cost (:481): the factors' residuals, the prior's "
+               "product and the masked sums")}
     for kname, (name, stage) in FACTOR_KERNELS.items():
         k = factors[kname]
         kernels.append({
@@ -3535,8 +3608,9 @@ def main():
             "ms": k["ms"], "call_ms": k["call_ms"], "plain_ms": k["plain_ms"],
             "plain_graph_ms": k["plain_graph_ms"],
             "vmapped_ms": k["vmapped_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": None, "f64": k["f64"],
-            "batch_window": k["batch_window"],
+            "bound_by": k["bound_by"], "bound_bytes": k["bytes"],
+            "bound_operations": k["operations"], "library_ms": None,
+            "f64": k["f64"], "batch_window": k["batch_window"],
             "attributes": k["attributes"],
             "launches_by_path": {p: r[f"{kname}_launches"]
                                  for p, r in paths.items()},

@@ -1,4 +1,5 @@
-// K2 and K3: the window solve's factor linearization, for Hopper.
+// K2 and K3: the window solve's factor linearization, and K5: the streamed
+// frame's residual summary, for Hopper.
 //
 // K2 (`image_factor_rows`) evaluates every rolling-shutter image factor of
 // a window in one launch: the row-shifted segments, the 4-knot gathers at
@@ -37,19 +38,17 @@
 // Non-finite blocks stay in their own columns here, where the plain
 // version's one-hot products spread them over the row.
 //
-// Each has a residual-only instance (`image_factor_residuals`,
-// `imu_factor_residuals`), the port's counterpart of XLA's fused factor
-// evaluations in the JAX package's `residual_rms` (`ctrlvio_tpu/solver/
-// assemble.py:419`, once a streamed frame) and `total_cost` (:481): per
-// slot the raw residual (sqrt-info applied, no robust weight, no mask) and
-// rho(|r|^2) (image) or |r|^2 (IMU), through the plain route's operations
+// K5 (`residual_summary`, below K2 and K3) is the streamed frame's whole
+// residual summary in one launch: the port's counterpart of XLA's one
+// fusion of the JAX package's `residual_rms` (`ctrlvio_tpu/solver/
+// assemble.py:419`, once a streamed frame) and `total_cost` (:481). It
+// evaluates every image, IMU and bias factor's raw residual (sqrt-info
+// applied, no robust weight) through the plain route's operations
 // (`factors.reproj_residual`, `factors.imu_residual`: the spline's value
-// by quaternion products, the point moved by quaternion rotations), not
-// K2's closed forms. They write ~5% of the rows instances' bytes (e2e
-// window: 18 KB and 8 KB) and do a few hundred operations a slot, so a
-// launch is one thread's chain of transcendentals: K2's on two threads a
-// slot (an observation time each, then a residual entry each), K3's on
-// one.
+// by quaternion products, the point moved by quaternion rotations; not
+// K2's closed forms), the prior's r0 + J (x [-] x0) and J's nonzero rows,
+// masks and reduces them, and writes the five numbers the summary reads:
+// [rms_img, rms_imu, rms_bias, rms_prior, cost]. See its section below.
 //
 // What bounds them on an H100 at the e2e window (Q = 768 image and M = 256
 // IMU slots, C = 6 KW + 6 NB + 1 = 259, f32): each writes 1.59 MB of rows
@@ -1004,33 +1003,161 @@ struct ImuKernel {
 };
 
 // ---------------------------------------------------------------------------
-// the residual-only instances: each slot's raw residual and its cost, no
-// rows, no Jacobians, no dual passes, no mask (the window's residual
-// summary, `solver/assemble.py::_residuals`, masks them)
+// K5: the streamed frame's residual summary, one launch a call
 // ---------------------------------------------------------------------------
+//
+// What it computes, for each lane (window) of the launch, as
+// `ops/factor_kernels.py::residual_summary_plain` (the solver's former
+// `residual_rms` and `total_cost`) does with torch operations:
+//   image: S_img = sum m |r|^2 (per entry), N_img = sum m, S_rho = sum m
+//          rho(|r|^2), rho(s) = c^2 log1p(s / c^2);
+//   IMU:   S_imu = sum m |r|^2, N_imu = sum m;
+//   bias:  S_bias = sum m |r_b|^2 (per entry), N_bias = sum m;
+//   prior: S_prior = sum r_p^2 with r_p = r0 + J (x [-] x0), N_prior = the
+//          rows of J with a nonzero norm;
+// and from them out = [sqrt(S_img / max(2 N_img, 1)), sqrt(S_imu / max(6
+// N_imu, 1)), sqrt(S_bias / max(6 N_bias, 1)), sqrt(S_prior / max(N_prior,
+// 1)), ((S_rho / 2 + S_imu / 2) + S_bias / 2) + S_prior / 2]. Every term is
+// multiplied by its mask, as the plain version does (a masked NaN stays
+// NaN); with every mask off the clamps give 0.
+//
+// What bounds it on an H100 at the e2e window (Q = 768, M = 256, C = 259,
+// f32): it reads ~0.33 MB, mostly J's 268 KB, ~0.10 us at 3.35 TB/s, and
+// does ~1.3 M operations, under 0.02 us at 67 TFLOP/s. Neither is reachable:
+// an image slot's chain (two spline evaluations, a transfer through four
+// rotations) is a few thousand dependent cycles, and the sums need one
+// step across blocks. So the design cuts launches and round trips: one
+// launch for the whole summary, whose only output is five numbers a
+// lane.
+//
+// Design: grid y is the lane, grid x a lane's blocks, each with one role,
+// SUM_THREADS threads, running phases between barriers that exchange
+// values only through the block's shared struct (no shuffles, no votes):
+//   - image blocks, SUM_IMAGE_SLOTS slots each, 2 threads a slot: phase 0
+//     thread o evaluates observation time o (the segment, the spline's
+//     rotation and position); phase 1 both threads move the point from
+//     frame i to frame j, thread r2 takes residual entry r2's term, thread
+//     0 the mask and the Cauchy cost;
+//   - IMU blocks, SUM_IMU_SLOTS slots each, 2 threads a slot: phase 0
+//     thread 0 the gyro residual (the body rate), thread 1 the
+//     accelerometer's (the rotation, the acceleration); phase 1 thread 0
+//     |r|^2 and the mask;
+//   - one bias block: a thread an entry of the bias pairs' residuals;
+//   - prior blocks, SUM_PRIOR_ROWS rows of J each: every prior block first
+//     computes all of x [-] x0 into shared memory itself (a thread an
+//     entry: the knots' quaternion logs of so3.boxminus, the linear
+//     differences), then ROW_LANES consecutive threads walk a row's
+//     consecutive columns (coalesced), each keeping its share of the row's
+//     product with x [-] x0 and of its squared norm, one pass over J, a
+//     thread's loads for PRIOR_ROWS_THREAD rows and PRIOR_COLS_WAVE
+//     columns issued together; a tree over the shares gives each row's
+//     sums.
+// Then each block sums its threads' terms in a fixed tree (a phase a
+// level), and thread 0 writes the block's N_SUMS partial sums to the
+// call's scratch. The lane's last block to arrive (an arrival counter a
+// lane, zeroed by the wrapper; that block resets it) stages the lane's
+// partials in shared memory (its threads, one coalesced load each), adds
+// them in block order (thread k sum k) and writes its five outputs. No
+// atomic touches a sum, so every run, every graph replay, and a batch of
+// lanes against its lanes launched one by one give the same bits. A
+// slot's terms come from the plain route's operations in its order (an
+// image slot's two observation times and an IMU slot's two residual
+// halves on two threads, each as one thread would run it), so they do
+// not depend on the geometry; the sums differ from torch's only in their
+// order.
 
-// K2's residual instance: IMAGE_RES_GROUP = 2 threads a slot (one an
-// observation time), IMAGE_RES_SLOTS slots a block; K3's: one thread a
-// slot, IMU_RES_SLOTS slots a block
-constexpr int IMAGE_RES_GROUP = 2;
-constexpr int IMAGE_RES_SLOTS = 32;
-constexpr int IMU_RES_SLOTS = 64;
+constexpr int SUM_THREADS = 128;
+constexpr int SUM_IMAGE_SLOTS = SUM_THREADS / 2;
+constexpr int SUM_IMU_SLOTS = SUM_THREADS / 2;
+constexpr int SUM_PRIOR_ROWS = 16;
+// a prior block's threads: PRIOR_GROUPS groups of ROW_LANES, a group's
+// thread taking PRIOR_ROWS_THREAD rows at once and PRIOR_COLS_WAVE of
+// each row's columns a step (its loads of a step in flight together)
+constexpr int PRIOR_GROUPS = SUM_THREADS / ROW_LANES;
+constexpr int PRIOR_ROWS_THREAD = SUM_PRIOR_ROWS / PRIOR_GROUPS;
+constexpr int PRIOR_COLS_WAVE = 3;
+static_assert(SUM_THREADS % ROW_LANES == 0 &&
+                  SUM_PRIOR_ROWS % PRIOR_GROUPS == 0 &&
+                  SUM_PRIOR_ROWS <= SUM_THREADS,
+              "a prior block is whole groups of ROW_LANES threads, its rows "
+              "whole rows a group, a row's sums on one thread");
 
-template <typename T>
-struct ImageResBlock {
-  T q[IMAGE_RES_SLOTS][2][4], p[IMAGE_RES_SLOTS][2][3];
+// the lane's sums, in the scratch's order
+enum {
+  SUM_IMG_SQ, SUM_IMG_N, SUM_IMG_RHO, SUM_IMU_SQ, SUM_IMU_N, SUM_BIAS_SQ,
+  SUM_BIAS_N, SUM_PRIOR_SQ, SUM_PRIOR_N, N_SUMS
+};
+constexpr int N_SUMMARY_OUT = 5;
+// the partials the lane's last block stages in shared memory at a time
+constexpr int SUM_FINISH_BLOCKS = 64;
+
+// K5's inputs, in the wrapper's order: the image factors' as K2 takes them
+// (I_* above, the mask their valid flags), the IMU factors' but the knots,
+// the bias pairs', the prior's
+enum {
+  S_BG = N_IMAGE_IN, S_BA, S_I0, S_U, S_GYRO, S_ACCEL, S_BIDX, S_IMU_VALID,
+  S_GRAVITY, S_INFO, S_BIAS_SI, S_BIAS_VALID, S_J, S_R0, S_KQ0, S_KP0, S_BG0,
+  S_BA0, S_LD0, N_SUMMARY_IN
 };
 
-// phase 1, thread o of a slot: the spline's rotation and position at
-// observation time o (spline.so3_eval, spline.rd_eval)
+struct SummaryArgs {
+  const void* in[N_SUMMARY_IN];
+  long long stride[N_SUMMARY_IN];  // elements between lanes; 0: shared
+  void* out;                       // (L, N_SUMMARY_OUT)
+  void* partial;                   // (L, blocks, N_SUMS), the call's own
+  unsigned int* arrive;            // (L,), zero at the launch
+  int L, Q, M, KW, NB, LM;
+  // a lane's blocks: image, then IMU, then one bias block, then prior
+  int image_blocks, imu_blocks, prior_blocks, blocks;
+  double dt, cauchy_c;
+};
+
+// a lane's blocks by role for Q image slots, M IMU slots and C columns
+HD void summary_layout(SummaryArgs& a) {
+  const int C = 6 * a.KW + 6 * a.NB + 1;
+  a.image_blocks = (a.Q + SUM_IMAGE_SLOTS - 1) / SUM_IMAGE_SLOTS;
+  a.imu_blocks = (a.M + SUM_IMU_SLOTS - 1) / SUM_IMU_SLOTS;
+  a.prior_blocks = (C + SUM_PRIOR_ROWS - 1) / SUM_PRIOR_ROWS;
+  a.blocks = a.image_blocks + a.imu_blocks + 1 + a.prior_blocks;
+}
+
+template <typename T>
+struct SummaryBlock {
+  struct Image {
+    T q[SUM_IMAGE_SLOTS][2][4], p[SUM_IMAGE_SLOTS][2][3];
+  };
+  struct Imu {
+    T r[SUM_IMU_SLOTS][6];
+  };
+  struct Prior {
+    T dot[SUM_PRIOR_ROWS][ROW_LANES], sq[SUM_PRIOR_ROWS][ROW_LANES];
+  };
+  struct Finish {
+    T part[SUM_FINISH_BLOCKS][N_SUMS], sum[N_SUMS];
+  };
+  union {
+    Image img;
+    Imu imu;
+    Prior prior;
+    Finish fin;
+  } u;
+  T red[N_SUMS][SUM_THREADS];  // each thread's terms, then the block tree
+  int last;                    // whether this block is the lane's last
+};
+
+template <typename T>
+HD void clear_terms(SummaryBlock<T>& sh, int t) {
+  for (int k = 0; k < N_SUMS; ++k) sh.red[k][t] = T(0);
+}
+
+// image phase 0, thread (j, o): observation time o of slot j (the segment,
+// spline.so3_eval, spline.rd_eval)
 template <typename T, typename I>
-HD void image_res_observation(const ImageArgs& a, ImageResBlock<T>& sh,
-                              long long block, int t) {
-  const int j = t / IMAGE_RES_GROUP, o = t % IMAGE_RES_GROUP;
-  const long long g = block * IMAGE_RES_SLOTS + j;
-  if (g >= (long long)a.L * a.n) return;
-  const long long lane = g / a.n;
-  const int q = int(g % a.n);
+HD void summary_image_observation(const SummaryArgs& a, SummaryBlock<T>& sh,
+                                  long long lane, int blk, int t) {
+  const int j = t / 2, o = t % 2;
+  const int q = blk * SUM_IMAGE_SLOTS + j;
+  if (q >= a.Q) return;
   const T inv_dt = T(1.0 / a.dt);
   const T ld = at<T>(a, I_LD, lane)[0];
   const T row = o ? at<T>(a, I_ROWJ, lane)[q] : at<T>(a, I_ROWI, lane)[q];
@@ -1044,28 +1171,28 @@ HD void image_res_observation(const ImageArgs& a, ImageResBlock<T>& sh,
   gather4(at<T>(a, I_KQ, lane), at<T>(a, I_KP, lane), s, q4, p4);
   blend(u, 0, true, lam);
   so3_deltas<T>(q4, d);
-  so3_eval<T>(q4, lam, d, sh.q[j][o]);
+  so3_eval<T>(q4, lam, d, sh.u.img.q[j][o]);
   blend(u, 0, false, lam);
-  rd_eval(p4, lam, sh.p[j][o]);
+  rd_eval(p4, lam, sh.u.img.p[j][o]);
 }
 
-// phase 2, thread r2 of a slot: the point's transfer from frame i to frame
-// j (factors.reproj_residual; both threads), residual entry r2, and on
-// thread 0 the Cauchy cost rho(|r|^2)
+// image phase 1, thread (j, r2): the point's transfer from frame i to frame
+// j (factors.reproj_residual; both threads), the term of residual entry
+// r2, and on thread 0 the mask and the Cauchy cost
 template <typename T, typename I>
-HD void image_res_store(const ImageArgs& a, const ImageResBlock<T>& sh,
-                        long long block, int t) {
-  const int j = t / IMAGE_RES_GROUP, r2 = t % IMAGE_RES_GROUP;
-  const long long g = block * IMAGE_RES_SLOTS + j;
-  if (g >= (long long)a.L * a.n) return;
-  const long long lane = g / a.n;
-  const int q = int(g % a.n);
+HD void summary_image_terms(const SummaryArgs& a, SummaryBlock<T>& sh,
+                            long long lane, int blk, int t) {
+  clear_terms(sh, t);
+  const int j = t / 2, r2 = t % 2;
+  const int q = blk * SUM_IMAGE_SLOTS + j;
+  if (q >= a.Q) return;
   const T sqrt_info = at<T>(a, I_SQRTINFO, lane)[0];
   const T* qc = at<T>(a, I_QC, lane);
   const T* pc = at<T>(a, I_PC, lane);
   const T* pti = at<T>(a, I_PTI, lane) + 3 * q;
   const T* ptj = at<T>(a, I_PTJ, lane) + 3 * q;
   const int lm = clampi(at<I>(a, I_LMIDX, lane)[q], 0, a.LM - 1);
+  const T m = at<unsigned char>(a, I_ACTIVE, lane)[q] ? T(1) : T(0);
   T dinv = at<T>(a, I_DINV, lane)[lm];
   if ((dinv < T(0) ? -dinv : dinv) < T(1e-5))
     dinv = dinv < T(0) ? T(-1e-5) : T(1e-5);
@@ -1073,9 +1200,10 @@ HD void image_res_store(const ImageArgs& a, const ImageResBlock<T>& sh,
   for (int c = 0; c < 3; ++c) x_ci[c] = pti[c] / dinv;
   quat_rotate<T>(qc, x_ci, v);
   for (int c = 0; c < 3; ++c) v[c] = v[c] + pc[c];
-  quat_rotate<T>(sh.q[j][0], v, w);
-  for (int c = 0; c < 3; ++c) w[c] = (w[c] + sh.p[j][0][c]) - sh.p[j][1][c];
-  quat_rotate_inv<T>(sh.q[j][1], w, v);
+  quat_rotate<T>(sh.u.img.q[j][0], v, w);
+  for (int c = 0; c < 3; ++c)
+    w[c] = (w[c] + sh.u.img.p[j][0][c]) - sh.u.img.p[j][1][c];
+  quat_rotate_inv<T>(sh.u.img.q[j][1], w, v);
   for (int c = 0; c < 3; ++c) v[c] = v[c] - pc[c];
   quat_rotate_inv<T>(qc, v, x_j);
   T z = x_j[2];
@@ -1086,96 +1214,329 @@ HD void image_res_store(const ImageArgs& a, const ImageResBlock<T>& sh,
   }
   T r[2];
   for (int c = 0; c < 2; ++c) r[c] = sqrt_info * (x_j[c] / zs - ptj[c]);
-  static_cast<T*>(a.out[0])[2 * g + r2] = r[r2];
+  const T rr = r2 == 0 ? r[0] : r[1];
+  sh.red[SUM_IMG_SQ][t] = rr * rr * m;
   if (r2 == 0) {
     const T b = T(a.cauchy_c * a.cauchy_c);
-    static_cast<T*>(a.out[1])[g] = b * flog1p((r[0] * r[0] + r[1] * r[1]) / b);
+    sh.red[SUM_IMG_N][t] = m;
+    sh.red[SUM_IMG_RHO][t] = b * flog1p((r[0] * r[0] + r[1] * r[1]) / b) * m;
   }
 }
 
-template <typename T>
-struct ImuResBlock {
-  T r[IMU_RES_SLOTS][6];
-};
-
-// phase 1, thread t: slot t's residual (factors.imu_residual)
+// IMU phase 0, thread (j, h): half h of slot j's residual
+// (factors.imu_residual): h = 0 the gyro's, info (w - (gyro - bg)) with w
+// the spline's body rate; h = 1 the accelerometer's, info (R^T (a + g) -
+// (accel - ba)) with R the spline's rotation
 template <typename T, typename I>
-HD void imu_res_slot(const ImuArgs& a, ImuResBlock<T>& sh, long long block,
-                     int t) {
-  const long long g = block * IMU_RES_SLOTS + t;
-  if (g >= (long long)a.L * a.n) return;
-  const long long lane = g / a.n;
-  const int q = int(g % a.n);
+HD void summary_imu_residual(const SummaryArgs& a, SummaryBlock<T>& sh,
+                             long long lane, int blk, int t) {
+  const int j = t / 2, h = t % 2;
+  const int q = blk * SUM_IMU_SLOTS + j;
+  if (q >= a.M) return;
   const T inv_dt = T(1.0 / a.dt);
   const T inv_dt2 = T((1.0 / a.dt) * (1.0 / a.dt));
-  const int s = clampi(at<I>(a, M_I0, lane)[q], 0, a.KW - 4);
-  const int bi = clampi(at<I>(a, M_BIDX, lane)[q], 0, a.NB - 1);
-  const T u = at<T>(a, M_U, lane)[q];
-  const T* info = at<T>(a, M_INFO, lane);
-  const T* grav = at<T>(a, M_GRAVITY, lane);
-  const T* gyro = at<T>(a, M_GYRO, lane) + 3 * q;
-  const T* accel = at<T>(a, M_ACCEL, lane) + 3 * q;
-  const T* bg = at<T>(a, M_BG, lane) + 3 * bi;
-  const T* ba = at<T>(a, M_BA, lane) + 3 * bi;
-  T q4[4][4], p4[4][3], lam[4], dlam[4], d[3][3], w[3], qs[4], ag[3], ab[3];
-  gather4(at<T>(a, M_KQ, lane), at<T>(a, M_KP, lane), s, q4, p4);
+  const int s = clampi(at<I>(a, S_I0, lane)[q], 0, a.KW - 4);
+  const int bi = clampi(at<I>(a, S_BIDX, lane)[q], 0, a.NB - 1);
+  const T u = at<T>(a, S_U, lane)[q];
+  const T* info = at<T>(a, S_INFO, lane);
+  T q4[4][4], p4[4][3], lam[4], dlam[4], d[3][3], w[3];
+  gather4(at<T>(a, I_KQ, lane), at<T>(a, I_KP, lane), s, q4, p4);
   blend(u, 0, true, lam);
-  blend(u, 1, true, dlam);
-  for (int k = 0; k < 4; ++k) dlam[k] = dlam[k] * inv_dt;
   so3_deltas<T>(q4, d);
-  so3_vel_body<T>(lam, dlam, d, w);
-  so3_eval<T>(q4, lam, d, qs);
-  blend(u, 2, false, dlam);
-  for (int k = 0; k < 4; ++k) dlam[k] = dlam[k] * inv_dt2;
-  rd_eval(p4, dlam, ag);
-  for (int c = 0; c < 3; ++c) ag[c] = ag[c] + grav[c];
-  quat_rotate_inv<T>(qs, ag, ab);
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    sh.r[t][c] = info[c] * (w[c] - (gyro[c] - bg[c]));
-    sh.r[t][3 + c] = info[3 + c] * (ab[c] - (accel[c] - ba[c]));
+  T* r = sh.u.imu.r[j];
+  if (h == 0) {
+    const T* gyro = at<T>(a, S_GYRO, lane) + 3 * q;
+    const T* bg = at<T>(a, S_BG, lane) + 3 * bi;
+    blend(u, 1, true, dlam);
+    for (int k = 0; k < 4; ++k) dlam[k] = dlam[k] * inv_dt;
+    so3_vel_body<T>(lam, dlam, d, w);
+    for (int c = 0; c < 3; ++c) r[c] = info[c] * (w[c] - (gyro[c] - bg[c]));
+  } else {
+    const T* grav = at<T>(a, S_GRAVITY, lane);
+    const T* accel = at<T>(a, S_ACCEL, lane) + 3 * q;
+    const T* ba = at<T>(a, S_BA, lane) + 3 * bi;
+    T qs[4], ag[3], ab[3];
+    so3_eval<T>(q4, lam, d, qs);
+    blend(u, 2, false, dlam);
+    for (int k = 0; k < 4; ++k) dlam[k] = dlam[k] * inv_dt2;
+    rd_eval(p4, dlam, ag);
+    for (int c = 0; c < 3; ++c) ag[c] = ag[c] + grav[c];
+    quat_rotate_inv<T>(qs, ag, ab);
+    for (int c = 0; c < 3; ++c)
+      r[3 + c] = info[3 + c] * (ab[c] - (accel[c] - ba[c]));
   }
 }
 
-// phase 2, every thread: the block's residuals, consecutive threads on
-// consecutive entries, and slot t's |r|^2
+// IMU phase 1, thread (j, 0): slot j's |r|^2 and mask
 template <typename T>
-HD void imu_res_store(const ImuArgs& a, const ImuResBlock<T>& sh,
-                      long long block, int t) {
-  const long long g0 = block * IMU_RES_SLOTS;
-  const int ns = block_slots(block, IMU_RES_SLOTS, (long long)a.L * a.n);
-  for (int k = t; k < 6 * ns; k += IMU_RES_SLOTS)
-    static_cast<T*>(a.out[0])[6 * g0 + k] = sh.r[k / 6][k % 6];
-  if (t < ns) {
-    T sq = T(0);
-    for (int i = 0; i < 6; ++i) sq = sq + sh.r[t][i] * sh.r[t][i];
-    static_cast<T*>(a.out[1])[g0 + t] = sq;
+HD void summary_imu_terms(const SummaryArgs& a, SummaryBlock<T>& sh,
+                          long long lane, int blk, int t) {
+  clear_terms(sh, t);
+  const int j = t / 2;
+  const int q = blk * SUM_IMU_SLOTS + j;
+  if (t % 2 != 0 || q >= a.M) return;
+  const T* r = sh.u.imu.r[j];
+  T sq = T(0);
+  for (int i = 0; i < 6; ++i) sq = sq + r[i] * r[i];
+  const T m = at<unsigned char>(a, S_IMU_VALID, lane)[q] ? T(1) : T(0);
+  sh.red[SUM_IMU_SQ][t] = sq * m;
+  sh.red[SUM_IMU_N][t] = m;
+}
+
+// the bias block, thread t: its entries of the bias pairs' residuals
+// (factors.bias_residual: sqrt_info * [bg_j - bg_i, ba_j - ba_i]) and its
+// pairs' masks
+template <typename T>
+HD void summary_bias_terms(const SummaryArgs& a, SummaryBlock<T>& sh,
+                           long long lane, int t) {
+  const int pairs = a.NB - 1;
+  const T* si = at<T>(a, S_BIAS_SI, lane);
+  const unsigned char* valid = at<unsigned char>(a, S_BIAS_VALID, lane);
+  const T* bg = at<T>(a, S_BG, lane);
+  const T* ba = at<T>(a, S_BA, lane);
+  T sq = T(0), n = T(0);
+  for (int e = t; e < 6 * pairs; e += SUM_THREADS) {
+    const int p = e / 6, c = e % 6;
+    const T d = c < 3 ? bg[3 * (p + 1) + c] - bg[3 * p + c]
+                      : ba[3 * (p + 1) + c - 3] - ba[3 * p + c - 3];
+    const T r = si[6 * p + c] * d;
+    sq = sq + r * r * (valid[p] ? T(1) : T(0));
+  }
+  for (int p = t; p < pairs; p += SUM_THREADS)
+    n = n + (valid[p] ? T(1) : T(0));
+  clear_terms(sh, t);
+  sh.red[SUM_BIAS_SQ][t] = sq;
+  sh.red[SUM_BIAS_N][t] = n;
+}
+
+// prior phase 0, thread t: its entries of x [-] x0 (layout.boxminus_full:
+// so3.boxminus of each knot, then the positions', biases' and line
+// delay's differences)
+template <typename T>
+HD void summary_prior_dx(const SummaryArgs& a, T* dx, long long lane, int t) {
+  const int KW = a.KW, NB = a.NB, C = 6 * KW + 6 * NB + 1;
+  const T* kq = at<T>(a, I_KQ, lane);
+  const T* kq0 = at<T>(a, S_KQ0, lane);
+  for (int e = t; e < C; e += SUM_THREADS) {
+    T v;
+    if (e < 3 * KW) {
+      const int k = e / 3;
+      T c[4], m[4], l[3];
+      quat_conj(kq0 + 4 * k, c);
+      quat_mul(c, kq + 4 * k, m);
+      quat_log<T>(m, l);
+      v = e % 3 == 0 ? l[0] : (e % 3 == 1 ? l[1] : l[2]);
+    } else if (e < 6 * KW) {
+      v = at<T>(a, I_KP, lane)[e - 3 * KW] - at<T>(a, S_KP0, lane)[e - 3 * KW];
+    } else if (e < 6 * KW + 3 * NB) {
+      const int i = e - 6 * KW;
+      v = at<T>(a, S_BG, lane)[i] - at<T>(a, S_BG0, lane)[i];
+    } else if (e < C - 1) {
+      const int i = e - 6 * KW - 3 * NB;
+      v = at<T>(a, S_BA, lane)[i] - at<T>(a, S_BA0, lane)[i];
+    } else {
+      v = at<T>(a, I_LD, lane)[0] - at<T>(a, S_LD0, lane)[0];
+    }
+    dx[e] = v;
   }
 }
 
-template <typename T, typename I>
-struct ImageResKernel {
-  typedef ImageArgs Args;
-  typedef ImageResBlock<T> Shared;
-  static constexpr int SLOTS = IMAGE_RES_SLOTS,
-                       THREADS = IMAGE_RES_GROUP * IMAGE_RES_SLOTS, PHASES = 2;
-  static HD void phase(int ph, const Args& a, Shared& sh, long long block,
-                       int t) {
-    if (ph == 0) image_res_observation<T, I>(a, sh, block, t);
-    else image_res_store<T, I>(a, sh, block, t);
+// prior phase 1, thread (g, l): rows g, g + PRIOR_GROUPS, ... of the
+// block's, columns l, l + ROW_LANES, ...: its shares of J_row . dx and of
+// |J_row|^2, each row's in column order; a step loads PRIOR_COLS_WAVE
+// columns of each of its rows before it adds any
+template <typename T>
+HD void summary_prior_rows(const SummaryArgs& a, SummaryBlock<T>& sh,
+                           const T* dx, long long lane, int pblk, int t) {
+  const int C = 6 * a.KW + 6 * a.NB + 1;
+  const T* J = at<T>(a, S_J, lane);
+  const int g = t / ROW_LANES, l = t % ROW_LANES;
+  const T* Jr[PRIOR_ROWS_THREAD];
+  T dot[PRIOR_ROWS_THREAD], sq[PRIOR_ROWS_THREAD];
+#pragma unroll
+  for (int i = 0; i < PRIOR_ROWS_THREAD; ++i) {
+    const int row = pblk * SUM_PRIOR_ROWS + g + i * PRIOR_GROUPS;
+    Jr[i] = row < C ? J + (long long)row * C : nullptr;
+    dot[i] = T(0);
+    sq[i] = T(0);
   }
-};
+  for (int c0 = l; c0 < C; c0 += ROW_LANES * PRIOR_COLS_WAVE) {
+    T x[PRIOR_COLS_WAVE], v[PRIOR_COLS_WAVE][PRIOR_ROWS_THREAD];
+#pragma unroll
+    for (int w = 0; w < PRIOR_COLS_WAVE; ++w) {
+      const int c = c0 + w * ROW_LANES;
+      x[w] = c < C ? dx[c] : T(0);
+#pragma unroll
+      for (int i = 0; i < PRIOR_ROWS_THREAD; ++i)
+        v[w][i] = (c < C && Jr[i] != nullptr) ? Jr[i][c] : T(0);
+    }
+#pragma unroll
+    for (int w = 0; w < PRIOR_COLS_WAVE; ++w) {
+      if (c0 + w * ROW_LANES >= C) break;
+#pragma unroll
+      for (int i = 0; i < PRIOR_ROWS_THREAD; ++i) {
+        dot[i] = dot[i] + v[w][i] * x[w];
+        sq[i] = sq[i] + v[w][i] * v[w][i];
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < PRIOR_ROWS_THREAD; ++i) {
+    sh.u.prior.dot[g + i * PRIOR_GROUPS][l] = dot[i];
+    sh.u.prior.sq[g + i * PRIOR_GROUPS][l] = sq[i];
+  }
+}
 
+// prior phases 2.., a level of the tree over a row's ROW_LANES shares:
+// share l += share l + half
+template <typename T>
+HD void summary_prior_fold(SummaryBlock<T>& sh, int half, int t) {
+  for (int p = t; p < SUM_PRIOR_ROWS * half; p += SUM_THREADS) {
+    const int rho = p / half, l = p % half;
+    sh.u.prior.dot[rho][l] = sh.u.prior.dot[rho][l] + sh.u.prior.dot[rho][l + half];
+    sh.u.prior.sq[rho][l] = sh.u.prior.sq[rho][l] + sh.u.prior.sq[rho][l + half];
+  }
+}
+
+// the prior's last phase, thread t: row t's residual r0 + J_row . dx, its
+// square, and whether the row's norm is nonzero
+template <typename T>
+HD void summary_prior_terms(const SummaryArgs& a, SummaryBlock<T>& sh,
+                            long long lane, int pblk, int t) {
+  clear_terms(sh, t);
+  const int C = 6 * a.KW + 6 * a.NB + 1;
+  const int row = pblk * SUM_PRIOR_ROWS + t;
+  if (t >= SUM_PRIOR_ROWS || row >= C) return;
+  const T r = at<T>(a, S_R0, lane)[row] + sh.u.prior.dot[t][0];
+  sh.red[SUM_PRIOR_SQ][t] = r * r;
+  sh.red[SUM_PRIOR_N][t] = sh.u.prior.sq[t][0] > T(0) ? T(1) : T(0);
+}
+
+// a level of the block's tree over its threads' terms: t += t + half
+template <typename T>
+HD void summary_fold(SummaryBlock<T>& sh, int half, int t) {
+  if (t >= half) return;
+  for (int k = 0; k < N_SUMS; ++k) sh.red[k][t] = sh.red[k][t] + sh.red[k][t + half];
+}
+
+constexpr int log2i(int n) { return n <= 1 ? 0 : 1 + log2i(n / 2); }
+static_assert((1 << log2i(ROW_LANES)) == ROW_LANES &&
+                  (1 << log2i(SUM_THREADS)) == SUM_THREADS,
+              "the trees halve powers of two");
+constexpr int ROW_FOLDS = log2i(ROW_LANES);
+constexpr int BLOCK_FOLDS = log2i(SUM_THREADS);
+
+// a partial sum as the lane's last block reads it: past L1 on the card
+// (another SM wrote it), a plain load on the host
+template <typename T>
+HD T load_partial(const T* p) {
+#if defined(__CUDA_ARCH__)
+  return __ldcg(p);
+#else
+  return *p;
+#endif
+}
+
+template <typename T>
+HD T at_least_one(T x) { return x < T(1) ? T(1) : x; }  // NaN stays NaN
+
+// the lane's last block, its finish: a step loads the partials of blocks
+// b0 .. b0 + SUM_FINISH_BLOCKS - 1 into shared memory (thread t entries
+// t, t + SUM_THREADS, ...), the next adds them (thread k < N_SUMS sum k,
+// in block order, on from the sums of the steps before); then the outputs
+template <typename T>
+HD void summary_finish_load(const SummaryArgs& a, SummaryBlock<T>& sh,
+                            long long lane, int b0, int t) {
+  const int n = (a.blocks - b0 < SUM_FINISH_BLOCKS ? a.blocks - b0
+                                                   : SUM_FINISH_BLOCKS);
+  const T* part = static_cast<const T*>(a.partial) +
+                  (lane * a.blocks + b0) * N_SUMS;
+  T* stage = &sh.u.fin.part[0][0];
+  for (int e = t; e < n * N_SUMS; e += SUM_THREADS)
+    stage[e] = load_partial(part + e);
+}
+
+template <typename T>
+HD void summary_finish_add(const SummaryArgs& a, SummaryBlock<T>& sh,
+                           int b0, int t) {
+  if (t >= N_SUMS) return;
+  const int n = (a.blocks - b0 < SUM_FINISH_BLOCKS ? a.blocks - b0
+                                                   : SUM_FINISH_BLOCKS);
+  T s = b0 == 0 ? T(0) : sh.u.fin.sum[t];
+  for (int b = 0; b < n; ++b) s = s + sh.u.fin.part[b][t];
+  sh.u.fin.sum[t] = s;
+}
+
+// thread 0: the lane's five outputs from its sums
+template <typename T>
+HD void summary_finish_store(const SummaryArgs& a, const SummaryBlock<T>& sh,
+                             long long lane, int t) {
+  if (t != 0) return;
+  const T* s = sh.u.fin.sum;
+  T* out = static_cast<T*>(a.out) + lane * N_SUMMARY_OUT;
+  out[0] = fsqrt(s[SUM_IMG_SQ] / at_least_one(T(2.0) * s[SUM_IMG_N]));
+  out[1] = fsqrt(s[SUM_IMU_SQ] / at_least_one(T(6.0) * s[SUM_IMU_N]));
+  out[2] = fsqrt(s[SUM_BIAS_SQ] / at_least_one(T(6.0) * s[SUM_BIAS_N]));
+  out[3] = fsqrt(s[SUM_PRIOR_SQ] / at_least_one(s[SUM_PRIOR_N]));
+  T cost = T(0.5) * s[SUM_IMG_RHO];
+  cost = cost + T(0.5) * s[SUM_IMU_SQ];
+  cost = cost + T(0.5) * s[SUM_BIAS_SQ];
+  out[4] = cost + T(0.5) * s[SUM_PRIOR_SQ];
+}
+
+// thread 0 of a block after its phases: the block arrives (`arrive` adds
+// one to the lane's counter and returns the count before: an atomic on
+// the card, with fences around it); whether it is the lane's last, which
+// resets the counter and finishes the lane
+template <typename Arrive>
+HD bool summary_arrive(const SummaryArgs& a, long long lane, Arrive arrive) {
+  const unsigned int prev = arrive(a.arrive + lane);
+  if (prev != unsigned(a.blocks - 1)) return false;
+  a.arrive[lane] = 0u;
+  return true;
+}
+
+// K5 as its phases: a block runs phase 0 on every thread, waits at a
+// barrier, runs phase 1, and so on; threads share only the block struct
+// and x [-] x0 (`dx`, C values in dynamic shared memory). The last phase
+// writes the block's partials; the arrival follows it, and in the lane's
+// last block the finish's steps.
 template <typename T, typename I>
-struct ImuResKernel {
-  typedef ImuArgs Args;
-  typedef ImuResBlock<T> Shared;
-  static constexpr int SLOTS = IMU_RES_SLOTS, THREADS = IMU_RES_SLOTS,
-                       PHASES = 2;
-  static HD void phase(int ph, const Args& a, Shared& sh, long long block,
-                       int t) {
-    if (ph == 0) imu_res_slot<T, I>(a, sh, block, t);
-    else imu_res_store<T>(a, sh, block, t);
+struct SummaryKernel {
+  typedef SummaryArgs Args;
+  typedef SummaryBlock<T> Shared;
+  typedef T Real;
+  static constexpr int THREADS = SUM_THREADS;
+  // role work (2), the row tree, the row terms, the block tree, the store
+  static constexpr int PHASES = 2 + ROW_FOLDS + 1 + BLOCK_FOLDS + 1;
+  static HD void phase(int ph, const Args& a, Shared& sh, T* dx,
+                       long long lane, int b, int t) {
+    const int imu0 = a.image_blocks, bias0 = imu0 + a.imu_blocks;
+    const int prior0 = bias0 + 1;
+    if (ph < 2) {
+      if (b < imu0) {
+        if (ph == 0) summary_image_observation<T, I>(a, sh, lane, b, t);
+        else summary_image_terms<T, I>(a, sh, lane, b, t);
+      } else if (b < bias0) {
+        if (ph == 0) summary_imu_residual<T, I>(a, sh, lane, b - imu0, t);
+        else summary_imu_terms<T>(a, sh, lane, b - imu0, t);
+      } else if (b == bias0) {
+        if (ph == 0) summary_bias_terms<T>(a, sh, lane, t);
+      } else {
+        if (ph == 0) summary_prior_dx<T>(a, dx, lane, t);
+        else summary_prior_rows<T>(a, sh, dx, lane, b - prior0, t);
+      }
+    } else if (ph < 2 + ROW_FOLDS) {
+      if (b >= prior0) summary_prior_fold(sh, ROW_LANES >> (ph - 1), t);
+    } else if (ph == 2 + ROW_FOLDS) {
+      if (b >= prior0) summary_prior_terms<T>(a, sh, lane, b - prior0, t);
+    } else if (ph < PHASES - 1) {
+      summary_fold(sh, SUM_THREADS >> (ph - 2 - ROW_FOLDS), t);
+    } else if (t == 0) {
+      T* part = static_cast<T*>(a.partial) +
+                (lane * a.blocks + b) * N_SUMS;
+      for (int k = 0; k < N_SUMS; ++k) part[k] = sh.red[k][0];
+    }
   }
 };
 
@@ -1191,6 +1552,25 @@ A pack(const void* const* in, const long long* stride, void* const* out,
   for (int i = 0; i < n_out; ++i) a.out[i] = out[i];
   a.L = L; a.n = n; a.KW = KW; a.NB = NB; a.LM = LM;
   a.dt = dt; a.cauchy_c = cauchy_c;
+  return a;
+}
+
+// K5's parameter struct from its entry point's arguments
+inline SummaryArgs summary_pack(const void* const* in, const long long* stride,
+                                void* out, void* partial, void* arrive, int L,
+                                int Q, int M, int KW, int NB, int LM,
+                                double dt, double cauchy_c) {
+  SummaryArgs a;
+  for (int i = 0; i < N_SUMMARY_IN; ++i) {
+    a.in[i] = in[i];
+    a.stride[i] = stride[i];
+  }
+  a.out = out;
+  a.partial = partial;
+  a.arrive = static_cast<unsigned int*>(arrive);
+  a.L = L; a.Q = Q; a.M = M; a.KW = KW; a.NB = NB; a.LM = LM;
+  a.dt = dt; a.cauchy_c = cauchy_c;
+  summary_layout(a);
   return a;
 }
 
@@ -1235,16 +1615,37 @@ __global__ void __launch_bounds__(ImuKernel<T, I>::THREADS)
   run_phases<ImuKernel<T, I>>(a);
 }
 
+// K5: a lane's blocks on grid x, the lanes on grid y; after its phases
+// the block arrives, and the lane's last block writes the lane's outputs
 template <typename T, typename I>
-__global__ void __launch_bounds__(ImageResKernel<T, I>::THREADS)
-    image_residuals_kernel(const ImageArgs a) {
-  run_phases<ImageResKernel<T, I>>(a);
-}
-
-template <typename T, typename I>
-__global__ void __launch_bounds__(ImuResKernel<T, I>::THREADS)
-    imu_residuals_kernel(const ImuArgs a) {
-  run_phases<ImuResKernel<T, I>>(a);
+__global__ void __launch_bounds__(SUM_THREADS)
+    residual_summary_kernel(const SummaryArgs a) {
+  typedef SummaryKernel<T, I> K;
+  __shared__ typename K::Shared sh;
+  extern __shared__ __align__(16) unsigned char summary_dx[];
+  T* dx = reinterpret_cast<T*>(summary_dx);
+  const long long lane = blockIdx.y;
+#pragma unroll
+  for (int ph = 0; ph < K::PHASES; ++ph) {
+    if (ph > 0) __syncthreads();
+    K::phase(ph, a, sh, dx, lane, blockIdx.x, threadIdx.x);
+  }
+  if (threadIdx.x == 0)
+    sh.last = summary_arrive(a, lane, [](unsigned int* count) {
+      __threadfence();  // the block's partials are written before it arrives
+      const unsigned int prev = atomicAdd(count, 1u);
+      __threadfence();  // and the last block reads the others' after
+      return prev;
+    });
+  __syncthreads();
+  if (!sh.last) return;
+  for (int b0 = 0; b0 < a.blocks; b0 += SUM_FINISH_BLOCKS) {
+    summary_finish_load<T>(a, sh, lane, b0, threadIdx.x);
+    __syncthreads();
+    summary_finish_add<T>(a, sh, b0, threadIdx.x);
+    __syncthreads();
+  }
+  summary_finish_store<T>(a, sh, lane, threadIdx.x);
 }
 
 template <typename T, typename I>
@@ -1252,9 +1653,13 @@ auto entry(ImageKernel<T, I>) { return image_rows_kernel<T, I>; }
 template <typename T, typename I>
 auto entry(ImuKernel<T, I>) { return imu_rows_kernel<T, I>; }
 template <typename T, typename I>
-auto entry(ImageResKernel<T, I>) { return image_residuals_kernel<T, I>; }
-template <typename T, typename I>
-auto entry(ImuResKernel<T, I>) { return imu_residuals_kernel<T, I>; }
+auto entry(SummaryKernel<T, I>) { return residual_summary_kernel<T, I>; }
+
+// dynamic shared bytes of a K5 launch: x [-] x0, C values
+template <typename T>
+size_t summary_dynamic_bytes(const SummaryArgs& a) {
+  return sizeof(T) * size_t(6 * a.KW + 6 * a.NB + 1);
+}
 
 template <typename K>
 int launch(K k, const typename K::Args& a, void* stream) {
@@ -1303,34 +1708,33 @@ int imu_factor_rows(int dtype, int index, const void* const* in,
                              [&](auto k) { return launch(k, a, stream); });
 }
 
-// the residual-only instances (outputs: r, then rho(|r|^2) or |r|^2, each
-// (L, n, ...)); the same arguments as the rows' entry points, the active
-// mask's pointer unread
-int image_factor_residuals(int dtype, int index, const void* const* in,
-                           const long long* stride, void* const* out, int L,
-                           int Q, int KW, int NB, int LM, double dt,
-                           double cauchy_c, void* stream) {
-  ImageArgs a = pack<ImageArgs>(in, stride, out, N_IMAGE_IN, 2, L, Q, KW, NB,
-                                LM, dt, cauchy_c);
-  return dispatch<ImageResKernel>(dtype, index,
-                                  [&](auto k) { return launch(k, a, stream); });
-}
-
-int imu_factor_residuals(int dtype, int index, const void* const* in,
-                         const long long* stride, void* const* out, int L,
-                         int M, int KW, int NB, double dt, void* stream) {
-  ImuArgs a = pack<ImuArgs>(in, stride, out, N_IMU_IN, 2, L, M, KW, NB, 0,
-                            dt, 0.0);
-  return dispatch<ImuResKernel>(dtype, index,
-                                [&](auto k) { return launch(k, a, stream); });
+// K5 over L lanes of Q image slots, M IMU slots and C = 6 KW + 6 NB + 1
+// columns: `in` the inputs' lane-0 pointers in the wrapper's order, with
+// their lane strides `stride`; `out` (L, 5); `partial` a scratch of L x
+// residual_summary_blocks(Q, M, KW, NB) x residual_summary_sums() values;
+// `arrive` L counters, zero at the launch (zero again after it).
+int residual_summary(int dtype, int index, const void* const* in,
+                     const long long* stride, void* out, void* partial,
+                     void* arrive, int L, int Q, int M, int KW, int NB,
+                     int LM, double dt, double cauchy_c, void* stream) {
+  if (L < 1) return 0;
+  SummaryArgs a = summary_pack(in, stride, out, partial, arrive, L, Q, M, KW,
+                               NB, LM, dt, cauchy_c);
+  return dispatch<SummaryKernel>(dtype, index, [&](auto k) {
+    using K = decltype(k);
+    dim3 grid(a.blocks, L);
+    entry(k)<<<grid, K::THREADS,
+               summary_dynamic_bytes<typename K::Real>(a),
+               static_cast<cudaStream_t>(stream)>>>(a);
+    return int(cudaGetLastError());
+  });
 }
 
 // Each instance's resources, 5 values a row in the order K2 (f32 int32,
-// f32 int64, f64 int32, f64 int64), then K3, K2's residual instance and
-// K3's likewise: registers a thread,
-// local (spill) bytes a thread, static shared bytes a block, the most
-// threads a block it can launch with, and the threads a block it launches
-// with. Returns the first cudaError (0 on success).
+// f32 int64, f64 int32, f64 int64), then K3 and K5 likewise: registers a
+// thread, local (spill) bytes a thread, static shared bytes a block, the
+// most threads a block it can launch with, and the threads a block it
+// launches with. Returns the first cudaError (0 on success).
 int factor_kernel_attributes(long long* out) {
   int err = 0;
   int row = 0;
@@ -1346,13 +1750,24 @@ int factor_kernel_attributes(long long* out) {
       dispatch<ImuKernel>(dtype, index, put);
   for (int dtype = 0; dtype < 2; ++dtype)
     for (int index = 0; index < 2; ++index)
-      dispatch<ImageResKernel>(dtype, index, put);
-  for (int dtype = 0; dtype < 2; ++dtype)
-    for (int index = 0; index < 2; ++index)
-      dispatch<ImuResKernel>(dtype, index, put);
+      dispatch<SummaryKernel>(dtype, index, put);
   return err;
 }
 
 }  // extern "C"
 
 #endif  // __CUDACC__
+
+extern "C" {
+
+// K5's blocks a lane, and the partial sums a block writes to the scratch
+int residual_summary_blocks(int Q, int M, int KW, int NB) {
+  SummaryArgs a;
+  a.Q = Q; a.M = M; a.KW = KW; a.NB = NB;
+  summary_layout(a);
+  return a.blocks;
+}
+
+int residual_summary_sums() { return N_SUMS; }
+
+}  // extern "C"

@@ -1,5 +1,5 @@
-"""The window solve's factor linearization: kernels K2 and K3 and their
-plain versions.
+"""The window solve's factor linearization, kernels K2 and K3, and the
+streamed frame's residual summary, kernel K5, with their plain versions.
 
 K2 (`csrc/factors.cu`, `image_factor_rows`) evaluates every image factor
 of a window in one launch: residual, closed-form Jacobian blocks, Cauchy
@@ -25,17 +25,20 @@ compiles from the JAX package's vmapped factor evaluations,
   lane axis, the shared inputs expanded with a lane stride of 0, so that
   B windows under vmap (the batched megastep and solver) are one launch.
 
-Each kernel has a residual-only instance for the window's residual
-summary (`solver/assemble.py::residual_rms`, `total_cost`; ≙ XLA's fused
-factor evaluations in the JAX package's `residual_rms`,
-`ctrlvio_tpu/solver/assemble.py:419`): `image_factor_residuals` gives each
-image slot's raw residual and rho(|r|^2), `imu_factor_residuals` each IMU
-slot's raw residual and |r|^2, unmasked, with their plain versions
-(`factors.reproj_residual`, `factors.imu_residual`), custom ops
-(`torch.ops.ctrlvio_tpu_torch.image_factor_residuals`,
-`imu_factor_residuals`), fake shapes and vmap rules as the rows ops have.
+K5 (`residual_summary`) is the window's whole residual summary in one
+launch (`solver/assemble.py::residual_rms` and `total_cost` read it; ≙ the
+one XLA fusion of the JAX package's `residual_rms` and `total_cost`,
+`ctrlvio_tpu/solver/assemble.py:419` and :481): every image, IMU and bias
+factor's raw residual, masked and summed, and the prior's r0 + J (x [-] x0)
+and nonzero rows, into [rms_img, rms_imu, rms_bias, rms_prior, cost].
+Its plain version `residual_summary_plain` is the solver's composition of
+`image_factor_residuals_plain` (each image slot's raw residual and
+rho(|r|^2)), `imu_factor_residuals_plain` (each IMU slot's raw residual and
+|r|^2), the bias residuals and the prior's product; its custom op
+`torch.ops.ctrlvio_tpu_torch.residual_summary` has a fake shape and a vmap
+rule as the rows ops have.
 
-`kernel_attributes()` reads each of the sixteen instances' registers,
+`kernel_attributes()` reads each of the twelve instances' registers,
 spill bytes, shared bytes and threads a block on the card.
 
 Each wrapper's `launches` counts its kernel's launches (and nothing
@@ -53,8 +56,10 @@ from typing import NamedTuple
 import torch
 from torch.func import jacfwd
 
-from ctrlvio_tpu_torch.solver.layout import (ImageFactors, ImuFactors,
-                                             WindowConfig, WindowParams)
+from ctrlvio_tpu_torch.solver.layout import (BiasFactors, ImageFactors,
+                                             ImuFactors, PriorFactor,
+                                             WindowConfig, WindowParams,
+                                             boxminus_full)
 from ctrlvio_tpu_torch.utils import graphs
 
 from . import factors as F
@@ -64,8 +69,7 @@ from .reproj_analytic import reproj_analytic
 NAMESPACE = "ctrlvio_tpu_torch"
 IMAGE_OP = f"{NAMESPACE}::image_factor_rows"
 IMU_OP = f"{NAMESPACE}::imu_factor_rows"
-IMAGE_RES_OP = f"{NAMESPACE}::image_factor_residuals"
-IMU_RES_OP = f"{NAMESPACE}::imu_factor_residuals"
+SUMMARY_OP = f"{NAMESPACE}::residual_summary"
 
 
 # ---------------------------------------------------------------------------
@@ -267,6 +271,44 @@ def imu_factor_residuals_plain(params: WindowParams, imu: ImuFactors,
     return ImuResiduals(r, torch.sum(r * r, dim=-1))
 
 
+def residual_summary_plain(params: WindowParams, img: ImageFactors,
+                           imu: ImuFactors, bias: BiasFactors,
+                           prior: PriorFactor, ext, gravity, imu_info,
+                           sqrt_info_img, cauchy_c: float,
+                           cfg: WindowConfig):
+    """The window's residual summary (5,): the per-factor-type raw residual
+    RMS over the valid factors [image, imu, bias, prior] and the
+    residual-only robust cost (image factors at Cauchy scale
+    `cauchy_c`)."""
+    residual_summary_plain.calls += 1
+    dtype = params.knots_p.dtype
+    ir = image_factor_residuals_plain(params, img, ext, sqrt_info_img,
+                                      cauchy_c, cfg)
+    mr = imu_factor_residuals_plain(params, imu, gravity, imu_info, cfg)
+    rb = F.bias_residual(params.bg[:-1], params.bg[1:], params.ba[:-1],
+                         params.ba[1:], bias.sqrt_info)
+    dx = boxminus_full(params, prior.knots_q0, prior.knots_p0, prior.bg0,
+                       prior.ba0, prior.ld0, cfg)
+    r_prior = prior.r0 + prior.J @ dx
+    m_img = img.valid.to(dtype)
+    rms_img = torch.sqrt(torch.sum(ir.r * ir.r * m_img[:, None])
+                         / torch.clamp(2.0 * torch.sum(m_img), min=1.0))
+    m_imu = imu.valid.to(dtype)
+    rms_imu = torch.sqrt(torch.sum(mr.sq * m_imu)
+                         / torch.clamp(6.0 * torch.sum(m_imu), min=1.0))
+    m_b = bias.valid.to(dtype)
+    rms_bias = torch.sqrt(torch.sum(rb * rb * m_b[:, None])
+                          / torch.clamp(6.0 * torch.sum(m_b), min=1.0))
+    n_prior = torch.sum((torch.sum(prior.J * prior.J, dim=1) > 0).to(dtype))
+    rms_prior = torch.sqrt(torch.sum(r_prior * r_prior)
+                           / torch.clamp(n_prior, min=1.0))
+    cost = 0.5 * torch.sum(ir.cost * m_img)
+    cost = cost + 0.5 * torch.sum(mr.sq * m_imu)
+    cost = cost + 0.5 * torch.sum((rb * m_b[:, None]) ** 2)
+    cost = cost + 0.5 * torch.sum(r_prior * r_prior)
+    return torch.stack([rms_img, rms_imu, rms_bias, rms_prior, cost])
+
+
 # ---------------------------------------------------------------------------
 # the custom ops
 # ---------------------------------------------------------------------------
@@ -282,13 +324,20 @@ _IMU_SCHEMA = (
     "Tensor u, Tensor gyro, Tensor accel, Tensor bias_idx, Tensor active, "
     "Tensor gravity, Tensor imu_info, int KW, int NB, float dt) "
     "-> (Tensor, Tensor, Tensor)")
-# the residual ops take the rows ops' inputs but the active mask
-_IMAGE_RES_SCHEMA = _IMAGE_SCHEMA.replace("Tensor active, ", "").replace(
-    "(Tensor, Tensor, Tensor, Tensor)", "(Tensor, Tensor)")
-_IMU_RES_SCHEMA = _IMU_SCHEMA.replace("Tensor active, ", "").replace(
-    "(Tensor, Tensor, Tensor)", "(Tensor, Tensor)")
-N_IMAGE_IN, N_IMU_IN = 17, 12
-IMAGE_ACTIVE, IMU_ACTIVE = 13, 9  # the mask's place among the rows' inputs
+# the summary takes the image op's inputs (the mask the factors' valid
+# flags), the IMU op's but the knots, the bias pairs' and the prior's
+_SUMMARY_SCHEMA = (
+    "(Tensor knots_q, Tensor knots_p, Tensor dinv, Tensor ld, Tensor i0_i, "
+    "Tensor f_i, Tensor row_i, Tensor pt_i, Tensor i0_j, Tensor f_j, "
+    "Tensor row_j, Tensor pt_j, Tensor lm_idx, Tensor img_valid, "
+    "Tensor q_CtoI, Tensor p_CinI, Tensor sqrt_info, Tensor bg, Tensor ba, "
+    "Tensor i0, Tensor u, Tensor gyro, Tensor accel, Tensor bias_idx, "
+    "Tensor imu_valid, Tensor gravity, Tensor imu_info, "
+    "Tensor bias_sqrt_info, Tensor bias_valid, Tensor J, Tensor r0, "
+    "Tensor knots_q0, Tensor knots_p0, Tensor bg0, Tensor ba0, Tensor ld0, "
+    "int KW, int NB, float dt, float cauchy_c) -> Tensor")
+N_IMAGE_IN, N_IMU_IN, N_SUMMARY_IN = 17, 12, 36
+N_SUMMARY_OUT = 5
 FLOATS = (torch.float32, torch.float64)
 INDICES = (torch.int32, torch.int64)
 
@@ -326,37 +375,22 @@ def _imu_lanes_plain(knots_q, knots_p, bg, ba, i0, u, gyro, accel, bias_idx,
     return tuple(torch.stack(o) for o in zip(*outs))
 
 
-def _image_res_lanes_plain(knots_q, knots_p, dinv, ld, i0_i, f_i, row_i,
-                           pt_i, i0_j, f_j, row_j, pt_j, lm_idx, q_CtoI,
-                           p_CinI, sqrt_info, KW, NB, dt, cauchy_c):
-    """The image residual op off the card: the plain version lane by
-    lane."""
+def _summary_lanes_plain(*ts_static):
+    """The summary op off the card: the plain version lane by lane."""
+    ts, (KW, NB, dt, cauchy_c) = ts_static[:N_SUMMARY_IN], ts_static[
+        N_SUMMARY_IN:]
     cfg = WindowConfig(KW=KW, NB=NB, dt=dt)
     outs = []
-    for l in range(knots_q.shape[0]):
-        params = WindowParams(knots_q[l], knots_p[l], None, None, dinv[l],
-                              ld[l])
-        img = ImageFactors(i0_i[l], f_i[l], row_i[l], pt_i[l], i0_j[l],
-                           f_j[l], row_j[l], pt_j[l], lm_idx[l], None, None)
-        ext = F.CamExtrinsics(q_CtoI[l], p_CinI[l])
-        outs.append(image_factor_residuals_plain(params, img, ext,
-                                                 sqrt_info[l], cauchy_c, cfg))
-    return tuple(torch.stack(o) for o in zip(*outs))
-
-
-def _imu_res_lanes_plain(knots_q, knots_p, bg, ba, i0, u, gyro, accel,
-                         bias_idx, gravity, imu_info, KW, NB, dt):
-    """The IMU residual op off the card: the plain version lane by lane."""
-    cfg = WindowConfig(KW=KW, NB=NB, dt=dt)
-    outs = []
-    for l in range(knots_q.shape[0]):
-        params = WindowParams(knots_q[l], knots_p[l], bg[l], ba[l], None,
-                              None)
-        imu = ImuFactors(i0[l], u[l], gyro[l], accel[l], bias_idx[l], None,
-                         None)
-        outs.append(imu_factor_residuals_plain(params, imu, gravity[l],
-                                               imu_info[l], cfg))
-    return tuple(torch.stack(o) for o in zip(*outs))
+    for l in range(ts[0].shape[0]):
+        x = [t[l] for t in ts]
+        params = WindowParams(x[0], x[1], x[17], x[18], x[2], x[3])
+        img = ImageFactors(*x[4:14], x[13])
+        imu = ImuFactors(*x[19:25], x[24])
+        outs.append(residual_summary_plain(
+            params, img, imu, BiasFactors(x[27], x[28]),
+            PriorFactor(*x[29:36]), F.CamExtrinsics(x[14], x[15]), x[25],
+            x[26], x[16], cauchy_c, cfg))
+    return torch.stack(outs)
 
 
 def _check_inputs(fn, tensors, names, floats, indices):
@@ -405,10 +439,13 @@ def declare(lib):
     lib.image_factor_rows.restype = ctypes.c_int
     lib.imu_factor_rows.argtypes = [i, i, p, p, p, i, i, i, i, d, p]
     lib.imu_factor_rows.restype = ctypes.c_int
-    lib.image_factor_residuals.argtypes = lib.image_factor_rows.argtypes
-    lib.image_factor_residuals.restype = ctypes.c_int
-    lib.imu_factor_residuals.argtypes = lib.imu_factor_rows.argtypes
-    lib.imu_factor_residuals.restype = ctypes.c_int
+    lib.residual_summary.argtypes = [i, i, p, p, p, p, p, i, i, i, i, i, i,
+                                     d, d, p]
+    lib.residual_summary.restype = ctypes.c_int
+    lib.residual_summary_blocks.argtypes = [i, i, i, i]
+    lib.residual_summary_blocks.restype = ctypes.c_int
+    lib.residual_summary_sums.argtypes = []
+    lib.residual_summary_sums.restype = ctypes.c_int
     return lib
 
 
@@ -423,10 +460,9 @@ def _lib():
     return lib
 
 
-# the kernels' sixteen instances in `factor_kernel_attributes`' order
-# (K2r, K3r: K2's and K3's residual-only instances), and what it reports
-# of each
-KERNELS = ("K2", "K3", "K2r", "K3r")
+# the kernels' twelve instances in `factor_kernel_attributes`' order, and
+# what it reports of each
+KERNELS = ("K2", "K3", "K5")
 INSTANCES = tuple(f"{k} {f} {i}" for k in KERNELS
                   for f in ("float32", "float64") for i in ("int32", "int64"))
 ATTRIBUTES = ("registers", "local_bytes", "shared_bytes",
@@ -505,19 +541,30 @@ def call_rows(lib, image, ts, KW, NB, dt, cauchy_c=0.0, stream=None):
                  [(L, n, 6, C), (L, n, 6), (L, n)], KW, NB, dt, 0.0, stream)
 
 
-def call_residuals(lib, image, ts, KW, NB, dt, cauchy_c=0.0, stream=None):
-    """One call of `lib`'s residual-only K2 (`image`) or K3 entry point on
-    the residual op's inputs `ts` (each with a lane axis): (r, rho(|r|^2))
-    or (r, |r|^2), each with the lane axis. Raises if the entry point
-    returns an error."""
-    L, n = ts[0].shape[0], ts[4].shape[1]
-    ts = list(ts)
-    ts.insert(IMAGE_ACTIVE if image else IMU_ACTIVE, None)
-    if image:
-        return _call(lib, "image_factor_residuals", ts, [(L, n, 2), (L, n)],
-                     KW, NB, dt, cauchy_c, stream)
-    return _call(lib, "imu_factor_residuals", ts, [(L, n, 6), (L, n)], KW,
-                 NB, dt, 0.0, stream)
+def call_summary(lib, ts, KW, NB, dt, cauchy_c, stream=None, fill=None):
+    """One call of `lib`'s K5 entry point on the summary op's inputs `ts`
+    (each with a lane axis): the (L, 5) summary, allocated here with its
+    scratch (left as allocated, or filled with `fill`) and its arrival
+    counters (zeroed) on their device. Raises if the entry point returns
+    an error."""
+    fdt, idt, dev = ts[0].dtype, ts[4].dtype, ts[0].device
+    L, Q, M, LM = ts[0].shape[0], ts[4].shape[1], ts[19].shape[1], \
+        ts[2].shape[1]
+    blocks = lib.residual_summary_blocks(Q, M, KW, NB)
+    shape = (L, blocks, lib.residual_summary_sums())
+    partial = (torch.empty(shape, dtype=fdt, device=dev) if fill is None
+               else torch.full(shape, fill, dtype=fdt, device=dev))
+    arrive = torch.zeros((L,), dtype=torch.int32, device=dev)
+    out = torch.empty((L, N_SUMMARY_OUT), dtype=fdt, device=dev)
+    ptrs, strides = _pointers(ts)
+    err = lib.residual_summary(
+        FLOATS.index(fdt), INDICES.index(idt), ptrs, strides, out.data_ptr(),
+        partial.data_ptr(), arrive.data_ptr(), L, Q, M, KW, NB, LM,
+        float(dt), float(cauchy_c), stream)
+    if err != 0:
+        raise RuntimeError(f"residual_summary: launch failed (cudaError "
+                           f"{err})")
+    return out
 
 
 _IMAGE_NAMES = ("knots_q", "knots_p", "dinv", "ld", "i0_i", "f_i", "row_i",
@@ -571,57 +618,38 @@ def _imu_launch(knots_q, knots_p, bg, ba, i0, u, gyro, accel, bias_idx,
     return outs
 
 
-_IMAGE_RES_NAMES = tuple(n for n in _IMAGE_NAMES if n != "active")
-_IMU_RES_NAMES = tuple(n for n in _IMU_NAMES if n != "active")
+_SUMMARY_NAMES = (*_IMAGE_NAMES[:13], "img_valid", *_IMAGE_NAMES[14:],
+                  *_IMU_NAMES[2:9], "imu_valid", *_IMU_NAMES[10:],
+                  "bias_sqrt_info", "bias_valid", "J", "r0", "knots_q0",
+                  "knots_p0", "bg0", "ba0", "ld0")
+_SUMMARY_INDICES = (4, 8, 12, 19, 23)
+_SUMMARY_MASKS = (13, 24, 28)
 
 
-def _image_res_launch(knots_q, knots_p, dinv, ld, i0_i, f_i, row_i, pt_i,
-                      i0_j, f_j, row_j, pt_j, lm_idx, q_CtoI, p_CinI,
-                      sqrt_info, KW, NB, dt, cauchy_c):
-    """The image residual op on the card: K2's residual instance, once
-    over every lane."""
-    ts = (knots_q, knots_p, dinv, ld, i0_i, f_i, row_i, pt_i, i0_j, f_j,
-          row_j, pt_j, lm_idx, q_CtoI, p_CinI, sqrt_info)
-    fn = "image_factor_residuals"
-    _require_cuda(fn, knots_q.device)
-    _check_inputs(fn, ts, _IMAGE_RES_NAMES,
-                  (0, 1, 2, 3, 5, 6, 7, 9, 10, 11, 13, 14, 15), (4, 8, 12))
-    Q, LM = i0_i.shape[1], dinv.shape[1]
-    _check_shapes(fn, ts, _IMAGE_RES_NAMES,
-                  ((KW, 4), (KW, 3), (LM,), (), (Q,), (Q,), (Q,), (Q, 3),
-                   (Q,), (Q,), (Q,), (Q, 3), (Q,), (4,), (3,), ()))
+def _summary_launch(*ts_static):
+    """The summary op on the card: K5, once over every lane."""
+    ts, (KW, NB, dt, cauchy_c) = ts_static[:N_SUMMARY_IN], ts_static[
+        N_SUMMARY_IN:]
+    fn = "residual_summary"
+    _require_cuda(fn, ts[0].device)
+    floats = tuple(k for k in range(N_SUMMARY_IN)
+                   if k not in _SUMMARY_INDICES + _SUMMARY_MASKS)
+    _check_inputs(fn, ts, _SUMMARY_NAMES, floats, _SUMMARY_INDICES)
     if KW < 4 or NB < 1:
         raise ValueError(f"{fn}: KW must be at least 4 and NB at least 1")
-    dev = knots_q.device
+    Q, M, LM = ts[4].shape[1], ts[19].shape[1], ts[2].shape[1]
+    C = 6 * KW + 6 * NB + 1
+    _check_shapes(fn, ts, _SUMMARY_NAMES,
+                  ((KW, 4), (KW, 3), (LM,), (), (Q,), (Q,), (Q,), (Q, 3),
+                   (Q,), (Q,), (Q,), (Q, 3), (Q,), (Q,), (4,), (3,), (),
+                   (NB, 3), (NB, 3), (M,), (M,), (M, 3), (M, 3), (M,), (M,),
+                   (3,), (6,), (NB - 1, 6), (NB - 1,), (C, C), (C,),
+                   (KW, 4), (KW, 3), (NB, 3), (NB, 3), ()))
+    dev = ts[0].device
     with _on(dev):
-        outs = call_residuals(_lib(), True, ts, KW, NB, dt, cauchy_c,
-                              _stream(dev))
-    image_factor_residuals.launches += 1
-    return outs
-
-
-def _imu_res_launch(knots_q, knots_p, bg, ba, i0, u, gyro, accel, bias_idx,
-                    gravity, imu_info, KW, NB, dt):
-    """The IMU residual op on the card: K3's residual instance, once over
-    every lane."""
-    ts = (knots_q, knots_p, bg, ba, i0, u, gyro, accel, bias_idx, gravity,
-          imu_info)
-    fn = "imu_factor_residuals"
-    _require_cuda(fn, knots_q.device)
-    _check_inputs(fn, ts, _IMU_RES_NAMES, (0, 1, 2, 3, 5, 6, 7, 9, 10),
-                  (4, 8))
-    M = i0.shape[1]
-    _check_shapes(fn, ts, _IMU_RES_NAMES,
-                  ((KW, 4), (KW, 3), (NB, 3), (NB, 3), (M,), (M,), (M, 3),
-                   (M, 3), (M,), (3,), (6,)))
-    if KW < 4:
-        raise ValueError(f"{fn}: KW must be at least 4")
-    dev = knots_q.device
-    with _on(dev):
-        outs = call_residuals(_lib(), False, ts, KW, NB, dt,
-                              stream=_stream(dev))
-    imu_factor_residuals.launches += 1
-    return outs
+        out = call_summary(_lib(), ts, KW, NB, dt, cauchy_c, _stream(dev))
+    residual_summary.launches += 1
+    return out
 
 
 def _image_fake(knots_q, knots_p, dinv, ld, i0_i, *rest):
@@ -640,14 +668,8 @@ def _imu_fake(knots_q, knots_p, bg, ba, i0, *rest):
             knots_q.new_empty((L, M)))
 
 
-def _image_res_fake(knots_q, knots_p, dinv, ld, i0_i, *rest):
-    L, Q = i0_i.shape[:2]
-    return knots_q.new_empty((L, Q, 2)), knots_q.new_empty((L, Q))
-
-
-def _imu_res_fake(knots_q, knots_p, bg, ba, i0, *rest):
-    L, M = i0.shape[:2]
-    return knots_q.new_empty((L, M, 6)), knots_q.new_empty((L, M))
+def _summary_fake(knots_q, *rest):
+    return knots_q.new_empty((knots_q.shape[0], N_SUMMARY_OUT))
 
 
 def _lane_major(a, d, B):
@@ -664,12 +686,14 @@ def _lane_major(a, d, B):
 
 def _vmap_rule(op, n_out):
     """The op's vmap rule: one call over B x L lanes, the outputs split
-    back into (B, L, ...)."""
+    back into (B, L, ...); n_out None for an op with one output."""
     def rule(info, in_dims, *args):
         B = info.batch_size
         flat = [_lane_major(a, d, B) if isinstance(a, torch.Tensor) else a
                 for a, d in zip(args, in_dims)]
         outs = op(*flat)
+        if n_out is None:
+            return outs.reshape(B, -1, *outs.shape[1:]), 0
         return (tuple(o.reshape(B, -1, *o.shape[1:]) for o in outs),
                 (0,) * n_out)
     return rule
@@ -687,18 +711,11 @@ imu_op.register_kernel("cuda")(_imu_launch)
 imu_op.register_fake(_imu_fake)
 torch.library.register_vmap(IMU_OP, _vmap_rule(imu_op, 3))
 
-image_res_op = torch.library.custom_op(IMAGE_RES_OP, _image_res_lanes_plain,
-                                       mutates_args=(),
-                                       schema=_IMAGE_RES_SCHEMA)
-image_res_op.register_kernel("cuda")(_image_res_launch)
-image_res_op.register_fake(_image_res_fake)
-torch.library.register_vmap(IMAGE_RES_OP, _vmap_rule(image_res_op, 2))
-
-imu_res_op = torch.library.custom_op(IMU_RES_OP, _imu_res_lanes_plain,
-                                     mutates_args=(), schema=_IMU_RES_SCHEMA)
-imu_res_op.register_kernel("cuda")(_imu_res_launch)
-imu_res_op.register_fake(_imu_res_fake)
-torch.library.register_vmap(IMU_RES_OP, _vmap_rule(imu_res_op, 2))
+summary_op = torch.library.custom_op(SUMMARY_OP, _summary_lanes_plain,
+                                     mutates_args=(), schema=_SUMMARY_SCHEMA)
+summary_op.register_kernel("cuda")(_summary_launch)
+summary_op.register_fake(_summary_fake)
+torch.library.register_vmap(SUMMARY_OP, _vmap_rule(summary_op, None))
 
 
 # ---------------------------------------------------------------------------
@@ -714,43 +731,39 @@ def _const(x, dtype, device, shape):
     return torch.full((1, *shape), float(x), dtype=dtype, device=device)
 
 
-def image_residual_inputs(params: WindowParams, img: ImageFactors, ext,
-                          sqrt_info):
-    """The image residual op's tensor inputs for one window (lane axis
-    1)."""
+def image_inputs(params: WindowParams, img: ImageFactors, active, ext,
+                 sqrt_info):
+    """The image op's tensor inputs for one window (lane axis 1)."""
     dt, dev = params.knots_p.dtype, params.knots_p.device
     one = [x.unsqueeze(0) for x in (
         params.knots_q, params.knots_p, params.dinv, params.ld, img.i0_i,
         img.f_i, img.row_i, img.pt_i, img.i0_j, img.f_j, img.row_j,
-        img.pt_j, img.lm_idx)]
+        img.pt_j, img.lm_idx, active)]
     return (*one, _const(ext.q_CtoI, dt, dev, (4,)),
             _const(ext.p_CinI, dt, dev, (3,)), _const(sqrt_info, dt, dev, ()))
-
-
-def imu_residual_inputs(params: WindowParams, imu: ImuFactors, gravity,
-                        imu_info):
-    """The IMU residual op's tensor inputs for one window (lane axis 1)."""
-    dt, dev = params.knots_p.dtype, params.knots_p.device
-    one = [x.unsqueeze(0) for x in (
-        params.knots_q, params.knots_p, params.bg, params.ba, imu.i0, imu.u,
-        imu.gyro, imu.accel, imu.bias_idx)]
-    return (*one, _const(gravity, dt, dev, (3,)),
-            _const(imu_info, dt, dev, (6,)))
-
-
-def image_inputs(params: WindowParams, img: ImageFactors, active, ext,
-                 sqrt_info):
-    """The image op's tensor inputs for one window (lane axis 1): the
-    residual op's and the mask."""
-    ts = image_residual_inputs(params, img, ext, sqrt_info)
-    return (*ts[:IMAGE_ACTIVE], active.unsqueeze(0), *ts[IMAGE_ACTIVE:])
 
 
 def imu_inputs(params: WindowParams, imu: ImuFactors, active, gravity,
                imu_info):
     """The IMU op's tensor inputs for one window (lane axis 1)."""
-    ts = imu_residual_inputs(params, imu, gravity, imu_info)
-    return (*ts[:IMU_ACTIVE], active.unsqueeze(0), *ts[IMU_ACTIVE:])
+    dt, dev = params.knots_p.dtype, params.knots_p.device
+    one = [x.unsqueeze(0) for x in (
+        params.knots_q, params.knots_p, params.bg, params.ba, imu.i0, imu.u,
+        imu.gyro, imu.accel, imu.bias_idx, active)]
+    return (*one, _const(gravity, dt, dev, (3,)),
+            _const(imu_info, dt, dev, (6,)))
+
+
+def summary_inputs(params: WindowParams, img: ImageFactors, imu: ImuFactors,
+                   bias: BiasFactors, prior: PriorFactor, ext, gravity,
+                   imu_info, sqrt_info):
+    """The summary op's tensor inputs for one window (lane axis 1): the
+    image op's with the valid flags as the mask, the IMU op's but the
+    knots, the bias pairs' and the prior's (a prior's r0 may be a column
+    of its QR factor: made contiguous, a copy only then)."""
+    return (*image_inputs(params, img, img.valid, ext, sqrt_info),
+            *imu_inputs(params, imu, imu.valid, gravity, imu_info)[2:],
+            *(x.contiguous().unsqueeze(0) for x in (*bias, *prior)))
 
 
 def image_factor_rows_op(params: WindowParams, img: ImageFactors, active,
@@ -799,49 +812,32 @@ def imu_factor_rows(params: WindowParams, imu: ImuFactors, active, gravity,
     return imu_factor_rows_op(params, imu, active, gravity, imu_info, cfg)
 
 
-def image_factor_residuals_op(params: WindowParams, img: ImageFactors, ext,
-                              sqrt_info, cauchy_c: float,
-                              cfg: WindowConfig) -> ImageResiduals:
-    """`image_factor_residuals` through the custom op, on any device."""
-    out = image_res_op(*image_residual_inputs(params, img, ext, sqrt_info),
-                       cfg.KW, cfg.NB, float(cfg.dt), float(cauchy_c))
-    return ImageResiduals(*(o[0] for o in out))
+def residual_summary_op(params: WindowParams, img: ImageFactors,
+                        imu: ImuFactors, bias: BiasFactors,
+                        prior: PriorFactor, ext, gravity, imu_info,
+                        sqrt_info_img, cauchy_c: float, cfg: WindowConfig):
+    """`residual_summary` through the custom op, on any device."""
+    return summary_op(*summary_inputs(params, img, imu, bias, prior, ext,
+                                      gravity, imu_info, sqrt_info_img),
+                      cfg.KW, cfg.NB, float(cfg.dt), float(cauchy_c))[0]
 
 
-def imu_factor_residuals_op(params: WindowParams, imu: ImuFactors, gravity,
-                            imu_info, cfg: WindowConfig) -> ImuResiduals:
-    """`imu_factor_residuals` through the custom op, on any device."""
-    out = imu_res_op(*imu_residual_inputs(params, imu, gravity, imu_info),
-                     cfg.KW, cfg.NB, float(cfg.dt))
-    return ImuResiduals(*(o[0] for o in out))
-
-
-def image_factor_residuals(params: WindowParams, img: ImageFactors, ext,
-                           sqrt_info, cauchy_c: float,
-                           cfg: WindowConfig) -> ImageResiduals:
-    """Every image factor's raw residual and rho(|r|^2), unmasked (see
-    `image_factor_residuals_plain`). CPU tensors take the plain version;
-    CUDA tensors launch K2's residual instance once, or raise."""
+def residual_summary(params: WindowParams, img: ImageFactors,
+                     imu: ImuFactors, bias: BiasFactors, prior: PriorFactor,
+                     ext, gravity, imu_info, sqrt_info_img, cauchy_c: float,
+                     cfg: WindowConfig):
+    """The window's residual summary (5,): [rms_img, rms_imu, rms_bias,
+    rms_prior, cost] (see `residual_summary_plain`). CPU tensors take the
+    plain version; CUDA tensors launch K5 once, for float32 or float64 and
+    int32 or int64 indices, or raise."""
     dev = params.knots_p.device
     if dev.type == "cpu":
-        return image_factor_residuals_plain(params, img, ext, sqrt_info,
-                                            cauchy_c, cfg)
-    _require_cuda("image_factor_residuals", dev)
-    return image_factor_residuals_op(params, img, ext, sqrt_info, cauchy_c,
-                                     cfg)
-
-
-def imu_factor_residuals(params: WindowParams, imu: ImuFactors, gravity,
-                         imu_info, cfg: WindowConfig) -> ImuResiduals:
-    """Every IMU factor's raw residual and |r|^2, unmasked (see
-    `imu_factor_residuals_plain`). CPU tensors take the plain version;
-    CUDA tensors launch K3's residual instance once, or raise."""
-    dev = params.knots_p.device
-    if dev.type == "cpu":
-        return imu_factor_residuals_plain(params, imu, gravity, imu_info,
-                                          cfg)
-    _require_cuda("imu_factor_residuals", dev)
-    return imu_factor_residuals_op(params, imu, gravity, imu_info, cfg)
+        return residual_summary_plain(params, img, imu, bias, prior, ext,
+                                      gravity, imu_info, sqrt_info_img,
+                                      cauchy_c, cfg)
+    _require_cuda("residual_summary", dev)
+    return residual_summary_op(params, img, imu, bias, prior, ext, gravity,
+                               imu_info, sqrt_info_img, cauchy_c, cfg)
 
 
 _COUNTED = {
@@ -849,8 +845,8 @@ _COUNTED = {
     "imu_factor_rows": (imu_factor_rows, "launches"),
     "image_factor_rows_plain": (image_factor_rows_plain, "calls"),
     "imu_factor_rows_plain": (imu_factor_rows_plain, "calls"),
-    "image_factor_residuals": (image_factor_residuals, "launches"),
-    "imu_factor_residuals": (imu_factor_residuals, "launches"),
+    "residual_summary": (residual_summary, "launches"),
+    "residual_summary_plain": (residual_summary_plain, "calls"),
     "image_factor_residuals_plain": (image_factor_residuals_plain, "calls"),
     "imu_factor_residuals_plain": (imu_factor_residuals_plain, "calls")}
 
@@ -863,9 +859,9 @@ def reset_counts():
 
 def _counts():
     """Every count of this module by name: the launches of K2
-    (`image_factor_rows`), K3 (`imu_factor_rows`) and their residual
-    instances (`*_factor_residuals`), and the runs of their plain
-    versions."""
+    (`image_factor_rows`), K3 (`imu_factor_rows`) and K5
+    (`residual_summary`), and the runs of their plain versions (K5's and
+    its per-slot pieces', `*_factor_residuals_plain`)."""
     return {k: getattr(fn, attr) for k, (fn, attr) in _COUNTED.items()}
 
 

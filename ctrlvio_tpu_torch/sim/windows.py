@@ -1,8 +1,9 @@
 """A solve window of `bench.py`'s default sequence, for holding the factor
-kernels (K2, K3) to their plain versions and timing them at the shapes the
-estimator gives them: `chip_smoke.py`'s `factor_kernels` phase, the gpu
-tests and `tools/factor_geometry.py`; and an LM state and trial at a
-window's shapes in the accept step's cases, for K4 (`accept_case`:
+kernels (K2, K3) and the residual summary (K5, `summary_window`: the window
+with bias pairs and a prior) to their plain versions and timing them at the
+shapes the estimator gives them: `chip_smoke.py`'s `factor_kernels` phase,
+the gpu tests and `tools/factor_geometry.py`; and an LM state and trial at
+a window's shapes in the accept step's cases, for K4 (`accept_case`:
 `chip_smoke.py`'s `lm_accept` phase and the tests)."""
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ from ctrlvio_tpu_torch.ops.lm_kernels import LMState
 from ctrlvio_tpu_torch.ops import so3np
 from ctrlvio_tpu_torch.ops.factors import CamExtrinsics
 from ctrlvio_tpu_torch.sim import synthetic
-from ctrlvio_tpu_torch.solver.layout import (SolveOptions, WindowConfig,
+from ctrlvio_tpu_torch.solver.layout import (BiasFactors, PriorFactor,
+                                             SolveOptions, WindowConfig,
                                              WindowParams)
 from ctrlvio_tpu_torch.utils.convert import from_numpy, tensor
 
@@ -95,6 +97,42 @@ def factor_window(cfg, dtype, device, seed=7):
     return (params, from_numpy(img, device, dtype),
             from_numpy(imu, device, dtype), ext, t(sim.gravity_vec),
             t([250.0] * 3 + [12.5] * 3), t(800.0))
+
+
+def summary_window(cfg, dtype, device, seed=7, window=None):
+    """`factor_window`'s window (or `window`, one it made at `seed`) with
+    what else the residual summary reads:
+    its keyframes' bias pairs (`packing.bias_sqrt_info` at the reference's
+    random walks, every fourth pair masked) and a prior drawn from `seed`
+    (J upper triangular over its first two thirds of rows, the rest zero,
+    as a marginalization's QR factor with dropped coordinates leaves it;
+    r0 on the same rows; the linearization point near the parameters).
+    Returns (params, img, imu, bias, prior, ext, gravity, imu_info,
+    sqrt_info_img)."""
+    params, img, imu, ext, grav, info, w = window or factor_window(
+        cfg, dtype, device, seed)
+    sim = e2e_sequence()
+    kf_t_ns = np.array([f.t_ns for f in sim.frames[: cfg.NB]], np.int64)
+    si = packing.bias_sqrt_info(sim.imu_t_ns, kf_t_ns, 2e-5, 4e-4, cfg,
+                                dtype=np.float64).sqrt_info
+    rng = np.random.default_rng(seed + 1000)
+    C, n = cfg.C, 2 * cfg.C // 3
+    J = np.triu(rng.normal(size=(C, C)) * 0.1)
+    J[n:] = 0.0
+    r0 = np.r_[rng.normal(size=n) * 0.1, np.zeros(C - n)]
+
+    def t(x):
+        return tensor(np.asarray(x, np.float64), device, dtype)
+
+    bias = BiasFactors(sqrt_info=t(si), valid=torch.tensor(
+        np.arange(cfg.NB - 1) % 4 != 3, device=device))
+    q0 = so3np.boxplus(params.knots_q.double().cpu().numpy(),
+                       rng.normal(size=(cfg.KW, 3)) * 0.01)
+    prior = PriorFactor(
+        J=t(J), r0=t(r0), knots_q0=t(q0),
+        knots_p0=params.knots_p - t(rng.normal(size=(cfg.KW, 3)) * 0.01),
+        bg0=params.bg * 0.5, ba0=params.ba * 0.5, ld0=params.ld * 0.9)
+    return params, img, imu, bias, prior, ext, grav, info, w
 
 
 # the accept step's cases: the state's cost, lambda and done, the trial's

@@ -7,10 +7,10 @@ C-dim camera system; H = J^T J is then one matrix product, and the
 (diagonal) landmark block stays separate for analytic Schur elimination.
 Robust loss: Cauchy with scale c, applied as the sqrt(rho') rescaling.
 The image and IMU factors' rows come from `ops/factor_kernels.py` (on the
-card kernels K2 and K3, one launch a chunk), and the residual summary's
-image and IMU residuals from their residual-only instances; the bias and
-prior rows and residuals, the products, the masked sums and the landmark
-sums are here. The factor evaluations and the
+card kernels K2 and K3, one launch a chunk), and the whole residual summary
+(`residual_rms`, `total_cost`) from its `residual_summary` (on the card
+kernel K5, one launch); the bias and prior rows and residuals, the products
+and the landmark sums of the linearization are here. The factor evaluations and the
 normal equations run inside `torch.profiler.record_function` ranges
 ("image factors", "IMU factors", "normal equations"), which a profile of
 an eager solve attributes device time to.
@@ -177,57 +177,19 @@ def accumulate_normal_equations(params: WindowParams, img: ImageFactors,
     return H, g, h_ll, g_l, H_cl, cost
 
 
-def _residuals(params: WindowParams, img: ImageFactors, imu: ImuFactors,
-               bias: BiasFactors, prior: PriorFactor, ext, gravity, imu_info,
-               sqrt_info_img, cfg: WindowConfig, opts: SolveOptions):
-    """Raw (unweighted by the robust loss), unmasked residuals of every
-    factor type: the image factors' with their Cauchy costs
-    (`factor_kernels.ImageResiduals`), the IMU factors' with their squared
-    norms (`ImuResiduals`), the bias pairs' and the prior's."""
-    ir = fk.image_factor_residuals(params, img, ext, sqrt_info_img,
-                                   opts.cauchy_c, cfg)
-    mr = fk.imu_factor_residuals(params, imu, gravity, imu_info, cfg)
-    rb = F.bias_residual(params.bg[:-1], params.bg[1:], params.ba[:-1],
-                         params.ba[1:], bias.sqrt_info)
-    dx = boxminus_full(params, prior.knots_q0, prior.knots_p0, prior.bg0,
-                       prior.ba0, prior.ld0, cfg)
-    r_prior = prior.r0 + prior.J @ dx
-    return ir, mr, rb, r_prior
-
-
 def residual_rms(params: WindowParams, img: ImageFactors, imu: ImuFactors,
                  bias: BiasFactors, prior: PriorFactor, ext, gravity,
                  imu_info, sqrt_info_img, cfg: WindowConfig,
                  opts: SolveOptions):
     """Per-factor-type raw residual RMS: (4,) [image, imu, bias, prior]."""
-    dtype = params.knots_p.dtype
-    ir, mr, rb, r_prior = _residuals(params, img, imu, bias, prior, ext,
-                                     gravity, imu_info, sqrt_info_img, cfg,
-                                     opts)
-    m_img = img.valid.to(dtype)
-    rms_img = torch.sqrt(torch.sum(ir.r * ir.r * m_img[:, None])
-                         / torch.clamp(2.0 * torch.sum(m_img), min=1.0))
-    m_imu = imu.valid.to(dtype)
-    rms_imu = torch.sqrt(torch.sum(mr.sq * m_imu)
-                         / torch.clamp(6.0 * torch.sum(m_imu), min=1.0))
-    m_b = bias.valid.to(dtype)
-    rms_bias = torch.sqrt(torch.sum(rb * rb * m_b[:, None])
-                          / torch.clamp(6.0 * torch.sum(m_b), min=1.0))
-    n_prior = torch.sum((torch.sum(prior.J * prior.J, dim=1) > 0).to(dtype))
-    rms_prior = torch.sqrt(torch.sum(r_prior * r_prior)
-                           / torch.clamp(n_prior, min=1.0))
-    return torch.stack([rms_img, rms_imu, rms_bias, rms_prior])
+    return fk.residual_summary(params, img, imu, bias, prior, ext, gravity,
+                               imu_info, sqrt_info_img, opts.cauchy_c,
+                               cfg)[:4]
 
 
 def total_cost(params: WindowParams, img: ImageFactors, imu: ImuFactors,
                bias: BiasFactors, prior: PriorFactor, ext, gravity, imu_info,
                sqrt_info_img, cfg: WindowConfig, opts: SolveOptions):
     """Residual-only robust cost."""
-    dtype = params.knots_p.dtype
-    ir, mr, rb, r_prior = _residuals(params, img, imu, bias, prior, ext,
-                                     gravity, imu_info, sqrt_info_img, cfg,
-                                     opts)
-    cost = 0.5 * torch.sum(ir.cost * img.valid.to(dtype))
-    cost = cost + 0.5 * torch.sum(mr.sq * imu.valid.to(dtype))
-    cost = cost + 0.5 * torch.sum((rb * bias.valid.to(dtype)[:, None]) ** 2)
-    return cost + 0.5 * torch.sum(r_prior * r_prior)
+    return fk.residual_summary(params, img, imu, bias, prior, ext, gravity,
+                               imu_info, sqrt_info_img, opts.cauchy_c, cfg)[4]

@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels on the card, against their plain
-PyTorch versions: K1 (`csrc/lk.cu`), K2 and K3 and their residual-only
-instances K2r and K3r (`csrc/factors.cu`), K4 (`csrc/lm_accept.cu`, the
+PyTorch versions: K1 (`csrc/lk.cu`), K2 and K3 and K5 (the residual
+summary; `csrc/factors.cu`), K4 (`csrc/lm_accept.cu`, the
 LM's accept step, and the WHILE node whose condition it sets). Every
 test here needs a CUDA
 device and skips without one. The file imports neither JAX nor the JAX package, so that it runs on
@@ -15,16 +15,17 @@ import pytest
 import torch
 
 from chip_smoke import (CASE_LEVELS, FACTOR_TOL, FACTOR_WINDOWS, LOOP_ITERS,
-                        SEARCH_MARGIN, TRACK_CASES, factor_calls,
-                        factor_window, k4_loop, loop_args, rel_err,
-                        residual_calls,
-                        stack_tree, textured_pair, track_case, tree_err)
+                        SEARCH_MARGIN, SUMMARY_TOL, TRACK_CASES, col_rel_err,
+                        factor_calls, factor_window, k4_loop, loop_args,
+                        rel_err, stack_tree, summary_calls, textured_pair,
+                        track_case, tree_err)
 from ctrlvio_tpu_torch.frontend import klt
 from ctrlvio_tpu_torch.ops import factor_kernels as fk
 from ctrlvio_tpu_torch.ops import lk
 from ctrlvio_tpu_torch.ops import lm_kernels as k4
 from ctrlvio_tpu_torch.parallel.batch import stack
-from ctrlvio_tpu_torch.sim.windows import ACCEPT_CASES, accept_case
+from ctrlvio_tpu_torch.sim.windows import (ACCEPT_CASES, accept_case,
+                                           summary_window)
 from ctrlvio_tpu_torch.utils import graphs
 
 pytestmark = pytest.mark.gpu
@@ -384,80 +385,107 @@ def test_factor_wrappers_reject_what_the_kernels_do_not_take(cuda):
             fk.imu_factor_rows.launches) == (n2, n3)
 
 
+def cut_summary(window, img_slots, imu_slots):
+    """A `summary_window` with its image and IMU factors cut."""
+    params, img, imu, *rest = window
+    return (params, type(img)(*(x[img_slots] for x in img)),
+            type(imu)(*(x[imu_slots] for x in imu)), *rest)
+
+
 @pytest.mark.parametrize("window", sorted(FACTOR_WINDOWS))
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_residual_kernels_match_plain_versions(cuda, window, dtype):
-    """K2r and K3r on a window of the e2e sequence, whole and cut to
-    RAGGED slots (the last block ragged): every output within FACTOR_TOL
-    of its largest entry, one launch counted a call."""
+def test_summary_kernel_matches_plain_version(cuda, window, dtype):
+    """K5 on a summary window of the e2e sequence (`sim/windows.py::
+    summary_window`: bias pairs and a prior), whole and cut to RAGGED
+    slots (the last image and IMU blocks ragged): each of its five outputs
+    within SUMMARY_TOL of the plain version's, one launch counted a
+    call."""
     cfg = FACTOR_WINDOWS[window]
-    whole = factor_window(cfg, dtype, cuda)
-    for win in (whole, cut_window(whole, slice(RAGGED[0]),
-                                  slice(RAGGED[1]))):
-        k2r, p2r, k3r, p3r = residual_calls(win, cfg)
-        for kern, plain, counter in ((k2r, p2r, fk.image_factor_residuals),
-                                     (k3r, p3r, fk.imu_factor_residuals)):
-            n = counter.launches
-            got = kern()
-            assert counter.launches == n + 1
-            ref = plain()
-            torch.cuda.synchronize()
-            assert [x.shape for x in got] == [x.shape for x in ref]
-            assert rel_err(got, ref) <= FACTOR_TOL[dtype]
+    whole = summary_window(cfg, dtype, cuda)
+    for win in (whole, cut_summary(whole, slice(RAGGED[0]),
+                                   slice(RAGGED[1]))):
+        k5, p5 = summary_calls(win, cfg)
+        n = fk.residual_summary.launches
+        got = k5()
+        assert fk.residual_summary.launches == n + 1
+        ref = p5()
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape == (5,)
+        assert bool(torch.isfinite(got).all())
+        assert col_rel_err((got,), (ref,)) <= SUMMARY_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_summary_kernel_over_many_blocks(cuda, dtype):
+    """K5 on the e2e summary window with its image factors tiled 6 times
+    (4,608 slots: a lane of more blocks than the last block stages at a
+    time): within SUMMARY_TOL of the plain version, two launches equal."""
+    cfg = FACTOR_WINDOWS["e2e"]
+    params, img, *rest = summary_window(cfg, dtype, cuda)
+    win = (params, type(img)(*(torch.cat([x] * 6) for x in img)), *rest)
+    k5, p5 = summary_calls(win, cfg)
+    got, ref = k5(), p5()
+    torch.cuda.synchronize()
+    assert col_rel_err((got,), (ref,)) <= SUMMARY_TOL[dtype]
+    assert torch.equal(got, k5())
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("cut", ["whole", "ragged"])
-def test_residual_kernels_vmapped_equal_their_lanes(cuda, dtype, cut):
-    """Under torch.func.vmap over 3 windows (parameters and factors
-    batched, constants shared; cut to RAGGED slots, every lane after the
-    first starts inside a block) each residual instance launches once,
-    and each lane equals its own unbatched launch bit for bit."""
+def test_summary_kernel_vmapped_equals_its_lanes(cuda, dtype, cut):
+    """Under torch.func.vmap over 3 windows (parameters, factors and priors
+    batched, constants shared; cut to RAGGED slots) K5 launches once, and
+    each lane equals its own unbatched launch bit for bit."""
     cfg = FACTOR_WINDOWS["e2e"]
-    lanes = [factor_window(cfg, dtype, cuda, seed=40 + k) for k in range(3)]
+    lanes = [summary_window(cfg, dtype, cuda, seed=40 + k) for k in range(3)]
     if cut == "ragged":
-        lanes = [cut_window(ln, slice(RAGGED[0]), slice(RAGGED[1]))
+        lanes = [cut_summary(ln, slice(RAGGED[0]), slice(RAGGED[1]))
                  for ln in lanes]
-    ext, grav, info, w = lanes[0][3:]
-    P, IMG, IMU = (stack([ln[k] for ln in lanes]) for k in range(3))
+    ext, grav, info, w = lanes[0][5:]
+    stacked = [stack([ln[k] for ln in lanes]) for k in range(5)]
 
-    def both(p, img, imu):
-        return (*fk.image_factor_residuals(p, img, ext, w, 2.0, cfg),
-                *fk.imu_factor_residuals(p, imu, grav, info, cfg))
+    def one(*own):
+        return fk.residual_summary(*own, ext, grav, info, w, 2.0, cfg)
 
-    n2, n3 = (fk.image_factor_residuals.launches,
-              fk.imu_factor_residuals.launches)
-    got = torch.func.vmap(both)(P, IMG, IMU)
-    assert (fk.image_factor_residuals.launches,
-            fk.imu_factor_residuals.launches) == (n2 + 1, n3 + 1)
+    n = fk.residual_summary.launches
+    got = torch.func.vmap(one)(*stacked)
+    assert fk.residual_summary.launches == n + 1
     for k, ln in enumerate(lanes):
-        for a, b in zip(got, both(*ln[:3])):
-            assert torch.equal(a[k], b)
+        assert torch.equal(got[k], one(*ln[:5]))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_residual_kernels_at_edge_slots(cuda, dtype):
-    """K2r and K3r at the edge slots of `edge_window` (`EDGES_BY_DTYPE`):
-    finite, within FACTOR_TOL of the plain versions; a masked slot's
-    residual is computed all the same (the caller masks), and two launches
-    give the same bits."""
+def test_summary_kernel_at_edge_slots(cuda, dtype):
+    """K5 at the edge slots of `edge_window` (`EDGES_BY_DTYPE`), with the
+    summary window's bias pairs and prior: finite, within SUMMARY_TOL of
+    the plain version, and two launches give the same bits; with every
+    mask off and a zero prior, every output 0 (the clamps), not NaN."""
     cfg, window = edge_window(cuda, dtype, EDGES_BY_DTYPE[dtype])
-    k2r, p2r, k3r, p3r = residual_calls(window, cfg)
-    for kern, plain in ((k2r, p2r), (k3r, p3r)):
-        got, ref = kern(), plain()
-        torch.cuda.synchronize()
-        assert all(bool(torch.isfinite(x).all()) for x in got)
-        assert rel_err(got, ref) <= FACTOR_TOL[dtype]
-        assert all(torch.equal(x, y) for x, y in zip(got, kern()))
-    assert bool((k2r().r[~window[1].valid] != 0).any())
+    win = summary_window(cfg, dtype, cuda, window=window)
+    k5, p5 = summary_calls(win, cfg)
+    got, ref = k5(), p5()
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert col_rel_err((got,), (ref,)) <= SUMMARY_TOL[dtype]
+    assert torch.equal(got, k5())
+    params, img, imu, bias, prior, *rest = win
+    off = (params, img._replace(valid=torch.zeros_like(img.valid)),
+           imu._replace(valid=torch.zeros_like(imu.valid)),
+           bias._replace(valid=torch.zeros_like(bias.valid)),
+           prior._replace(J=torch.zeros_like(prior.J),
+                          r0=torch.zeros_like(prior.r0)), *rest)
+    k5, p5 = summary_calls(off, cfg)
+    got = k5()
+    assert torch.equal(got, torch.zeros_like(got))
+    assert torch.equal(p5(), got)
 
 
 def test_residual_summary_on_the_card_matches_the_cpu(cuda):
-    """`assemble.residual_rms` and `total_cost` on the card (through K2r
-    and K3r, one launch each a call) against the same window on the CPU
-    (the plain route), float64 within 1e-10 of each value; the tiny
-    window's knots, biases and depths perturbed (at its ground truth the
-    IMU residuals are rounding noise)."""
+    """`assemble.residual_rms` and `total_cost` on the card (through K5,
+    one launch a call) against the same window on the CPU (the plain
+    route), float64 within 1e-10 of each value; the tiny window's knots,
+    biases and depths perturbed (at its ground truth the IMU residuals are
+    rounding noise)."""
     from ctrlvio_tpu_torch.sim.tiny import tiny_problem
     from ctrlvio_tpu_torch.solver import assemble
     from ctrlvio_tpu_torch.solver.layout import SolveOptions
@@ -475,10 +503,10 @@ def test_residual_summary_on_the_card_matches_the_cpu(cuda):
             dinv=p.dinv * 1.1)
         args = (params, pb.img, pb.imu, pb.bias, pb.prior, *pb.aux,
                 pb.cfg, SolveOptions())
-        n = fk.image_factor_residuals.launches
+        n = fk.residual_summary.launches
         out[str(dev)] = (assemble.residual_rms(*args).cpu(),
                          assemble.total_cost(*args).cpu())
-        assert fk.image_factor_residuals.launches == n + (
+        assert fk.residual_summary.launches == n + (
             2 if dev == cuda else 0)
     (a, b), (c, d) = out["cpu"], out[str(cuda)]
     assert bool((a[:3] > 1e-6).all())
@@ -486,41 +514,39 @@ def test_residual_summary_on_the_card_matches_the_cpu(cuda):
     torch.testing.assert_close(d, b, rtol=1e-10, atol=0)
 
 
-def test_residual_wrappers_reject_what_the_kernels_do_not_take(cuda):
+def test_summary_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     cfg = FACTOR_WINDOWS["e2e"]
-    params, img, imu, ext, grav, info, w = factor_window(
+    params, img, imu, bias, prior, ext, grav, info, w = summary_window(
         cfg, torch.float32, cuda)
-    n2, n3 = (fk.image_factor_residuals.launches,
-              fk.imu_factor_residuals.launches)
+    n = fk.residual_summary.launches
 
-    def k2r(p=params, im=img):
-        return fk.image_factor_residuals(p, im, ext, w, 2.0, cfg)
-
-    def k3r(p=params, mu=imu):
-        return fk.imu_factor_residuals(p, mu, grav, info, cfg)
+    def k5(p=params, im=img, mu=imu, bi=bias, pr=prior):
+        return fk.residual_summary(p, im, mu, bi, pr, ext, grav, info, w,
+                                   2.0, cfg)
 
     half = params._replace(**{f: getattr(params, f).half() for f in (
         "knots_q", "knots_p", "bg", "ba", "dinv", "ld")})
     with pytest.raises(TypeError):
-        k2r(p=half)
+        k5(p=half)
     with pytest.raises(TypeError):
-        k3r(p=half)
+        k5(im=img._replace(lm_idx=img.lm_idx.to(torch.int32)))
     with pytest.raises(TypeError):
-        k2r(im=img._replace(lm_idx=img.lm_idx.to(torch.int32)))
+        k5(mu=imu._replace(u=imu.u.double()))
     with pytest.raises(TypeError):
-        k3r(mu=imu._replace(u=imu.u.double()))
+        k5(bi=bias._replace(valid=bias.valid.float()))
     strided = torch.empty((3, cfg.MIMU), dtype=torch.float32,
                           device=cuda).t().copy_(imu.gyro)
     with pytest.raises(ValueError):
-        k3r(mu=imu._replace(gyro=strided))
+        k5(mu=imu._replace(gyro=strided))
     with pytest.raises(ValueError):
-        k2r(im=img._replace(pt_j=img.pt_j.cpu()))
+        k5(im=img._replace(pt_j=img.pt_j.cpu()))
     with pytest.raises(ValueError):
-        k2r(im=img._replace(f_j=img.f_j[:-1]))
+        k5(im=img._replace(f_j=img.f_j[:-1]))
     with pytest.raises(ValueError):
-        k3r(p=params._replace(bg=params.bg[:-1]))
-    assert (fk.image_factor_residuals.launches,
-            fk.imu_factor_residuals.launches) == (n2, n3)
+        k5(p=params._replace(bg=params.bg[:-1]))
+    with pytest.raises(ValueError):
+        k5(pr=prior._replace(J=prior.J[:-1]))
+    assert fk.residual_summary.launches == n
 
 
 def _accept_plain(st, trial, ne_t, cost_t, opts):

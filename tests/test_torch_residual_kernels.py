@@ -1,7 +1,6 @@
-"""The window's residual summary through the residual-only instances of the
-factor kernels (`ops/factor_kernels.py::image_factor_residuals`,
-`imu_factor_residuals`; on the card K2's and K3's residual instances) on
-the CPU, where the wrappers take their plain versions.
+"""The window's residual summary through `ops/factor_kernels.py::
+residual_summary` (on the card kernel K5, one launch) on the CPU, where the
+wrapper takes its plain version, `residual_summary_plain`.
 
 `solver/assemble.py::residual_rms` and `total_cost` against the JAX
 package's, on `sim/tiny.py`'s window and on a window of the e2e phase's
@@ -10,12 +9,12 @@ within `torch_parity.RTOL` of the largest entry and float32 within 1e-5
 (the two packages round float32 differently: other operation orders in
 the spline, the rotations and the sums). The windows' knots, depths,
 biases and line delay are perturbed and a prior is drawn, from a numpy
-seed. Also: the wrappers under `torch.func.vmap` over 3 lanes equal a
-loop, the custom ops' vmap rule one call over the lanes; the ops' fake
-shapes; one plain call a wrapper on the CPU and no launch; the modules
-import neither JAX nor the JAX package. The kernels themselves are held
-to the plain versions by `tests/test_torch_factors_host.py` (on the host)
-and `tests/test_torch_kernels.py` (gpu-marked)."""
+seed. Also: the wrapper under `torch.func.vmap` over 3 lanes equals a
+loop, the custom op's vmap rule one call over the lanes; the op's fake
+shape; one plain call on the CPU and no launch; the modules import neither
+JAX nor the JAX package. The kernel itself is held to the plain version by
+`tests/test_torch_factors_host.py` (on the host) and
+`tests/test_torch_kernels.py` (gpu-marked)."""
 
 import ast
 from pathlib import Path
@@ -145,93 +144,87 @@ def lanes(n=3, dtype=torch.float64):
 
 
 def op_calls(fn):
-    """fn() and the residual ops' calls it made (the innermost event of
-    each name: the profiler records a call under vmap once a layer)."""
+    """fn() and the summary op's calls it made (the innermost event of
+    each: the profiler records a call under vmap once a layer)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         out = fn()
     evs = [(e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
            for e in prof.profiler.kineto_results.events()
-           if e.name() in (fk.IMAGE_RES_OP, fk.IMU_RES_OP)]
+           if e.name() == fk.SUMMARY_OP]
     inner = [e for e in evs if not any(
-        o is not e and o[2] == e[2] and e[0] <= o[0] and o[1] <= e[1]
-        for o in evs)]
+        o is not e and e[0] <= o[0] and o[1] <= e[1] for o in evs)]
     return out, [n for _, _, n in sorted(inner)]
 
 
 @pytest.mark.parametrize("via_op", [False, True])
 def test_vmap_over_lanes_equals_a_loop(via_op):
-    """vmap over 3 lanes of parameters (factors and constants shared)
-    equals a loop over them: through the wrappers (the plain versions
-    batched) and through the custom ops, whose vmap rule makes one call of
-    each over the 3 lanes; and `residual_rms` vmapped as the serve path
-    vmaps the summary."""
+    """vmap over 3 lanes of parameters (factors, prior and constants
+    shared) equals a loop over them: through the wrapper (the plain
+    version batched) and through the custom op, whose vmap rule makes one
+    call over the 3 lanes; and `residual_rms` and `total_cost` vmapped as
+    the serve path vmaps the summary."""
     cfg, args, each, stacked = lanes()
-    _, img, imu, bias, prior, ext, grav, info, w = args
-    image = (fk.image_factor_residuals_op if via_op
-             else fk.image_factor_residuals)
-    imu_fn = fk.imu_factor_residuals_op if via_op else fk.imu_factor_residuals
+    summary = fk.residual_summary_op if via_op else fk.residual_summary
 
-    def both(p):
-        return (*image(p, img, ext, w, OPTS.cauchy_c, cfg),
-                *imu_fn(p, imu, grav, info, cfg))
+    def one(p):
+        return summary(p, *args[1:], OPTS.cauchy_c, cfg)
 
-    got, calls = op_calls(lambda: torch.func.vmap(both)(stacked))
-    ref = [torch.stack(x) for x in zip(*(both(p) for p in each))]
-    for a, b in zip(ref, got):
-        if via_op:
-            assert torch.equal(a, b)
-        else:
-            close(a, b, 1e-12)
-    assert calls == ([fk.IMAGE_RES_OP, fk.IMU_RES_OP] if via_op else [])
+    got, calls = op_calls(lambda: torch.func.vmap(one)(stacked))
+    ref = torch.stack([one(p) for p in each])
+    assert got.shape == (3, 5)
+    if via_op:
+        assert torch.equal(ref, got)
+    else:
+        close(ref, got, 1e-12)
+    assert calls == ([fk.SUMMARY_OP] if via_op else [])
 
     def rms(p):
         return tasm.residual_rms(p, *args[1:], cfg, OPTS)
 
+    def cost(p):
+        return tasm.total_cost(p, *args[1:], cfg, OPTS)
+
     close(torch.stack([rms(p) for p in each]),
           torch.func.vmap(rms)(stacked), 1e-12)
+    close(torch.stack([cost(p) for p in each]),
+          torch.func.vmap(cost)(stacked), 1e-12)
 
 
 def test_fake_shapes_match_the_ops():
-    """The residual ops' fake implementations give the shapes and dtypes
-    of their real outputs."""
+    """The summary op's fake implementation gives the shape and dtype of
+    its real output, (lanes, 5)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     cfg, args = window("tiny", torch.float64)
-    params, img, imu, _, _, ext, grav, info, w = args
-    a_img = fk.image_residual_inputs(params, img, ext, w)
-    a_imu = fk.imu_residual_inputs(params, imu, grav, info)
-    static = (cfg.KW, cfg.NB, cfg.dt)
-    real = (fk.image_res_op(*a_img, *static, 2.0), fk.imu_res_op(*a_imu,
-                                                                 *static))
+    ts = fk.summary_inputs(*args)
+    static = (cfg.KW, cfg.NB, cfg.dt, OPTS.cauchy_c)
+    real = fk.summary_op(*ts, *static)
     with FakeTensorMode(allow_non_fake_inputs=True) as mode:
-        fake = (fk.image_res_op(*(mode.from_tensor(t) for t in a_img),
-                                *static, 2.0),
-                fk.imu_res_op(*(mode.from_tensor(t) for t in a_imu),
-                              *static))
-    for outs_r, outs_f in zip(real, fake):
-        assert len(outs_r) == len(outs_f) == 2
-        for r, f in zip(outs_r, outs_f):
-            assert (tuple(f.shape), f.dtype) == (tuple(r.shape), r.dtype)
-    Q, M = cfg.OBS, cfg.MIMU
-    assert [tuple(t.shape) for t in real[0]] == [(1, Q, 2), (1, Q)]
-    assert [tuple(t.shape) for t in real[1]] == [(1, M, 6), (1, M)]
+        fake = fk.summary_op(*(mode.from_tensor(t) for t in ts), *static)
+    assert (tuple(fake.shape), fake.dtype) == (tuple(real.shape), real.dtype)
+    assert tuple(real.shape) == (1, 5)
 
 
 def test_wrappers_take_the_plain_version_on_the_cpu():
-    """On the CPU each residual wrapper runs its plain version once and
-    launches nothing; the plain versions are the rows' residuals before
-    the mask and the robust weight."""
+    """On the CPU the summary runs its plain version once and launches
+    nothing; its image and IMU terms are the rows' residuals and costs
+    before the mask and the robust weight, and `residual_rms` and
+    `total_cost` read its first four entries and its fifth."""
     cfg, args = window("tiny", torch.float64)
-    params, img, imu, _, _, ext, grav, info, w = args
+    params, img, imu, bias, prior, ext, grav, info, w = args
     fk.reset_counts()
-    ir = fk.image_factor_residuals(params, img, ext, w, OPTS.cauchy_c, cfg)
-    mr = fk.imu_factor_residuals(params, imu, grav, info, cfg)
+    out = fk.residual_summary(*args, OPTS.cauchy_c, cfg)
     c = fk.counts()
-    assert (c["image_factor_residuals_plain"],
-            c["imu_factor_residuals_plain"]) == (1, 1)
-    assert (c["image_factor_residuals"], c["imu_factor_residuals"]) == (0, 0)
+    assert (c["residual_summary_plain"], c["image_factor_residuals_plain"],
+            c["imu_factor_residuals_plain"]) == (1, 1, 1)
+    assert c["residual_summary"] == 0
+    assert torch.equal(out[:4], tasm.residual_rms(*args, cfg, OPTS))
+    assert torch.equal(out[4], tasm.total_cost(*args, cfg, OPTS))
+    ir = fk.image_factor_residuals_plain(params, img, ext, w, OPTS.cauchy_c,
+                                         cfg)
+    mr = fk.imu_factor_residuals_plain(params, imu, grav, info, cfg)
     rows_i = fk.image_factor_rows(params, img, img.valid, ext, w,
                                   OPTS.cauchy_c, cfg)
     rows_m = fk.imu_factor_rows(params, imu, imu.valid, grav, info, cfg)
