@@ -183,7 +183,7 @@ a timed (steady) frame fails the e2e and serve phases (the other lines
 count them, `captures_in_timed_frames`). The estimator lines add each
 solve kind's histogram of LM iterations (`lm_iters_hist`), the iterations
 needed, executed (the WHILE nodes' trips the card ran, counted on the
-card, `if_bodies_run`) and those a fixed count would run; the trips run
+card, `while_trips`) and those a fixed count would run; the trips run
 must equal what the histograms need. `e2e` and `cli` add the bootstrap's
 timing keys.
 The last line is {"ok": true, "device": {...}}; any failed phase exits
@@ -299,7 +299,7 @@ def graph_fields(st=None):
             "k1_launches_replayed": st["launches_replayed"].get("lk_track", 0),
             "k1_launches_warm_up": st["launches_warm_up"].get("lk_track", 0),
             "while_nodes": st["while_nodes"],
-            "if_bodies_run": st["if_bodies_run"]}
+            "while_trips": st["while_trips"]}
 
 
 # the bootstrap's timing keys of `CtrlVIO.timing`: the visual SfM and
@@ -317,9 +317,9 @@ def iters_fields(records, g, batched_stream=False):
     iterations needed (the histograms' sum), those the card executed and
     those a fixed count runs (`max_iters` each, as before the exit
     node). A solve of a program with an exit node executes its first
-    iteration and the trips the WHILE node's body ran (`if_bodies_run`,
+    iteration and the trips the WHILE node's body ran (`while_trips`,
     counted on the card); the batched megastep (`batched_stream`) runs
-    all `max_iters`. `if_bodies_expected` is what the histograms say the
+    all `max_iters`. `while_trips_expected` is what the histograms say the
     nodes must have run."""
     needed = fixed = node_solves = expected = batched = 0
     for r in records:
@@ -337,9 +337,9 @@ def iters_fields(records, g, batched_stream=False):
             if len(records) > 1 else records[0]["hist"],
             "lm_max_iters": records[0]["max_iters"],
             "lm_iters_needed": needed,
-            "lm_iters_executed": node_solves + g["if_bodies_run"] + batched,
+            "lm_iters_executed": node_solves + g["while_trips"] + batched,
             "lm_iters_fixed_count": fixed,
-            "if_bodies_expected": expected}
+            "while_trips_expected": expected}
 
 
 def lanes_done_early(lane_iters, most):
@@ -354,7 +354,7 @@ def lanes_done_early(lane_iters, most):
 
 def iters_exact(rec):
     """The WHILE nodes ran exactly the iterations the solves needed."""
-    return rec["if_bodies_run"] == rec["if_bodies_expected"]
+    return rec["while_trips"] == rec["while_trips_expected"]
 
 
 def k1_once_a_frame(launches, g, frames):
@@ -728,7 +728,7 @@ def phase_while_node():
         torch.cuda.synchronize()
         key = "converging" if conv <= LOOP_ITERS else "full"
         rec[key] = {"iters": int(got.iters), "done": bool(got.done),
-                    "trips": st_g["if_bodies_run"],
+                    "trips": st_g["while_trips"],
                     "k4_launches_replayed": launches,
                     "err_plain": tree_err(got, plain),
                     "err_eager": tree_err(got, eager)}
@@ -2333,8 +2333,6 @@ def phase_serve():
            "lane_phases_ms_per_step": dict(sorted(lane_phases.items())),
            "device_steady_ms": dev_ms,
            "matmul_flops_per_step": flops,
-           "matmul_flop_rate_share_of_f32_peak":
-               flops / per_step / F32_FLOP_PER_S,
            "dispatch_syncs": coord.dispatch_syncs,
            "sync_messages": sorted(set(coord.sync_warnings))[:5],
            "k1_launches": k1_launches, "profiled_frame": n_frames - 1,

@@ -55,7 +55,6 @@ from __future__ import annotations
 
 import contextlib
 import sys
-import time
 import warnings
 from collections import defaultdict, deque
 from dataclasses import dataclass
@@ -74,7 +73,7 @@ from ctrlvio_tpu_torch.solver.layout import (BiasFactors, ImageFactors,
                                              SolveOptions, WindowConfig,
                                              WindowParams, empty_params,
                                              empty_prior)
-from ctrlvio_tpu_torch.utils import graphs
+from ctrlvio_tpu_torch.utils import graphs, spans
 from ctrlvio_tpu_torch.utils.convert import from_numpy, tensor, to_dtype
 from ctrlvio_tpu_torch.utils.device import (SYNC_WARNING,  # noqa: F401
                                             recorded_syncs, resolve_device)
@@ -325,7 +324,12 @@ class CtrlVIO:
     `check_dispatch_syncs` set on a CUDA device, "megastep_syncs":
     synchronizing CUDA calls inside the streamed dispatch
     (`torch.cuda.set_sync_debug_mode("warn")`), whose messages collect in
-    `sync_warnings`."""
+    `sync_warnings`.
+
+    `timing` holds each host phase's cumulative seconds, timed by spans
+    (`utils/spans.py`: "process_frame" and "process_imu" a call, and the
+    phases inside them); `trace(True)` also records each span and stamps
+    each streamed megastep's device phases, read by `trace_record`."""
 
     def __init__(self, cfg: VIOConfig, q_CtoI, p_CinI, device="cuda"):
         self.device = resolve_device(device)
@@ -351,7 +355,14 @@ class CtrlVIO:
         self.ba = np.zeros((wc.NB, 3))
         self.gravity = np.array([0.0, 0.0, cfg.gravity_mag])
 
-        self.timing = defaultdict(float)  # per-phase cumulative seconds
+        # host spans: `timing` holds each phase's cumulative seconds
+        self._spans = spans.Recorder(frame_root="process_frame")
+        self._span = self._spans.span
+        self.timing = self._spans.timing
+        # device stamps and their clock (`trace`)
+        self._stamps: Optional[spans.StampRing] = None
+        self._stamping = False
+        self._clock = spans.Clock()
         # solve kind -> each solve's LM iteration count, in order: an int,
         # or a streamed summary's device scalar not read yet (`lm_iters`)
         self._iters_log = defaultdict(list)
@@ -480,6 +491,10 @@ class CtrlVIO:
         """quat (wxyz, optional): the IMU message's own attitude estimate,
         which the static bootstrap takes when its stillness test cannot
         pass (≙ `sensor_msgs/Imu.orientation` in ActiveInitialIMUState)."""
+        with self._span("process_imu"):
+            self._process_imu(t_ns, gyro, accel, quat)
+
+    def _process_imu(self, t_ns: int, gyro, accel, quat):
         if self.data_start_ns is None and self.cfg.bootstrap != "external":
             self._boot_feed_imu(int(t_ns), gyro, accel, quat)
         if self.data_start_ns is not None:
@@ -517,9 +532,8 @@ class CtrlVIO:
                     self.q_CtoI, self.p_CinI, gravity_mag=cfg.gravity_mag,
                     window_size=self.wc.NB - 1,
                     excite_threshold=cfg.excite_threshold)
-            t0 = time.perf_counter()
-            self._vio_init.feed_imu(t_ns, gyro, accel)
-            self.timing["vio_init"] += time.perf_counter() - t0
+            with self._span("vio_init"):
+                self._vio_init.feed_imu(t_ns, gyro, accel)
 
     def _boot_feed_frame(self, t_ns, ids, pts) -> bool:
         """True once the bootstrap produced an initial state (and
@@ -530,9 +544,8 @@ class CtrlVIO:
             if st is not None:
                 st.t_ns = t_ns  # anchor at this frame
         elif self.cfg.bootstrap == "visual" and self._vio_init is not None:
-            t0 = time.perf_counter()
-            st = self._vio_init.feed_frame(t_ns, ids, pts)
-            self.timing["vio_init"] += time.perf_counter() - t0
+            with self._span("vio_init"):
+                st = self._vio_init.feed_frame(t_ns, ids, pts)
         if st is None:
             return False
         self.counts["bootstrap_" + self.cfg.bootstrap] += 1
@@ -632,6 +645,10 @@ class CtrlVIO:
     def process_frame(self, t_ns: int, ids, pts, rows):
         """Feed one feature frame. Returns the current IMU pose estimate
         (q, p) at the frame time, or None before initialization."""
+        with self._span("process_frame"):
+            return self._process_frame(t_ns, ids, pts, rows)
+
+    def _process_frame(self, t_ns: int, ids, pts, rows):
         boot = self.cfg.bootstrap != "external"
         if boot and not self.initialized:
             # absolute times: a rejected bootstrap replays these into a
@@ -674,69 +691,66 @@ class CtrlVIO:
             self._stream_frame_no += 1
             stream_active = self._stream_frame_no > self.cfg.stream_warmup
         if stream_active:
-            # consume the summaries that are due (lagged host mirror); the
-            # lag ramps open over the first streamed frames so the mirror
-            # stays fresh right after the warmup handoff
-            t0 = time.perf_counter()
-            since = self._stream_frame_no - self.cfg.stream_warmup
-            lag = min(self.cfg.stream_lag, max(0, since - 5))
-            n_before = len(self._stream_pending)
-            self._consume_summaries(lag)
-            if len(self._stream_pending) < n_before:
-                # re-integrate the mirror's dead-reckoned tail from the
-                # freshly solved end, or the tip knots chain off stale
-                # states and the online estimate random-walks
-                t_dr = time.perf_counter()
-                hi = self._mirror_solved_hi
-                if hi < self.traj.n:
-                    self._deadreckon_extension(
-                        int((hi - 3) * self.traj.dt_ns), hi - 1,
-                        self.traj.max_time_ns)
-                self.timing["consume_dr"] += time.perf_counter() - t_dr
-            self.timing["consume"] += time.perf_counter() - t0
+            with self._span("consume"):
+                self._consume_due()
 
-        is_kf = self.features.add_frame(wc.NB - 1, ids, pts, rows)
-        self.marg_flag = MARGIN_OLD if is_kf else MARGIN_SECOND_NEW
-        self.kf_t_ns[wc.NB - 1] = t_ns
-        self.bg[wc.NB - 1] = self.bg[wc.NB - 2]
-        self.ba[wc.NB - 1] = self.ba[wc.NB - 2]
+        with self._span("add_frame"):
+            is_kf = self.features.add_frame(wc.NB - 1, ids, pts, rows)
+            self.marg_flag = MARGIN_OLD if is_kf else MARGIN_SECOND_NEW
+            self.kf_t_ns[wc.NB - 1] = t_ns
+            self.bg[wc.NB - 1] = self.bg[wc.NB - 2]
+            self.ba[wc.NB - 1] = self.ba[wc.NB - 2]
 
-        t0 = time.perf_counter()
-        self._extend_and_predict(t_ns)
-        self.timing["predict"] += time.perf_counter() - t0
-
-        t0 = time.perf_counter()
-        self._triangulate()
-        self.timing["triangulate"] += time.perf_counter() - t0
+        with self._span("predict"):
+            self._extend_and_predict(t_ns)
+        with self._span("triangulate"):
+            self._triangulate()
 
         if stream_active:
-            t0 = time.perf_counter()
-            self._stream_dispatch()
-            self.timing["dispatch"] += time.perf_counter() - t0
-            t0 = time.perf_counter()
-            self._slide_window(record_keyframe=False)
-            self.timing["slide"] += time.perf_counter() - t0
+            with self._span("dispatch"):
+                self._stream_dispatch()
+            with self._span("slide"):
+                self._slide_window(record_keyframe=False)
             # online forecast: raw IMU integrated from the newest solved
             # spline state to t_ns (the spline's extrapolated tip carries
             # the dead-reckon seeds' representation error)
-            return self._forecast_pose(t_ns)
+            with self._span("forecast"):
+                return self._forecast_pose(t_ns)
 
-        t0 = time.perf_counter()
-        self._solve_window_ba()
-        self.timing["ba"] += time.perf_counter() - t0
-        t0 = time.perf_counter()
-        self._slide_window()
-        self.timing["slide"] += time.perf_counter() - t0
+        with self._span("ba"):
+            self._solve_window_ba()
+        with self._span("slide"):
+            self._slide_window()
         if self.cfg.debug_residual_summary:
             print(self.residual_summary().report(), file=sys.stderr)
         q, p = self.traj.pose(t_ns)
         return q[0], p[0]
 
+    def _consume_due(self):
+        """Consume the summaries that are due (lagged host mirror); the lag
+        ramps open over the first streamed frames so the mirror stays
+        fresh right after the warmup handoff."""
+        since = self._stream_frame_no - self.cfg.stream_warmup
+        lag = min(self.cfg.stream_lag, max(0, since - 5))
+        n_before = len(self._stream_pending)
+        self._consume_summaries(lag)
+        if len(self._stream_pending) < n_before:
+            # re-integrate the mirror's dead-reckoned tail from the
+            # freshly solved end, or the tip knots chain off stale
+            # states and the online estimate random-walks
+            with self._span("consume_dr"):
+                hi = self._mirror_solved_hi
+                if hi < self.traj.n:
+                    self._deadreckon_extension(
+                        int((hi - 3) * self.traj.dt_ns), hi - 1,
+                        self.traj.max_time_ns)
+
     def flush(self):
         """End of stream (call before reading final poses, keyframes or
         the line delay): solve the frames still queued behind the
         IMU-coverage check, then drain every in-flight stream summary into
-        the host mirror."""
+        the host mirror, and with recording on every queued stamp row
+        (one wait)."""
         q = self._pending_frames
         last_imu = int(self.imu_t_ns[-1]) if len(self.imu_t_ns) else -1
         while q and q[0][0] <= last_imu:
@@ -747,6 +761,8 @@ class CtrlVIO:
             while self._stream_pending and not batch[-1][2]:
                 batch.append(self._stream_pending.popleft())
             self._apply_summary_batch(batch)
+        if self._stamps is not None:
+            self._stamps.poll(wait=True)
 
     # ------------------------------------------------------------------
     def residual_summary(self):
@@ -835,9 +851,8 @@ class CtrlVIO:
                                    self.imu_accel, self._init_state)
         self.traj.knots_q[: self.traj.n] = kq
         self.traj.knots_p[: self.traj.n] = kp
-        t0 = time.perf_counter()
-        self._extend_and_predict(t_ns, from_start=True)
-        self.timing["boot_predict"] += time.perf_counter() - t0
+        with self._span("boot_predict"):
+            self._extend_and_predict(t_ns, from_start=True)
         self._triangulate()
         n_img_obs = self._init_solve_f64()
         # quality gate in measurement units: the RMS weighted residual per
@@ -936,47 +951,46 @@ class CtrlVIO:
         retried bootstrap; the prior is built eagerly from its output on
         the device. Returns the number of image observations of the
         window. Times "boot_solve" and "boot_prior"."""
-        t0 = time.perf_counter()
-        wc, cfg = self.wc, self.cfg
-        f64 = torch.float64
-        self.win_knot0 = self.traj.ctrl_idx(self.kf_t_ns[0])
-        kq, kp, n_active = self.traj.window(self.win_knot0, wc.KW, np.float64)
-        img, dinv0, _, imu, bias = self._pack_window(np.float64)
-        fixed = np.ones(wc.KW, bool)
-        fixed[:n_active] = False
-        ext64 = F.CamExtrinsics(q_CtoI=self._t(self.q_CtoI, f64),
-                                p_CinI=self._t(self.p_CinI, f64))
-        grav64 = self._t(self.gravity, f64)
-        info64 = self._imu_info.to(f64)
-        w64 = self._sqrt_info_img.to(f64)
-        opts = self._init_opts
-        blob = blob_pack(img, imu, bias, kq, kp, self.bg, self.ba, dinv0,
-                         self.traj.line_delay, fixed, np.float64)
-        # a copy: the prior keeps views of it as its linearization point,
-        # and another estimator's bootstrap replays the same program
-        solved = unpack_solved(self._sync_program(
-            window_solve, self._upload(blob), empty_prior(wc, f64,
-                                                          self.device),
-            ext64, grav64, info64, w64, cfg=wc, opts=opts,
-            ne_mode=cfg.ne_mode, chunk=cfg.ne_chunk, restore=True,
-            label="window_solve(bootstrap, float64)").clone(), wc)
-        p_out = WindowParams(*(solved[k] for k in WindowParams._fields))
-        host = {k: v.cpu().numpy() for k, v in solved.items()}
-        self._iters_log["bootstrap"].append(int(host["iters"]))
-        t1 = time.perf_counter()
-        self.timing["boot_solve"] += t1 - t0
+        with self._span("boot_solve"):
+            wc, cfg = self.wc, self.cfg
+            f64 = torch.float64
+            self.win_knot0 = self.traj.ctrl_idx(self.kf_t_ns[0])
+            kq, kp, n_active = self.traj.window(self.win_knot0, wc.KW,
+                                                np.float64)
+            img, dinv0, _, imu, bias = self._pack_window(np.float64)
+            fixed = np.ones(wc.KW, bool)
+            fixed[:n_active] = False
+            ext64 = F.CamExtrinsics(q_CtoI=self._t(self.q_CtoI, f64),
+                                    p_CinI=self._t(self.p_CinI, f64))
+            grav64 = self._t(self.gravity, f64)
+            info64 = self._imu_info.to(f64)
+            w64 = self._sqrt_info_img.to(f64)
+            opts = self._init_opts
+            blob = blob_pack(img, imu, bias, kq, kp, self.bg, self.ba, dinv0,
+                             self.traj.line_delay, fixed, np.float64)
+            # a copy: the prior keeps views of it as its linearization point,
+            # and another estimator's bootstrap replays the same program
+            solved = unpack_solved(self._sync_program(
+                window_solve, self._upload(blob), empty_prior(wc, f64,
+                                                              self.device),
+                ext64, grav64, info64, w64, cfg=wc, opts=opts,
+                ne_mode=cfg.ne_mode, chunk=cfg.ne_chunk, restore=True,
+                label="window_solve(bootstrap, float64)").clone(), wc)
+            p_out = WindowParams(*(solved[k] for k in WindowParams._fields))
+            host = {k: v.cpu().numpy() for k, v in solved.items()}
+            self._iters_log["bootstrap"].append(int(host["iters"]))
 
-        k1 = self.traj.ctrl_idx(self.kf_t_ns[1]) - self.win_knot0
-        drop = np.zeros(wc.KW, bool)
-        drop[:k1] = True
-        prior64, ovf = marginalize.build_prior_sqrt(
-            p_out, self._dev(img, f64), self._dev(imu, f64),
-            self._dev(bias, f64), empty_prior(wc, f64, self.device),
-            self._t(drop), ext64, grav64, info64, w64, wc,
-            opts._replace(cauchy_c=1.0), knot_shift=k1, bias_shift=1,
-            return_overflow=True, caps=cfg.marg_caps, n_drop_knots=k1)
-        self._count_marg_overflow(ovf.cpu().numpy())
-        self.timing["boot_prior"] += time.perf_counter() - t1
+        with self._span("boot_prior"):
+            k1 = self.traj.ctrl_idx(self.kf_t_ns[1]) - self.win_knot0
+            drop = np.zeros(wc.KW, bool)
+            drop[:k1] = True
+            prior64, ovf = marginalize.build_prior_sqrt(
+                p_out, self._dev(img, f64), self._dev(imu, f64),
+                self._dev(bias, f64), empty_prior(wc, f64, self.device),
+                self._t(drop), ext64, grav64, info64, w64, wc,
+                opts._replace(cauchy_c=1.0), knot_shift=k1, bias_shift=1,
+                return_overflow=True, caps=cfg.marg_caps, n_drop_knots=k1)
+            self._count_marg_overflow(ovf.cpu().numpy())
 
         self.last_solve_stats = SimpleNamespace(
             cost0=float(host["cost0"]), cost=float(host["cost"]),
@@ -1017,9 +1031,9 @@ class CtrlVIO:
         if max_aft_ns <= max_bef_ns and not from_start:
             return
         if not from_start:
-            t0 = time.perf_counter()
-            self._deadreckon_extension(max_bef_ns, max_bef_idx, max_aft_ns)
-            self.timing["predict_dr"] += time.perf_counter() - t0
+            with self._span("predict_dr"):
+                self._deadreckon_extension(max_bef_ns, max_bef_idx,
+                                           max_aft_ns)
             return
 
         pc = self._predict_cfg
@@ -1080,37 +1094,37 @@ class CtrlVIO:
         self.counts["sync_solve"] += 1
         if self._dev_state is not None or self._dev_dispatched:
             self.counts["sync_solve_after_handoff"] += 1
-        t_pack0 = time.perf_counter()
-        wc, cfg = self.wc, self.cfg
-        jdt = self.jdt
-        npdt = _np_dtype(jdt)
-        self.win_knot0 = self.traj.ctrl_idx(self.kf_t_ns[0])
-        span = self.traj.n - self.win_knot0
-        if span > wc.KW:
-            raise RuntimeError(
-                f"window spans {span} knots > KW={wc.KW}: keyframe gaps too "
-                f"large for the configured knot capacity; raise WindowConfig.KW")
-        kq, kp, n_active = self.traj.window(self.win_knot0, wc.KW, np.float64)
-        img, dinv0, cands, imu, bias = self._pack_window(npdt)
-        # no knot is hard-fixed: LM damping spans the 4-DoF gauge null
-        # space and the post-solve restore re-anchors yaw + position
-        fixed = np.ones(wc.KW, bool)
-        fixed[:n_active] = False
-        blob = blob_pack(img, imu, bias, kq, kp, self.bg, self.ba, dinv0,
-                         self.traj.line_delay, fixed, npdt)
-        prior = self.prior if self.prior is not None else \
-            empty_prior(wc, jdt, self.device)
-        self.timing["ba_pack"] += time.perf_counter() - t_pack0
+        with self._span("ba_pack"):
+            wc, cfg = self.wc, self.cfg
+            jdt = self.jdt
+            npdt = _np_dtype(jdt)
+            self.win_knot0 = self.traj.ctrl_idx(self.kf_t_ns[0])
+            span = self.traj.n - self.win_knot0
+            if span > wc.KW:
+                raise RuntimeError(
+                    f"window spans {span} knots > KW={wc.KW}: keyframe gaps "
+                    f"too large for the configured knot capacity; raise "
+                    f"WindowConfig.KW")
+            kq, kp, n_active = self.traj.window(self.win_knot0, wc.KW,
+                                                np.float64)
+            img, dinv0, cands, imu, bias = self._pack_window(npdt)
+            # no knot is hard-fixed: LM damping spans the 4-DoF gauge null
+            # space and the post-solve restore re-anchors yaw + position
+            fixed = np.ones(wc.KW, bool)
+            fixed[:n_active] = False
+            blob = blob_pack(img, imu, bias, kq, kp, self.bg, self.ba, dinv0,
+                             self.traj.line_delay, fixed, npdt)
+            prior = self.prior if self.prior is not None else \
+                empty_prior(wc, jdt, self.device)
 
         # [5+6] the solve and the gauge restore as one program: one upload,
         # one pull (≙ `_ba_fused`)
-        t0 = time.perf_counter()
-        host = self._sync_program(
-            window_solve, self._upload(blob), prior, self._ext,
-            self._gravity_j, self._imu_info, self._sqrt_info_img, cfg=wc,
-            opts=self._ba_opts, ne_mode=cfg.ne_mode, chunk=cfg.ne_chunk,
-            restore=True).cpu().numpy().astype(np.float64)
-        self.timing["ba_solve"] += time.perf_counter() - t0
+        with self._span("ba_solve"):
+            host = self._sync_program(
+                window_solve, self._upload(blob), prior, self._ext,
+                self._gravity_j, self._imu_info, self._sqrt_info_img, cfg=wc,
+                opts=self._ba_opts, ne_mode=cfg.ne_mode, chunk=cfg.ne_chunk,
+                restore=True).cpu().numpy().astype(np.float64)
         s = unpack_solved(host, wc)
         kq_np, kp_np, bg_np, ba_np = (s["knots_q"], s["knots_p"], s["bg"],
                                       s["ba"])
@@ -1120,14 +1134,13 @@ class CtrlVIO:
             iters=s["iters"])
         self._iters_log["sync"].append(int(s["iters"]))
 
-        t0 = time.perf_counter()
-        self.traj.write_back(self.win_knot0, kq_np, kp_np, n_active)
-        if not cfg.fix_ld:
-            self.traj.line_delay = float(ld_np)
-        self.bg = bg_np.copy()
-        self.ba = ba_np.copy()
-        self._set_depths(dinv_np, cands)
-        self.timing["ba_writeback"] += time.perf_counter() - t0
+        with self._span("ba_writeback"):
+            self.traj.write_back(self.win_knot0, kq_np, kp_np, n_active)
+            if not cfg.fix_ld:
+                self.traj.line_delay = float(ld_np)
+            self.bg = bg_np.copy()
+            self.ba = ba_np.copy()
+            self._set_depths(dinv_np, cands)
 
         # [7] marginalization prior at the gauge-restored state, pre-rolled
         # into the post-slide layout: in f64 on the device (the Schur
@@ -1136,32 +1149,31 @@ class CtrlVIO:
         # one per dtype, the shifts riding in its upload
         if self.marg_flag != MARGIN_OLD:
             return
-        t0 = time.perf_counter()
-        k1 = self.traj.ctrl_idx(self.kf_t_ns[1]) - self.win_knot0
-        drop = np.zeros(wc.KW, bool)
-        drop[:k1] = True
-        mc = self._marg_cfg
-        img_m = _compact_factors(img, img.valid & img.marg_drop, mc.OBS)
-        imu_m = _compact_factors(imu, imu.valid & imu.marg_drop, mc.MIMU)
-        img_m, dinv_m = _compact_landmarks(img_m, dinv_np, mc.LM)
-        knot_shift = (self.traj.ctrl_idx(self.kf_t_ns[1])
-                      - self.traj.ctrl_idx(self.kf_t_ns[0]))
-        # marg_on_host=False: the chain stays in the solve dtype (the old
-        # prior is the solve-dtype one) and the f64 chain ends
-        dt = torch.float64 if cfg.marg_on_host else jdt
-        old = self._prior64 if cfg.marg_on_host else None
-        if old is None:
-            old = to_dtype(prior, dt)
-        blob = blob_pack(img_m, imu_m, bias, kq_np, kp_np, bg_np, ba_np,
-                         dinv_m, ld_np, drop, _np_dtype(dt),
-                         tail=(*self.gravity, knot_shift, 1))
-        built = graphs.clone(self._sync_program(
-            marg_prior, self._upload(blob), old, self._ext, self._imu_info,
-            self._sqrt_info_img, cfg=mc,
-            opts=self._ba_opts._replace(cauchy_c=1.0)))
-        self._prior64 = built if cfg.marg_on_host else None
-        self.prior = to_dtype(built, jdt)
-        self.timing["prior"] += time.perf_counter() - t0
+        with self._span("prior"):
+            k1 = self.traj.ctrl_idx(self.kf_t_ns[1]) - self.win_knot0
+            drop = np.zeros(wc.KW, bool)
+            drop[:k1] = True
+            mc = self._marg_cfg
+            img_m = _compact_factors(img, img.valid & img.marg_drop, mc.OBS)
+            imu_m = _compact_factors(imu, imu.valid & imu.marg_drop, mc.MIMU)
+            img_m, dinv_m = _compact_landmarks(img_m, dinv_np, mc.LM)
+            knot_shift = (self.traj.ctrl_idx(self.kf_t_ns[1])
+                          - self.traj.ctrl_idx(self.kf_t_ns[0]))
+            # marg_on_host=False: the chain stays in the solve dtype (the old
+            # prior is the solve-dtype one) and the f64 chain ends
+            dt = torch.float64 if cfg.marg_on_host else jdt
+            old = self._prior64 if cfg.marg_on_host else None
+            if old is None:
+                old = to_dtype(prior, dt)
+            blob = blob_pack(img_m, imu_m, bias, kq_np, kp_np, bg_np, ba_np,
+                             dinv_m, ld_np, drop, _np_dtype(dt),
+                             tail=(*self.gravity, knot_shift, 1))
+            built = graphs.clone(self._sync_program(
+                marg_prior, self._upload(blob), old, self._ext, self._imu_info,
+                self._sqrt_info_img, cfg=mc,
+                opts=self._ba_opts._replace(cauchy_c=1.0)))
+            self._prior64 = built if cfg.marg_on_host else None
+            self.prior = to_dtype(built, jdt)
 
     # ------------------------------------------------------------------
     def _slide_window(self, record_keyframe: bool = True):
@@ -1200,8 +1212,21 @@ class CtrlVIO:
     def _stream_dispatch(self):
         """Pack this frame's inputs into one blob and chain the device
         megastep, with no host read (steps 5-8 on the device)."""
-        t0 = time.perf_counter()
-        wc, cfg = self.wc, self.cfg
+        with self._span("pack"):
+            blob, host_seeds, meta = self._stream_pack()
+        if self._dispatch_hook is not None:
+            # the coordinator runs one batched megastep for every lane in
+            # lockstep and hands this lane's summary to _stream_complete
+            self._dev_dispatched = True
+            self._dispatch_hook(self, blob, host_seeds, meta)
+            return
+        with self._span("megastep"):
+            self._stream_megastep(blob, host_seeds, meta)
+
+    def _stream_pack(self):
+        """This frame's blob, whether its knot seeds come from the host,
+        and what the host keeps of it until its summary is consumed."""
+        wc = self.wc
         npdt = _np_dtype(self.jdt)
         self.win_knot0 = self.traj.ctrl_idx(self.kf_t_ns[0])
         span = self.traj.n - self.win_knot0
@@ -1256,37 +1281,76 @@ class CtrlVIO:
             marg_old, knot_shift, (g0i[0], g0f[0]), (g1i[0], g1f[0]),
             old_hi=lo_rel, new_hi=n_active, host_seeds=host_seeds,
             dtype=npdt)
-        self.timing["pack"] += time.perf_counter() - t0
-
         meta = dict(win_knot0=self.win_knot0, n_active=n_active,
                     kf0_t_ns=int(self.kf_t_ns[0]), marg_old=marg_old,
                     slot_fids=slot_fids)
-        if hooked:
-            # the coordinator runs one batched megastep for every lane in
-            # lockstep and hands this lane's summary to _stream_complete
-            self._dev_dispatched = True
-            self._dispatch_hook(self, blob, host_seeds, meta)
-            return
-        t0 = time.perf_counter()
+        return blob, host_seeds, meta
+
+    def _stream_megastep(self, blob, host_seeds: bool, meta):
+        """Chain this estimator's megastep on `blob`, and queue its
+        summary (and, recording, its stamp row)."""
+        cfg = self.cfg
         if self._dev_state is None:
             # warmup handoff: the synchronous warmup's f64 prior (cast,
             # post-slide) seeds the device chain
             self._dev_state = self._initial_dev_state()
+        with self._span("upload"):
+            blob = self._upload(blob)
         # one program a slide branch and seed source, the window roll read
         # from the blob on the device; captured (first use) before the
-        # check, which counts the host reads of staging and replay
-        args = (self._dev_state, self._upload(blob), self._ext,
-                self._gravity_j, self._imu_info, self._sqrt_info_img)
-        step = self._programs.get(
-            stream.megastep, args, self.device,
-            dict(cfg=wc, opts=self._ba_opts, marg_old=marg_old,
-                 host_seeds=host_seeds, caps=cfg.marg_caps,
-                 ne_mode=cfg.ne_mode, chunk=cfg.ne_chunk), carry=True)
+        # check, which counts the host reads of staging and replay;
+        # recording, a stamped program of its own
+        args = (self._dev_state, blob, self._ext, self._gravity_j,
+                self._imu_info, self._sqrt_info_img)
+        static = dict(cfg=self.wc, opts=self._ba_opts,
+                      marg_old=meta["marg_old"], host_seeds=host_seeds,
+                      caps=cfg.marg_caps, ne_mode=cfg.ne_mode,
+                      chunk=cfg.ne_chunk)
+        if self._stamping:
+            static["stamps"] = self._stamps
+        step = self._programs.get(stream.megastep, args, self.device,
+                                  static, carry=True)
         with self._sync_check():
-            self._dev_state, summary = step(*args)
-            self._enqueue_summary(meta, summary)
+            with self._span("replay"):
+                self._dev_state, summary = step(*args)
+            with self._span("enqueue_summary"):
+                self._enqueue_summary(meta, summary)
+            if self._stamping:
+                self._stamps.queue(self._spans.frame(), meta["marg_old"])
         self.counts["megastep"] += 1
-        self.timing["megastep"] += time.perf_counter() - t0
+
+    def trace(self, on: bool = True):
+        """Record host spans and device stamps from now on, or stop
+        (`utils/spans.py`; `trace_record` gives what was recorded). Call
+        it before the first capture: a stamped streamed megastep is a
+        program of its own (an unstamped one holds no stamp node), so
+        switching later captures it then. Starting and stopping each
+        calibrate the stamps' clock against the host's (~20 synchronized
+        stamps); stopping waits once for the stamp rows still queued.
+        Recording adds no host read to a frame."""
+        if on:
+            if self._stamps is None:
+                self._stamps = spans.StampRing(self.device,
+                                               self._ba_opts.max_iters - 1)
+            self._clock.calibrate(self.device)
+            self._spans.start()
+        elif self._spans.on:
+            self._stamps.poll(wait=True)
+            self._clock.calibrate(self.device)
+            self._spans.stop()
+        self._stamping = on
+
+    def trace_record(self) -> dict:
+        """What recording gathered: `spans` (`spans.Recorder.record`: the
+        host spans on `time.time_ns()`), `megasteps` (`spans.StampRing.
+        record`: each stamped megastep's row, on the host's clock),
+        `clock` (the calibrations: host ns, offset ns, error ns) and
+        `clock_error_ns` (the largest error)."""
+        return {"spans": self._spans.record(),
+                "megasteps": (None if self._stamps is None
+                              else self._stamps.record(self._clock)),
+                "clock": list(self._clock.calibrations),
+                "clock_error_ns": self._clock.error_ns()}
 
     @contextlib.contextmanager
     def _sync_check(self):
@@ -1370,15 +1434,19 @@ class CtrlVIO:
         keyframes for every marg_old frame of the batch from the mirror
         (their slide-out times are still inside the knot window)."""
         meta, obj, _ = batch[-1]
-        t0 = time.perf_counter()
-        if isinstance(obj, tuple):
-            host, done = obj
-            done.synchronize()
-        else:
-            host = obj.cpu()  # a CPU run, or an unfetched tail at flush()
-        host = host.numpy().astype(np.float64)
-        t1 = time.perf_counter()
-        self.timing["consume_fetch"] += t1 - t0
+        with self._span("consume_fetch"):
+            if isinstance(obj, tuple):
+                host, done = obj
+                done.synchronize()
+            else:
+                host = obj.cpu()  # a CPU run, or an unfetched tail at flush()
+            host = host.numpy().astype(np.float64)
+        with self._span("consume_apply"):
+            self._apply_summary(batch, host)
+
+    def _apply_summary(self, batch, host: np.ndarray):
+        """`_apply_summary_batch` once the newest summary is on the host."""
+        meta = batch[-1][0]
         s = stream.unpack_summary(host, self.wc)
         self.traj.write_back(meta["win_knot0"], s["knots_q"], s["knots_p"],
                              meta["n_active"])
@@ -1413,7 +1481,6 @@ class CtrlVIO:
             if m["marg_old"]:
                 q, p = self.traj.pose(m["kf0_t_ns"])
                 self.keyframes.append(KeyframePose(m["kf0_t_ns"], q[0], p[0]))
-        self.timing["consume_apply"] += time.perf_counter() - t1
 
     def _count_marg_overflow(self, ovf):
         """Count and warn when a square-root marginalization (the

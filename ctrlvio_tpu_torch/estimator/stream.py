@@ -23,7 +23,9 @@ The marginalization runs on the device in the solver dtype in the QR
 square-root form (`solver/marginalize.py::build_prior_sqrt`). The prior,
 the window roll and the summary's residual RMS run inside
 `torch.profiler.record_function` ranges ("QR prior", "slide", "residual
-summary").
+summary"), which a profiler sees only where the megastep runs eagerly; a
+stamped megastep (`stamps`) writes its phases' device times itself, on
+every replay (`utils/spans.py`).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from ctrlvio_tpu_torch.solver.layout import (BiasFactors, ImageFactors,
                                              ImuFactors, PriorFactor,
                                              SolveOptions, WindowConfig,
                                              WindowParams)
+from ctrlvio_tpu_torch.utils import spans
 from ctrlvio_tpu_torch.utils.precision import pin_f32_matmuls
 
 INIT_DEPTH = 5.0  # ≙ parameters.cpp INIT_DEPTH (see features.py)
@@ -279,13 +282,15 @@ def _extend_inertial(params: WindowParams, imu: ImuFactors,
 def _merge_solve(state: DevState, blob: torch.Tensor, ext, gravity, imu_info,
                  sqrt_info_img, cfg: WindowConfig, opts: SolveOptions,
                  host_seeds: Optional[bool], ne_mode: str = "chunked",
-                 chunk: Optional[int] = None, exit_node: bool = True):
+                 chunk: Optional[int] = None, exit_node: bool = True,
+                 stamps=None):
     """Unpack the blob, merge its seeds into the device window state, solve
     (normal equations by `ne_mode` and `chunk`, as `lm.solve_window_fixed`
     takes them) and restore the gauge. `host_seeds` None selects the seeds
-    by the blob's own flag on the device (both computed); `exit_node` as
-    `lm.solve_window_fixed` takes it. Returns (the unpacked blob, solved
-    params, SolveStats)."""
+    by the blob's own flag on the device (both computed); `exit_node` and
+    `stamps` as `lm.solve_window_fixed` takes them ("merged" and "gauge"
+    stamped after the merge and the gauge). Returns (the unpacked blob,
+    solved params, SolveStats)."""
     dtype = state.params.knots_p.dtype
     unpacked = unpack_stream_blob(blob, cfg, dtype)
     (img, imu, bias, fixed, seed_q, seed_p, seed_mask, dinv_perm, dinv_seed,
@@ -309,6 +314,7 @@ def _merge_solve(state: DevState, blob: torch.Tensor, ext, gravity, imu_info,
         dinv=torch.where(dinv_perm >= 0,
                          params.dinv[torch.clamp(dinv_perm, 0, cfg.LM - 1)],
                          dinv_seed))
+    spans.stamp(stamps, "merged")
 
     # ---- solve + gauge ---------------------------------------------------
     q_ref = params.knots_q[0]
@@ -317,30 +323,35 @@ def _merge_solve(state: DevState, blob: torch.Tensor, ext, gravity, imu_info,
                                          fixed, ext, gravity, imu_info,
                                          sqrt_info_img, cfg, opts,
                                          ne_mode=ne_mode, chunk=chunk,
-                                         exit_node=exit_node)
+                                         exit_node=exit_node, stamps=stamps)
     q_new, p_new = gauge.restore_gauge(p_out.knots_q, p_out.knots_p,
                                        q_ref, p_ref, 0, 0)
+    spans.stamp(stamps, "gauge")
     return unpacked, p_out._replace(knots_q=q_new, knots_p=p_new), stats
 
 
 def _slide_old(state: DevState, p_out: WindowParams, unpacked, ext, gravity,
                imu_info, sqrt_info_img, cfg: WindowConfig, opts: SolveOptions,
-               caps, knot_shift):
+               caps, knot_shift, stamps=None):
     """MARGIN_OLD: the square-root marginalization prior, the depth
-    handoff and the window roll by `knot_shift` (int or device tensor).
-    Returns (next state, summary depths, overflow counts)."""
+    handoff and the window roll by `knot_shift` (int or device tensor),
+    `stamps` around the prior ("prior_begin", "prior_end") and after the
+    roll ("slide"). Returns (next state, summary depths, overflow
+    counts)."""
     img, imu, bias, drop_knots, sc = (unpacked[0], unpacked[1], unpacked[2],
                                       unpacked[9], unpacked[10])
     # the host's marg_drop gates on its lagged depth; a landmark whose
     # device depth has since failed must not enter the prior
     img_m = img._replace(marg_drop=img.marg_drop
                          & (p_out.dinv[img.lm_idx] > 1e-4))
+    spans.stamp(stamps, "prior_begin")
     with record_function("QR prior"):
         prior_new, ovf = marginalize.build_prior_sqrt(
             p_out, img_m, imu, bias, state.prior, drop_knots, ext, gravity,
             imu_info, sqrt_info_img, cfg, opts._replace(cauchy_c=1.0),
             knot_shift=knot_shift, bias_shift=1, return_overflow=True,
             caps=caps, n_drop_knots=knot_shift)
+    spans.stamp(stamps, "prior_end")
     with record_function("slide"):
         dinv_sum = _depth_handoff(p_out, img, sc, ext, cfg)
         new_params = p_out._replace(
@@ -348,14 +359,16 @@ def _slide_old(state: DevState, p_out: WindowParams, unpacked, ext, gravity,
             knots_p=_roll_clamp(p_out.knots_p, knot_shift),
             bg=_roll_clamp(p_out.bg, 1), ba=_roll_clamp(p_out.ba, 1),
             dinv=dinv_sum)
+    spans.stamp(stamps, "slide")
     return (DevState(params=new_params, prior=prior_new), dinv_sum,
             ovf.to(p_out.knots_p.dtype))
 
 
 def _slide_second_new(state: DevState, p_out: WindowParams,
-                      cfg: WindowConfig):
+                      cfg: WindowConfig, stamps=None):
     """MARGIN_SECOND_NEW: the newest keyframe's biases replace the second
-    newest's; the prior rides through. Same returns as `_slide_old`."""
+    newest's; the prior rides through ("slide" stamped after). Same
+    returns as `_slide_old`."""
     nb = cfg.NB
 
     def drop_second_new(b):
@@ -366,6 +379,7 @@ def _slide_second_new(state: DevState, p_out: WindowParams,
                                     ba=drop_second_new(p_out.ba))
         zeros = torch.zeros((3,), dtype=p_out.knots_p.dtype,
                             device=p_out.knots_p.device)
+    spans.stamp(stamps, "slide")
     return DevState(params=new_params, prior=state.prior), p_out.dinv, zeros
 
 
@@ -399,7 +413,8 @@ def megastep(state: DevState, blob: torch.Tensor, ext, gravity, imu_info,
              marg_old: bool, host_seeds: bool,
              knot_shift: Optional[int] = None,
              caps: Optional[Tuple[int, int, int]] = None,
-             ne_mode: str = "chunked", chunk: Optional[int] = None):
+             ne_mode: str = "chunked", chunk: Optional[int] = None,
+             stamps=None):
     """One frame on the device. Returns (next state, flat summary).
 
     `marg_old` and `host_seeds` are the host's own copies of the
@@ -410,25 +425,32 @@ def megastep(state: DevState, blob: torch.Tensor, ext, gravity, imu_info,
     serves every shift (`CtrlVIO._stream_dispatch`).
     `caps` overrides `marginalize.marg_caps(cfg)`; `ne_mode` and `chunk`
     choose how the solve builds its normal equations (`lm.solve_window`).
+    `stamps`, a `utils.spans.StampRing`, stamps the megastep's phases into
+    its row ("start" first, "end" after the summary; `spans.TAGS`); None
+    stamps nothing.
 
     Order ≙ the reference per-frame pipeline: solve (`UpdateTrajectory`),
     gauge restore (`double2vector`), marginalization (`UpdateVIOPrior`),
     slide (`SlideWindow{Old,New}`)."""
     pin_f32_matmuls()
+    spans.stamp(stamps, "start")
     unpacked, p_out, stats = _merge_solve(state, blob, ext, gravity,
                                           imu_info, sqrt_info_img, cfg, opts,
-                                          host_seeds, ne_mode, chunk)
+                                          host_seeds, ne_mode, chunk,
+                                          stamps=stamps)
     if marg_old:
         if knot_shift is None:
             knot_shift = unpacked[10].knot_shift
         state2, dinv_sum, marg_ovf = _slide_old(
             state, p_out, unpacked, ext, gravity, imu_info, sqrt_info_img,
-            cfg, opts, caps, knot_shift)
+            cfg, opts, caps, knot_shift, stamps)
     else:
-        state2, dinv_sum, marg_ovf = _slide_second_new(state, p_out, cfg)
-    return state2, _summary(state, p_out, stats, unpacked, dinv_sum,
-                            marg_ovf, ext, gravity, imu_info, sqrt_info_img,
-                            cfg, opts)
+        state2, dinv_sum, marg_ovf = _slide_second_new(state, p_out, cfg,
+                                                       stamps)
+    summary = _summary(state, p_out, stats, unpacked, dinv_sum, marg_ovf,
+                       ext, gravity, imu_info, sqrt_info_img, cfg, opts)
+    spans.stamp(stamps, "end")
+    return state2, summary
 
 
 def _select(cond, a, b):

@@ -29,15 +29,13 @@ its slot is freed on the device at the next dispatch (≙ rejectWithF,
 
 from __future__ import annotations
 
-import time
-from collections import defaultdict
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ctrlvio_tpu_torch.ops import so3np
-from ctrlvio_tpu_torch.utils import graphs
+from ctrlvio_tpu_torch.utils import graphs, spans
 from ctrlvio_tpu_torch.utils.device import recorded_syncs, resolve_device
 from ctrlvio_tpu_torch.utils.precision import pin_f32_matmuls
 
@@ -79,8 +77,9 @@ class FusedTracker:
     counts the synchronizing CUDA calls of each step's dispatch (uploads,
     the device work and the start of the pull; not the wait in `_consume`)
     and `sync_warnings` collects their messages. `timing` holds cumulative
-    host seconds: "dispatch", "consume", and within the latter "pull_wait"
-    (the wait for the packed array) and "fgate"."""
+    host seconds of its spans (`utils/spans.py`): "dispatch", "consume",
+    and within the latter "pull_wait" (the wait for the packed array) and
+    "fgate"."""
 
     def __init__(self, cfg: TrackerConfig, camera, image_shape, lag: int = 0,
                  device="cuda"):
@@ -108,7 +107,9 @@ class FusedTracker:
         self.check_dispatch_syncs = False
         self.dispatch_syncs = 0
         self.sync_warnings = []
-        self.timing = defaultdict(float)
+        self._spans = spans.Recorder()
+        self._span = self._spans.span
+        self.timing = self._spans.timing
 
         # device-resident state: (pyramid tuple, pts (N,2) f32, live (N,))
         self._dev = None
@@ -205,17 +206,17 @@ class FusedTracker:
             else np.asarray(R_rel, np.float32)
         # dispatch with the kills of the previous consume, then clear them;
         # the program is captured (first use) before the check
-        t0 = time.perf_counter()
-        args = (self._dev, imgd, self._upload(M, self._kill))
-        step = self._programs.get(self._step, args, self.device, carry=True)
-        with recorded_syncs(self.check_dispatch_syncs
-                            and self.device.type == "cuda") as msgs:
-            self._dev, packed = step(*args)
-            pulled = (t_ns, *self._pull(packed))
-        self.dispatch_syncs += len(msgs)
-        self.sync_warnings.extend(msgs)
-        self._kill = np.zeros((self.N,), dtype=bool)
-        self.timing["dispatch"] += time.perf_counter() - t0
+        with self._span("dispatch"):
+            args = (self._dev, imgd, self._upload(M, self._kill))
+            step = self._programs.get(self._step, args, self.device,
+                                      carry=True)
+            with recorded_syncs(self.check_dispatch_syncs
+                                and self.device.type == "cuda") as msgs:
+                self._dev, packed = step(*args)
+                pulled = (t_ns, *self._pull(packed))
+            self.dispatch_syncs += len(msgs)
+            self.sync_warnings.extend(msgs)
+            self._kill = np.zeros((self.N,), dtype=bool)
 
         out = None
         if self.lag and self._pending is not None:
@@ -271,11 +272,13 @@ class FusedTracker:
         return host, done
 
     def _consume(self, t_ns: int, packed, done=None):
-        t0 = time.perf_counter()
-        if done is not None:
-            done.synchronize()
-        t_gate = time.perf_counter()
-        self.timing["pull_wait"] += t_gate - t0
+        with self._span("consume"):
+            return self._consume_pulled(t_ns, packed, done)
+
+    def _consume_pulled(self, t_ns: int, packed, done):
+        with self._span("pull_wait"):
+            if done is not None:
+                done.synchronize()
         p = packed.numpy().astype(np.float64)
         uv = p[:, 0:2]
         norm = p[:, 2:4]
@@ -289,17 +292,17 @@ class FusedTracker:
         # slots queued for the next dispatch's kill and refill
         self._suppress &= ~refilled  # the device refilled the slot
         if self.cfg.reject_wf:
-            same = tracked & self.prev_live & ~self._suppress
-            idx = np.nonzero(same)[0]
-            if len(idx) >= 12:
-                inl = reject_with_f(self.prev_norm[idx], norm[idx],
-                                    thresh_px=self.cfg.f_threshold)
-                bad = idx[~inl]
-                if len(bad):
-                    self._suppress[bad] = True
-                    self._kill[bad] = True
-                    self.n_rejected += len(bad)
-            self.timing["fgate"] += time.perf_counter() - t_gate
+            with self._span("fgate"):
+                same = tracked & self.prev_live & ~self._suppress
+                idx = np.nonzero(same)[0]
+                if len(idx) >= 12:
+                    inl = reject_with_f(self.prev_norm[idx], norm[idx],
+                                        thresh_px=self.cfg.f_threshold)
+                    bad = idx[~inl]
+                    if len(bad):
+                        self._suppress[bad] = True
+                        self._kill[bad] = True
+                        self.n_rejected += len(bad)
         live &= ~self._suppress
         tracked &= ~self._suppress
 
@@ -321,7 +324,5 @@ class FusedTracker:
         self.prev_t_ns = t_ns
         self.prev_norm = norm.copy()
         self.prev_live = live.copy()
-        self.timing["consume"] += time.perf_counter() - t0
-
         return dict(t_ns=t_ns, ids=self.ids[live].copy(), pts=norm[live],
                     uv=uv[live], vel=vel[live], rows=uv[live][:, 1])

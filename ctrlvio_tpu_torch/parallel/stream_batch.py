@@ -26,7 +26,6 @@ serve every lane, as in the JAX package, and so do its solve options
 from __future__ import annotations
 
 import time
-from collections import defaultdict
 from functools import partial
 from typing import List
 
@@ -35,7 +34,7 @@ import torch
 from torch.func import vmap
 
 from ctrlvio_tpu_torch.estimator import stream
-from ctrlvio_tpu_torch.utils import graphs
+from ctrlvio_tpu_torch.utils import graphs, spans
 from ctrlvio_tpu_torch.utils.device import recorded_syncs
 
 from .batch import stack
@@ -54,8 +53,9 @@ def batched_megastep(cfg, opts, caps=None, ne_mode="chunked", chunk=None):
 
 class BatchedStream:
     """The lockstep coordinator. `timing` holds cumulative host seconds of
-    each step's parts: "host_lanes" (every lane's `process_frame`, which
-    packs its blob), "stack_upload" (the B blobs in one pinned buffer),
+    each step's parts, each a span of `utils/spans.py`: "host_lanes"
+    (every lane's `process_frame`, which packs its blob), "stack_upload"
+    (the B blobs in one pinned buffer),
     "dispatch" (the batched megastep: the blobs' non-blocking copy and
     the program's replay, and on the first step its capture) and
     "complete" (each lane queues a copy of its summary row). `_n_steps`
@@ -82,7 +82,9 @@ class BatchedStream:
         self._slots: List = [None] * self.B
         self._stacked = None
         self._last_args = None
-        self.timing = defaultdict(float)
+        self._spans = spans.Recorder()
+        self._span = self._spans.span
+        self.timing = self._spans.timing
         self._n_steps = 0
         self.check_dispatch_syncs = False
         self.dispatch_syncs = 0
@@ -121,10 +123,8 @@ class BatchedStream:
         if len(frames) != self.B:
             raise ValueError(f"{len(frames)} frames for {self.B} lanes")
         self._slots = [None] * self.B
-        t0 = time.perf_counter()
-        outs = [v.process_frame(*f) for v, f in zip(self.vios, frames)]
-        t1 = time.perf_counter()
-        self.timing["host_lanes"] += t1 - t0
+        with self._span("host_lanes"):
+            outs = [v.process_frame(*f) for v, f in zip(self.vios, frames)]
 
         filled = [s is not None for s in self._slots]
         if not any(filled):
@@ -137,22 +137,20 @@ class BatchedStream:
             # the handoff: each lane's host state goes up once
             self._stacked = stack([v._initial_dev_state()
                                    for v in self.vios])
-            t1 = time.perf_counter()
-        blobs = self._upload([s[0] for s in self._slots])
-        v0 = self.vios[0]
-        args = (self._stacked, blobs, v0._ext, v0._gravity_j, v0._imu_info,
-                v0._sqrt_info_img)
-        t2 = time.perf_counter()
-        self.timing["stack_upload"] += t2 - t1
-        step = self._program(args)  # captured before the check
-        with recorded_syncs(self.check_dispatch_syncs
-                            and self.device.type == "cuda") as msgs:
-            self._stacked, summaries = step(*args)
-            t3 = time.perf_counter()
-            self.timing["dispatch"] += t3 - t2
+        with self._span("stack_upload"):
+            blobs = self._upload([s[0] for s in self._slots])
+            v0 = self.vios[0]
+            args = (self._stacked, blobs, v0._ext, v0._gravity_j,
+                    v0._imu_info, v0._sqrt_info_img)
+        check = self.check_dispatch_syncs and self.device.type == "cuda"
+        with self._span("dispatch"):
+            step = self._program(args)  # captured before the check
+            with recorded_syncs(check) as msgs:
+                self._stacked, summaries = step(*args)
+        with recorded_syncs(check) as more, self._span("complete"):
             for i, v in enumerate(self.vios):
                 v._stream_complete(summaries[i], self._slots[i][1])
-            self.timing["complete"] += time.perf_counter() - t3
+        msgs += more
         # the state after this step and the blobs on the device, for
         # device_steady_ms and cost_analysis
         on_dev = (step.inputs[1] if isinstance(step, graphs.Program)

@@ -35,7 +35,7 @@ import torch
 from torch.profiler import record_function
 
 from ctrlvio_tpu_torch.ops.lm_kernels import LMState, accept_step
-from ctrlvio_tpu_torch.utils import graphs
+from ctrlvio_tpu_torch.utils import graphs, spans
 
 from . import assemble
 from .layout import (BiasFactors, ImageFactors, ImuFactors, PriorFactor,
@@ -291,7 +291,7 @@ def solve_window_fixed(params: WindowParams, img: ImageFactors,
                        cfg: WindowConfig, opts: SolveOptions,
                        ne_mode: str = "chunked",
                        chunk: Optional[int] = None, reduce=None,
-                       exit_node: bool = True):
+                       exit_node: bool = True, stamps=None):
     """`solve_window` with no host exit. Each iteration's accept step
     selects params, normal equations, cost, lambda and the accepted count
     on a device `accept` that is false once `done` is set. Same result as
@@ -305,7 +305,11 @@ def solve_window_fixed(params: WindowParams, img: ImageFactors,
     `torch.func.vmap` takes (a batched `done` is no scalar condition),
     and the form a reduced solve takes (`reduce`, see `_setup`), so that
     ranks that each hold a shard of the factors make the same collectives
-    in the same order whatever the card skips."""
+    in the same order whatever the card skips.
+
+    stamps: a `utils.spans.StampRing` (a stamped program's) takes a stamp
+    after the first iteration ("lm_first") and one at each trip of the
+    WHILE node's body ("trip"); None stamps nothing."""
     cmask, lm_mask, ne_at = _setup(params, img, imu, bias, prior, fixed_knots,
                                    ext, gravity, imu_info, sqrt_info_img, cfg,
                                    opts, ne_mode, chunk, reduce)
@@ -318,9 +322,11 @@ def solve_window_fixed(params: WindowParams, img: ImageFactors,
     handle = graphs.while_handle(params.knots_p.device)
     # fresh tensors: the ones the later iterations update
     st = _iteration(st, cmask, lm_mask, ne_at, cfg, opts, handle)
+    spans.stamp(stamps, "lm_first")
 
     def body(s, h):
         _iteration(s, cmask, lm_mask, ne_at, cfg, opts, h, in_place=True)
+        spans.stamp(stamps, "trip")
 
     graphs.run_while(body, st, opts.max_iters - 1, handle)
     return st.p, _stats(cost0, st)

@@ -67,6 +67,9 @@ counts are settled (`settle`: a read of the device). The reader that
 program collected since are settled too.
 `stats` lists the captures (key, seconds, reserved device memory
 before and after) and counts the replays and the launches they made.
+`warming_up` and `capturing` say whether a program's warm-up or its
+capture is running now: a device stamp (`ops/stamp.py`) writes nothing in
+either.
 """
 
 from __future__ import annotations
@@ -168,6 +171,16 @@ def held_launches():
         for (_, add), d in zip(_COUNTERS, gained):
             add({k: -v for k, v in d.items()})
         held.extend(gained)
+
+
+def warming_up() -> bool:
+    """Whether a program's warm-up before its capture is running now."""
+    return bool(_WARM_UPS)
+
+
+def capturing() -> bool:
+    """Whether a program's capture is recording now."""
+    return bool(_RECORDING)
 
 
 def graphed_on(device: torch.device) -> bool:
@@ -588,13 +601,13 @@ def stats() -> dict:
     summed), `graph_pool_mb` (`pool_mb`), `replays`, and the registered
     kernels' launches made by replays (WHILE bodies' once a trip) and by
     the warm-up runs before captures; `while_nodes`, the `run_while`
-    nodes captured, and `if_bodies_run`, the trips their bodies ran on
+    nodes captured, and `while_trips`, the trips their bodies ran on
     replays (a read of the device counters)."""
     settle()
     caps = list(_STATS["captures"])
     return {"graphs_captured": caps,
             "while_nodes": _STATS["while_nodes"],
-            "if_bodies_run": _STATS["trips"],
+            "while_trips": _STATS["trips"],
             "capture_s": sum(c["warm_up_s"] + c["s"] for c in caps),
             "graph_pool_mb": pool_mb(),
             "replays": _STATS["replays"],

@@ -3,14 +3,13 @@
 
 ≙ ResidualSummary (`estimator/trajectory_estimator.h:37-59` of the
 reference, printed after each solve) — the reference's de-facto regression
-signal — and the TicToc timing wrappers (`utils/tic_toc.h`), upgraded to
-torch.profiler traces for device-side inspection.
+signal — and a torch.profiler trace for device-side inspection (the
+reference's TicToc timers are `utils/spans.py`'s spans).
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
 from dataclasses import dataclass, field
 from typing import Dict
 
@@ -53,16 +52,6 @@ class ResidualSummary:
         for k, (n, mean, mx) in self.stats.items():
             lines.append(f"  {k:>6}: n={n:5d} mean={mean:10.4f} max={mx:10.4f}")
         return "\n".join(lines)
-
-
-class TicToc:
-    """Wall-clock stopwatch (≙ `utils/tic_toc.h:26-47`)."""
-
-    def __init__(self):
-        self.t0 = time.perf_counter()
-
-    def toc_ms(self) -> float:
-        return (time.perf_counter() - self.t0) * 1e3
 
 
 @contextlib.contextmanager

@@ -179,4 +179,3 @@ def test_profile_trace_writes_a_chrome_trace(tmp_path):
         torch.ones(8).sum()
     assert prof is not None
     assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
-    assert summary.TicToc().toc_ms() >= 0.0

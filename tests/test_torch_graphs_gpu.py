@@ -291,7 +291,7 @@ def test_megastep_exit_nodes_bit_equal_and_skip(cuda, deterministic,
                                   CFG)["iters"]
     assert _equal(got, ref)
     assert 1 <= iters < static["opts"].max_iters
-    assert st["if_bodies_run"] == iters - 1
+    assert st["while_trips"] == iters - 1
     assert st["launches_replayed"]["lm_accept"] == iters
 
 
@@ -332,7 +332,7 @@ def test_bootstrap_program_matches_host_exit_solve(cuda, deterministic):
     got = graphs.ProgramCache().get(window_solve, args, cuda,
                                     static)(*args).clone()
     torch.cuda.synchronize()
-    bodies = graphs.stats()["if_bodies_run"]
+    bodies = graphs.stats()["while_trips"]
     img, imu, bias, params, fixed, _ = blob_unpack(blob.to(cuda), CFG)
     p, st = lm.solve_window(params, img, imu, bias, prior, fixed, *consts,
                             CFG, opts)

@@ -627,7 +627,7 @@ def test_k4_sets_the_while_node_condition(cuda, converge_at):
         st_g = graphs.stats()
         assert tree_err(got, plain) == 0.0
         assert int(got.iters) == iters
-        assert st_g["if_bodies_run"] == iters - 1
+        assert st_g["while_trips"] == iters - 1
         assert k4.counts()["lm_accept"] == iters
 
 

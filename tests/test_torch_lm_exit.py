@@ -126,7 +126,7 @@ def test_settled_counts_are_the_trips(f64_chol):
     (_, st), _, stats = f64_chol
     iters = int(st.iters)
     assert stats["while_nodes"] == 1
-    assert stats["if_bodies_run"] == iters - 1
+    assert stats["while_trips"] == iters - 1
     assert stats["launches_replayed"]["lm_accept_plain"] == iters
 
 
@@ -164,5 +164,5 @@ def test_released_programs_take_their_nodes_along():
         st = graphs.stats()
         assert WHILE_COUNTS["run"] == 3 * n_programs
     assert st["while_nodes"] == n_programs
-    assert st["if_bodies_run"] == 3 * n_programs
+    assert st["while_trips"] == 3 * n_programs
     assert not graphs._RETIRED and not list(graphs._WHILE_PROGRAMS)
