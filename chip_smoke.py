@@ -221,12 +221,14 @@ from ctrlvio_tpu_torch.frontend.tracker import FeatureTracker, TrackerConfig
 from ctrlvio_tpu_torch.ops import factor_kernels as fk
 from ctrlvio_tpu_torch.ops import lk, so3np
 from ctrlvio_tpu_torch.ops import lm_kernels as k4
+from ctrlvio_tpu_torch.ops import qr_prior as qr
 from ctrlvio_tpu_torch.parallel import batch, multihost, sharded_lm
 from ctrlvio_tpu_torch.parallel import mesh as pmesh
 from ctrlvio_tpu_torch.parallel.stream_batch import BatchedStream
 from ctrlvio_tpu_torch.sim import render, synthetic, tiny
 from ctrlvio_tpu_torch.sim.windows import (ACCEPT_CASES, FACTOR_WINDOWS,
-                                           accept_case, factor_window,
+                                           QR_PRIOR_SHAPES, accept_case,
+                                           factor_window, qr_prior_case,
                                            summary_window)
 from ctrlvio_tpu_torch.solver import assemble, lm
 from ctrlvio_tpu_torch.solver.layout import (SolveOptions, WindowConfig,
@@ -254,11 +256,12 @@ def emit(obj):
 
 
 def reset_counts():
-    """Zero K1's, K2's, K3's and K4's launch counts and the captured
-    programs' records, just before a phase drives its path."""
+    """Zero K1's to K6's launch counts and the captured programs'
+    records, just before a phase drives its path."""
     lk.reset_counts()
     fk.reset_counts()
     k4.reset_counts()
+    qr.reset_counts()
     graphs.reset_counts()
 
 
@@ -268,10 +271,12 @@ def factor_fields(counts=None, k4_counts=None):
     (`lm_kernels.counts()`, or `k4_counts`), and the runs of their plain
     versions (K5's and its per-slot pieces'). A launch recorded into a
     captured program counts on each replay, one inside a WHILE node's
-    body once a trip the node ran."""
+    body once a trip the node ran. K6's launches (`qr_prior.counts()`)
+    where the phase ran in this process, else None."""
     c = counts or fk.counts()
     a = k4_counts or k4.counts()
-    return {"k4_launches": a["lm_accept"],
+    return {"k6_launches": None if counts else qr.counts()["qr_prior_r"],
+            "k4_launches": a["lm_accept"],
             "plain_accept_calls": a["lm_accept_plain"],
             "k2_launches": c["image_factor_rows"],
             "k3_launches": c["imu_factor_rows"],
@@ -447,7 +452,7 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    names = ["lk", "graph_cond", "factors", "lm_accept"]
+    names = ["lk", "graph_cond", "factors", "lm_accept", "qr_prior"]
     paths = cuda_build.build(names)
     for n in names:
         cuda_build.load(n)
@@ -1302,6 +1307,174 @@ def phase_factor_kernels():
         for kname in FACTOR_KERNELS}
 
 
+# K6 (`ops/qr_prior.py`): its R against the plain version's and the
+# assembled QR's through J^T J and J^T r0 (R's row signs are free), each
+# relative to its largest entry: f32 rounding over a few thousand rows'
+# reflections (measured on the CPU: ~5e-7), f64 ~1e-15
+QR_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}
+QR_LANES = 8
+
+
+def assembled_qr_prior(kw, row_ok):
+    """The prior (J, r0) as `build_prior_sqrt` built it before K6, from
+    K6's inputs `kw` (`sim/windows.py::qr_prior_case`): the assembled
+    [A | b] (landmark one-hots, the column scaling and order, eps rows)
+    through `torch.linalg.qr(A, mode="r")`, the yardstick K6 replaces.
+    Returns ((J, r0), A)."""
+    J, r = kw["J"].clone(), kw["r"].clone()
+    dtype, dev = J.dtype, J.device
+    MOBS, MLM, C = kw["new_idx"].shape[0], kw["MLM"], J.shape[1]
+    R = J.shape[0]
+    row2 = row_ok.repeat_interleave(2)
+    J[:2 * MOBS] *= row2[:, None]
+    r[:2 * MOBS] *= row2
+    oh = ((torch.arange(MLM, device=dev)[None, :]
+           == kw["new_idx"][:, None]).to(dtype) * row_ok[:, None])
+    A_lm = torch.cat([(kw["J_lm"][:, :, None] * oh[:, None, :]).reshape(
+        2 * MOBS, MLM), torch.zeros((R - 2 * MOBS, MLM), dtype=dtype,
+                                    device=dev)])
+    cs_lm = torch.linalg.vector_norm(A_lm, dim=0)
+    cs_lm = torch.where(cs_lm > 1e-12, cs_lm, torch.ones_like(cs_lm))
+    A = torch.cat([A_lm / cs_lm, (J / kw["cs_c"])[:, kw["order"]],
+                   r[:, None]], dim=1)
+    A = torch.cat([A, torch.cat([
+        kw["eps"] * torch.eye(MLM + C, dtype=dtype, device=dev),
+        torch.zeros((MLM + C, 1), dtype=dtype, device=dev)], dim=1)])
+    return qr_prior_rows(torch.linalg.qr(A, mode="r")[1], kw), A
+
+
+def qr_prior_rows(Rq, kw):
+    """The prior (J, r0) from the R of the assembled [A | b]."""
+    MLM, C = kw["MLM"], kw["J"].shape[1]
+    keep = (torch.arange(C, device=Rq.device) >= kw["keep_from"])
+    rows = Rq[MLM:MLM + C] * keep.to(Rq.dtype)[:, None]
+    return (rows[:, MLM:MLM + C][:, torch.argsort(kw["order"])]
+            * kw["cs_c"][None, :], rows[:, MLM + C])
+
+
+def prior_gram_err(got, ref):
+    """The larger of J^T J's and J^T r0's largest deviation from the
+    reference's, each relative to the reference's largest entry."""
+    (Jg, rg), (Jr, rr) = ((a.double(), b.double()) for a, b in (got, ref))
+    H, Hr = Jg.T @ Jg, Jr.T @ Jr
+    g, gr = Jg.T @ rg, Jr.T @ rr
+    return max(float((H - Hr).abs().max() / Hr.abs().max()),
+               float((g - gr).abs().max() / gr.abs().max()))
+
+
+def qr_bound_ms(kw):
+    """K6's least time: its inputs read once and its outputs written once
+    over the HBM rate, or the operations the live rows need (stage 1: a
+    multiply-add a column each image row, twice; stage 2: the R-only
+    Householder of the live rows onto C + 1 columns, 2 n N^2 - 2/3 N^3)
+    over the card's rate; the larger, and which it is."""
+    C = kw["J"].shape[1]
+    N = C + 1
+    n_img = 2 * int(kw["live_img"].sum())
+    n = (n_img + 6 * int(kw["live_imu"].sum())
+         + 6 * int(kw["live_bias"].sum()) + C)
+    ops = 4 * n_img * N + 2 * n * N * N - 2 * N ** 3 / 3
+    ins = [kw[k] for k in ("J", "r", "J_lm", "new_idx", "live_img",
+                           "live_imu", "live_bias", "cs_c", "order")]
+    outs = [torch.empty((C, C), dtype=kw["J"].dtype),
+            torch.empty((C,), dtype=kw["J"].dtype)]
+    return factor_bound_ms(ins, outs, ops, kw["J"].dtype)
+
+
+def phase_qr_prior():
+    """K6 (`csrc/qr_prior.cu`, the QR prior's Q-less QR) on the card at
+    the e2e phase's caps and the benchmark cell's, f32 (the streamed
+    prior) and f64 (the bootstrap's): its prior against the plain
+    version's and against the assembled [A | b]'s `torch.linalg.qr`
+    through J^T J and J^T r0 (within QR_TOL), one launch a call, two
+    replays of a graph bit for bit; vmapped over QR_LANES lanes (f32,
+    e2e's caps) one launch, each lane against its plain version. Times by
+    graph replay: K6 (`ms`), the plain version (`plain_ms`) and the
+    assembled QR (`library_ms`, what the port ran before K6; cuSOLVER, as
+    the captured programs take it), beside the bound. First a line of each
+    instance's resources beside the ptxas log."""
+    dev = torch.device("cuda")
+    attributes = qr.kernel_attributes()
+    emit({"phase": "qr_prior", "attributes": attributes,
+          "ptxas": [ln.strip() for ln in
+                    cuda_build.build_log.get("qr_prior", "").splitlines()
+                    if "Compiling entry" in ln or "registers" in ln
+                    or "spill" in ln]})
+    out = {}
+    for shape, dims in QR_PRIOR_SHAPES.items():
+        for dtype in (torch.float32, torch.float64):
+            kw, row_ok = qr_prior_case(dims, dtype, dev)
+            n0 = qr.qr_prior_r.launches
+            got = qr.qr_prior_r(**kw)
+            torch.cuda.synchronize()
+            counted = qr.qr_prior_r.launches == n0 + 1
+            plain = qr.qr_prior_r_plain(**kw)
+            # cuSOLVER, as the captured programs took it before K6
+            prev = torch.backends.cuda.preferred_linalg_library()
+            torch.backends.cuda.preferred_linalg_library("cusolver")
+            try:
+                ref, A = assembled_qr_prior(kw, row_ok)
+                library_ms = graph_ms(lambda: torch.linalg.qr(A, mode="r"),
+                                      3)
+            finally:
+                torch.backends.cuda.preferred_linalg_library(prev)
+            rec = {"phase": "qr_prior", "shape": shape, "dtype": str(dtype),
+                   "assembled": list(A.shape), "counted": counted,
+                   "err_vs_plain": prior_gram_err(got, plain),
+                   "err_vs_library": prior_gram_err(got, ref),
+                   "plain_err_vs_library": prior_gram_err(plain, ref),
+                   "replays_equal": replays_equal(lambda: qr.qr_prior_r(
+                       **kw)),
+                   "ms": graph_ms(lambda: qr.qr_prior_r(**kw), 10),
+                   "plain_ms": graph_ms(lambda: qr.qr_prior_r_plain(**kw),
+                                        1),
+                   "library_ms": library_ms, **qr_bound_ms(kw)}
+            emit(rec)
+            out[(shape, str(dtype))] = rec
+            tol = QR_TOL[dtype]
+            if not (rec["err_vs_plain"] < tol and rec["err_vs_library"] < tol
+                    and counted and rec["replays_equal"]):
+                raise SystemExit(f"K6 qr_prior_r disagrees with its plain "
+                                 f"version or the assembled QR: {rec}")
+    # vmapped: one launch for QR_LANES lanes, each its own draw
+    dims = QR_PRIOR_SHAPES["e2e"]
+    lanes = [qr_prior_case(dims, torch.float32, dev, seed=s)[0]
+             for s in range(QR_LANES)]
+    names = ("J", "r", "J_lm", "new_idx", "live_img", "live_imu",
+             "live_bias", "cs_c", "order")
+    stacked = [torch.stack([ln[k] for ln in lanes]) for k in names]
+    keep = torch.tensor([ln["keep_from"] for ln in lanes], device=dev)
+
+    def lanes_fn(*ts):
+        return qr.qr_prior_r(*ts[:-1], ts[-1], dims["MLM"], lanes[0]["eps"])
+
+    f = torch.func.vmap(lanes_fn)
+    n0 = qr.qr_prior_r.launches
+    got = f(*stacked, keep)
+    torch.cuda.synchronize()
+    vm = {"phase": "qr_prior", "vmapped_lanes": QR_LANES,
+          "vmapped_launches": qr.qr_prior_r.launches - n0,
+          "vmapped_err": max(prior_gram_err(
+              (got[0][k], got[1][k]), qr.qr_prior_r_plain(**lanes[k]))
+              for k in range(QR_LANES)),
+          "vmapped_ms": graph_ms(lambda: f(*stacked, keep), 5)}
+    emit(vm)
+    if not (vm["vmapped_launches"] == 1
+            and vm["vmapped_err"] < QR_TOL[torch.float32]):
+        raise SystemExit(f"K6 vmapped: {vm}")
+    f32 = {s: out[(s, str(torch.float32))] for s in QR_PRIOR_SHAPES}
+    return {"ms": {s: r["ms"] for s, r in f32.items()},
+            "plain_ms": {s: r["plain_ms"] for s, r in f32.items()},
+            "library_ms": {s: r["library_ms"] for s, r in f32.items()},
+            "bound_ms": {s: r["bound_ms"] for s, r in f32.items()},
+            "bound_by": {s: r["bound_by"] for s, r in f32.items()},
+            "f64_ms": {s: out[(s, str(torch.float64))]["ms"]
+                       for s in QR_PRIOR_SHAPES},
+            "max_err": max(max(r["err_vs_plain"], r["err_vs_library"])
+                           for r in out.values()),
+            "vmapped_ms": vm["vmapped_ms"], "attributes": attributes}
+
+
 def image_sim(duration, n_landmarks, speed=1.0):
     """`bench.py --mode image`'s sequence: reference IMU noise without the
     simulator's pixel noise (the images carry their own), seed 3; `speed`
@@ -1805,6 +1978,11 @@ def phase_e2e():
     wall = time.perf_counter() - t_run0
     k1_launches = lk.lk_track.launches + lk.lk_level.launches
     fc = factor_fields()
+    # the streamed megasteps that marginalized (each one K6 launch; the
+    # rest of fc's K6 launches are the bootstrap's and warm-up priors')
+    fc["marg_old_megastep_replays"] = sum(
+        p.replays for p in vio._programs._programs.values()
+        if "megastep" in p.label and "marg_old=True" in p.label)
     g = graph_fields()
     its = iters_fields([vio.lm_iters_record()], g)
     captures = g["graphs_captured_n"] - captures
@@ -3503,6 +3681,7 @@ def main():
         accept = phase_lm_accept()
         while_node = phase_while_node()
         factors = phase_factor_kernels()
+        qr_rec = phase_qr_prior()
         # the kernel checks above have the card to themselves
         sides = [start_side("phase_serve", "phase_batch"),
                  start_side("phase_cli"), start_side("phase_multichip"),
@@ -3584,7 +3763,19 @@ def main():
         "launches_by_path": {p: r["k4_launches"] for p, r in paths.items()},
         "e2e_range": "LM accept",
         "e2e_range_launches": e2e["eager_megastep_stages"]["ranges"][
-            "LM accept"]["kernel_launches"]}]
+            "LM accept"]["kernel_launches"]}, {
+        "name": "K6 qr_prior_r", "route": "cuda",
+        "source": "ctrlvio_tpu_torch/csrc/qr_prior.cu",
+        "replaces": "ctrlvio_tpu/solver/marginalize.py:287",
+        "replaces_note": "not a TPU kernel: XLA's QR of the JAX package's "
+                         "assembled marginalization rows (jnp.linalg.qr, "
+                         "mode r); the port ran cuSOLVER's geqr2 there",
+        "launches": e2e["k6_launches"],
+        "marg_old_megastep_replays": e2e["marg_old_megastep_replays"],
+        "max_err": qr_rec["max_err"],
+        **{k: qr_rec[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                  "bound_by", "f64_ms", "vmapped_ms",
+                                  "attributes")}}]
     replaced = {
         "k2": ("ctrlvio_tpu/solver/assemble.py:49", "vmapped _image_blocks "
                "and its one-hot expansion into dense rows"),

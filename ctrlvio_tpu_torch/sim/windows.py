@@ -195,3 +195,66 @@ def accept_case(cfg: WindowConfig, dtype, device, case="accepted", seed=0):
     opts = SolveOptions(max_iters=ACCEPT_MAX_ITERS, tol=c["tol"])
     return (st, WindowParams(*trial[:6]), tuple(trial[6:]),
             scalar(c["cost_t"]), opts)
+
+
+# the QR prior's (K6's) shapes: the marginalization caps (MOBS, MIMU, MLM),
+# NB - 1 = 10 bias pairs and C = 259 window columns (KW = 32, NB = 11): the
+# estimator's default caps, as chip_smoke.py's e2e and serve lines run them
+# (2,242 x 388 assembled), and the benchmark cell's (4,674 x 516)
+QR_PRIOR_SHAPES = {
+    "e2e": dict(MOBS=384, MIMU=128, NBM1=10, C=259, MLM=128),
+    "cell": dict(MOBS=1536, MIMU=128, NBM1=10, C=259, MLM=256)}
+
+
+def qr_prior_case(shape, dtype, device, seed=0, n_drop=2, landmarks=None,
+                  imu_live=0.3, lost=0.05):
+    """The inputs of `ops/qr_prior.py::qr_prior_r` at `shape` (a dict of
+    `QR_PRIOR_SHAPES`' form), drawn from `seed`: image rows non-zero on
+    ~10 % of the columns, 90 % of the obs active and the rest zero (as
+    `assemble.linearize` zeroes them), a share `lost` of the active obs
+    on a landmark that lost its compact slot (row_ok 0: not live, their
+    rows left non-zero), the live obs on the first `landmarks` slots (the
+    rest empty; default 60 % of MLM), a share `imu_live` of the IMU slots
+    live, the first bias pair live, dense old-prior rows, `n_drop` dropped
+    knots (6 n_drop + 6 dropped columns). Returns (the wrapper's keyword
+    arguments, row_ok (MOBS,) in `dtype`)."""
+    MOBS, MIMU, NBM1, C, MLM = (shape[k] for k in
+                                ("MOBS", "MIMU", "NBM1", "C", "MLM"))
+    rng = np.random.default_rng(seed)
+    R = 2 * MOBS + 6 * MIMU + 6 * NBM1 + C
+    J = rng.normal(size=(R, C))
+    J[:2 * MOBS] *= rng.random((2 * MOBS, C)) < 0.1
+    J[2 * MOBS + 6 * MIMU + 6 * NBM1:] *= 0.1
+    r = rng.normal(size=R)
+    J_lm = rng.normal(size=(MOBS, 2))
+    act = rng.random(MOBS) < 0.9
+    n_lm = max(1, int(0.6 * MLM)) if landmarks is None else landmarks
+    new_idx = np.where(act, rng.integers(0, n_lm, MOBS),
+                       rng.integers(0, MLM, MOBS))
+    won = rng.random(MOBS) >= lost
+    live_imu = rng.random(MIMU) < imu_live
+    live_bias = np.arange(NBM1) == 0
+    row = np.r_[np.repeat(act, 2), np.repeat(live_imu, 6),
+                np.repeat(live_bias, 6), np.ones(C, bool)]
+    J *= row[:, None]
+    r *= row
+    J_lm *= act[:, None]
+    row_ok = (~act) | won
+    rm = np.r_[np.repeat(row_ok, 2), np.ones(R - 2 * MOBS)]
+    cs_c = np.linalg.norm(J * rm[:, None], axis=0)
+    cs_c = np.where(cs_c > 1e-12, cs_c, 1.0)
+    drop = np.zeros(C, bool)
+    drop[rng.permutation(C)[:6 * n_drop + 6]] = True
+    order = np.argsort(~drop, kind="stable")
+
+    def t(x, dt=dtype):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device=device,
+                                                            dtype=dt)
+
+    kw = dict(J=t(J), r=t(r), J_lm=t(J_lm), new_idx=t(new_idx, torch.int64),
+              live_img=t(act & won, torch.bool),
+              live_imu=t(live_imu, torch.bool),
+              live_bias=t(live_bias, torch.bool), cs_c=t(cs_c),
+              order=t(order, torch.int64), keep_from=6 * n_drop + 6, MLM=MLM,
+              eps=3e-4 if dtype == torch.float32 else 1e-7)
+    return kw, t(row_ok)

@@ -6,8 +6,9 @@ of `ctrlvio_tpu/solver/marginalize.py`).
    prior) at the current estimate (`assemble.linearize(marg_mode=True)`);
 2. eliminate the diagonal landmark block analytically, then the dropped
    knot/bias coordinates (normal-equation form, `build_prior`), or
-   eliminate both by one Householder QR of the stacked square-root rows
-   (`build_prior_sqrt`);
+   eliminate both by one Q-less Householder QR of the stacked square-root
+   rows (`build_prior_sqrt`, kernel K6 on the card:
+   `ops/qr_prior.py`);
 3. keep the square root of the remaining system as J and r0, linearized at
    the current values.
 
@@ -25,6 +26,7 @@ from . import assemble
 from .layout import (BiasFactors, ImageFactors, ImuFactors, PriorFactor,
                      SolveOptions, WindowConfig, WindowParams)
 from .lm import cholesky_nan
+from ctrlvio_tpu_torch.ops import qr_prior
 
 EIG_REL_EPS = {torch.float32: 1e-6, torch.float64: 1e-12}
 
@@ -148,11 +150,13 @@ def build_prior_sqrt(params: WindowParams, img: ImageFactors, imu: ImuFactors,
                      return_overflow: bool = False,
                      caps: Optional[Tuple[int, int, int]] = None,
                      n_drop_knots: Optional[int] = None):
-    """Square-root (QR) marginalization: stack the marg-subset factor rows,
-    the landmark columns and the old prior's rows into one tall [A | b]
-    over columns [landmarks | dropped coords | kept coords]; one Q-less
-    Householder QR eliminates landmarks and dropped coords by orthogonal
-    transforms only. Takes the full (uncompacted) factor arrays; `caps`
+    """Square-root (QR) marginalization: the marg-subset factor rows, the
+    landmark columns and the old prior's rows as one tall [A | b] over
+    columns [landmarks | dropped coords | kept coords], each scaled to unit
+    norm, with eps rows; one Q-less Householder QR eliminates landmarks and
+    dropped coords by orthogonal transforms only (`ops/qr_prior.py`: K6 on
+    the card, from the rows as `linearize` gives them; the plain version
+    on the CPU). Takes the full (uncompacted) factor arrays; `caps`
     overrides `marg_caps(cfg)`. `n_drop_knots` is the number of True
     entries of `drop_knots` (a python int, or a device tensor, one per lane
     of a batch; None counts them on the device); `knot_shift` and
@@ -192,53 +196,36 @@ def build_prior_sqrt(params: WindowParams, img: ImageFactors, imu: ImuFactors,
     # an active row whose landmark did not win a compact slot is dropped
     sel = torch.zeros((LM,), dtype=torch.bool, device=dev).scatter(
         0, perm_lm, has[perm_lm])
-    row_ok = ((~act) | sel[img_c.lm_idx]).to(dtype)
-    row2 = row_ok[:, None].expand(-1, 2).reshape(-1)
-    J = lin.J.clone()
-    r = lin.r.clone()
-    J[: 2 * MOBS] = J[: 2 * MOBS] * row2[:, None]
-    r[: 2 * MOBS] = r[: 2 * MOBS] * row2
-
-    oh = ((torch.arange(MLM, device=dev)[None, :] == new_idx[:, None]).to(dtype)
-          * row_ok[:, None])
-    A_lm_img = (lin.J_lm[:, :, None] * oh[:, None, :]).reshape(2 * MOBS, MLM)
-    A_lm = torch.cat([A_lm_img, torch.zeros((R - 2 * MOBS, MLM), dtype=dtype,
-                                            device=dev)], dim=0)
+    won = sel[img_c.lm_idx]
+    row_ok = ((~act) | won).to(dtype)
 
     overflow = torch.stack([torch.clamp(n_img - MOBS, min=0),
                             torch.clamp(n_imu - MMIMU, min=0),
                             torch.clamp(n_lm - MLM, min=0)])
 
     # column scaling (exact: scaling a variable commutes with marginalizing)
-    cs_lm = torch.linalg.vector_norm(A_lm, dim=0)
-    cs_c = torch.linalg.vector_norm(J, dim=0)
-    cs_lm = torch.where(cs_lm > 1e-12, cs_lm, torch.ones_like(cs_lm))
+    row_mask = torch.cat([row_ok[:, None].expand(-1, 2).reshape(-1),
+                          torch.ones((R - 2 * MOBS,), dtype=dtype,
+                                     device=dev)])
+    cs_c = torch.linalg.vector_norm(lin.J * row_mask[:, None], dim=0)
     cs_c = torch.where(cs_c > 1e-12, cs_c, torch.ones_like(cs_c))
 
     drop_c = drop_mask(cfg, drop_knots, True)[:C]
     order = _stable_front(drop_c, C)
-    inv_order = torch.argsort(order)
-
-    A = torch.cat([A_lm / cs_lm[None, :], (J / cs_c[None, :])[:, order],
-                   r[:, None]], dim=1)
-    # eps*I rows give every column a private pivot axis (rank-deficiency
-    # guard for the unpivoted Householder QR)
-    eps = 3e-4 if dtype == torch.float32 else 1e-7
-    reg = torch.cat([eps * torch.eye(MLM + C, dtype=dtype, device=dev),
-                     torch.zeros((MLM + C, 1), dtype=dtype, device=dev)], dim=1)
-    A = torch.cat([A, reg], dim=0)
-    Rq = torch.linalg.qr(A, mode="r")[1]
 
     if n_drop_knots is None:
         n_drop_knots = torch.sum(drop_knots.to(torch.int64))
-    # dropped coordinates: 6 per knot (rotation, position) and the first
-    # keyframe's 6 bias coordinates
-    d_tot = MLM + 6 * n_drop_knots + 6
-    rows = Rq[MLM : MLM + C]
-    keep_row = (torch.arange(MLM, MLM + C, device=dev) >= d_tot)[:, None].to(dtype)
-    rows = rows * keep_row
-    J_out = rows[:, MLM : MLM + C][:, inv_order] * cs_c[None, :]
-    r_out = rows[:, MLM + C]
+    # eps rows eps*I under every column give each a private pivot axis
+    # (rank-deficiency guard for the unpivoted Householder QR); the
+    # dropped coordinates, 6 per knot (rotation, position) and the first
+    # keyframe's 6 bias coordinates, lead the window columns, and the
+    # prior keeps R's rows after them
+    eps = 3e-4 if dtype == torch.float32 else 1e-7
+    live_bias = bias.valid & (torch.arange(cfg.NB - 1, device=dev) == 0)
+    J_out, r_out = qr_prior.qr_prior_r(
+        lin.J, lin.r, lin.J_lm, new_idx, act & won,
+        imu_c.valid & imu_c.marg_drop, live_bias, cs_c, order,
+        6 * n_drop_knots + 6, MLM, eps)
 
     out = PriorFactor(J=J_out, r0=r_out, knots_q0=params.knots_q,
                       knots_p0=params.knots_p, bg0=params.bg, ba0=params.ba,

@@ -111,6 +111,24 @@ def test_megastep_program_matches_eager(cuda, marg_old):
     assert prog.replays == 2
 
 
+@pytest.mark.parametrize("marg_old", [True, False])
+def test_megastep_program_launches_k6_once_a_replay(cuda, marg_old):
+    """K6 (the QR prior's kernel) inside the captured megastep: its launch
+    count rises by one a replay of the megastep that marginalizes the
+    oldest keyframe, and by none a replay of the one that does not."""
+    from ctrlvio_tpu_torch.ops import qr_prior
+    args, static = _megastep(build_case(marg_old), cuda)
+    prog = graphs.ProgramCache().get(stream.megastep, args, cuda, static,
+                                     carry=True)
+    prog(*args)
+    torch.cuda.synchronize()
+    qr_prior.reset_counts()
+    for _ in range(3):
+        prog(*args)
+    torch.cuda.synchronize()
+    assert qr_prior.counts()["qr_prior_r"] == (3 if marg_old else 0)
+
+
 def test_batched_program_matches_eager(cuda, deterministic):
     """The batched megastep's program over a MARGIN_OLD lane and a
     MARGIN_SECOND_NEW lane against the eager vmapped call, both under

@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels on the card, against their plain
 PyTorch versions: K1 (`csrc/lk.cu`), K2 and K3 and K5 (the residual
 summary; `csrc/factors.cu`), K4 (`csrc/lm_accept.cu`, the
-LM's accept step, and the WHILE node whose condition it sets). Every
+LM's accept step, and the WHILE node whose condition it sets), K6
+(`csrc/qr_prior.cu`, the QR prior's Q-less QR). Every
 test here needs a CUDA
 device and skips without one. The file imports neither JAX nor the JAX package, so that it runs on
 a machine that has only PyTorch:
@@ -15,16 +16,19 @@ import pytest
 import torch
 
 from chip_smoke import (CASE_LEVELS, FACTOR_TOL, FACTOR_WINDOWS, LOOP_ITERS,
-                        SEARCH_MARGIN, SUMMARY_TOL, TRACK_CASES, col_rel_err,
+                        QR_LANES, QR_TOL, SEARCH_MARGIN, SUMMARY_TOL,
+                        TRACK_CASES, assembled_qr_prior, col_rel_err,
                         factor_calls, factor_window, k4_loop, loop_args,
-                        rel_err, stack_tree, summary_calls, textured_pair,
-                        track_case, tree_err)
+                        prior_gram_err, rel_err, stack_tree, summary_calls,
+                        textured_pair, track_case, tree_err)
 from ctrlvio_tpu_torch.frontend import klt
 from ctrlvio_tpu_torch.ops import factor_kernels as fk
 from ctrlvio_tpu_torch.ops import lk
 from ctrlvio_tpu_torch.ops import lm_kernels as k4
+from ctrlvio_tpu_torch.ops import qr_prior as qr
 from ctrlvio_tpu_torch.parallel.batch import stack
-from ctrlvio_tpu_torch.sim.windows import (ACCEPT_CASES, accept_case,
+from ctrlvio_tpu_torch.sim.windows import (ACCEPT_CASES, QR_PRIOR_SHAPES,
+                                           accept_case, qr_prior_case,
                                            summary_window)
 from ctrlvio_tpu_torch.utils import graphs
 
@@ -651,3 +655,113 @@ def test_k4_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         k4.accept_step(strided, trial, ne_t, cost_t, opts, in_place=True)
     assert k4.accept_step.launches == n
+
+
+QR_NAMES = ("J", "r", "J_lm", "new_idx", "live_img", "live_imu", "live_bias",
+            "cs_c", "order")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("shape", QR_PRIOR_SHAPES)
+def test_k6_matches_plain_version(cuda, shape, dtype):
+    """K6 against its plain version and the assembled QR on the card,
+    through J^T J and J^T r0, at the cell's and the e2e caps' shapes; one
+    launch."""
+    kw, row_ok = qr_prior_case(QR_PRIOR_SHAPES[shape], dtype, cuda)
+    n = qr.qr_prior_r.launches
+    got = qr.qr_prior_r(**kw)
+    torch.cuda.synchronize()
+    assert qr.qr_prior_r.launches == n + 1
+    assert prior_gram_err(got, qr.qr_prior_r_plain(**kw)) < QR_TOL[dtype]
+    assert prior_gram_err(got, assembled_qr_prior(kw, row_ok)[0]) \
+        < QR_TOL[dtype]
+    keep = kw["keep_from"]
+    assert torch.all(got[0][:keep] == 0) and torch.all(got[1][:keep] == 0)
+
+
+def test_k6_vmapped_equals_its_lanes(cuda):
+    """QR_LANES lanes under torch.func.vmap: one launch, each lane against
+    its plain version, each with its own first kept row."""
+    dims = QR_PRIOR_SHAPES["e2e"]
+    lanes = [qr_prior_case(dims, torch.float32, cuda, seed=s,
+                           n_drop=1 + s % 3)[0] for s in range(QR_LANES)]
+    st = [torch.stack([ln[k] for ln in lanes]) for k in QR_NAMES]
+    keep = torch.tensor([ln["keep_from"] for ln in lanes], device=cuda)
+    n = qr.qr_prior_r.launches
+    J, r = torch.func.vmap(lambda *ts: qr.qr_prior_r(
+        *ts[:-1], ts[-1], dims["MLM"], lanes[0]["eps"]))(*st, keep)
+    torch.cuda.synchronize()
+    assert qr.qr_prior_r.launches == n + 1
+    for k, ln in enumerate(lanes):
+        assert prior_gram_err((J[k], r[k]), qr.qr_prior_r_plain(**ln)) \
+            < QR_TOL[torch.float32]
+
+
+def test_k6_in_a_captured_program(cuda):
+    """K6 inside a captured program: each replay one launch, the replays
+    equal to the eager launch bit for bit (no atomic's order reaches the
+    outputs)."""
+    kw, _ = qr_prior_case(QR_PRIOR_SHAPES["e2e"], torch.float32, cuda)
+    ts = tuple(kw[k] for k in QR_NAMES)
+
+    def prior(*ts):
+        return qr.qr_prior_r(*ts, kw["keep_from"], kw["MLM"], kw["eps"])
+
+    ref = prior(*ts)
+    prog = graphs.ProgramCache().get(prior, ts, cuda, {})
+    prog(*ts)
+    torch.cuda.synchronize()
+    qr.reset_counts()
+    for _ in range(3):
+        got = prog(*ts)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert qr.counts()["qr_prior_r"] == 3
+
+
+def test_no_cuda_tensor_reaches_linalg_qr(cuda, monkeypatch):
+    """The streamed megastep that marginalizes, and the prior built alone
+    in f32 and f64 (the bootstrap's), on the card: K6 launched, and
+    `torch.linalg.qr` never given a CUDA tensor."""
+    from ctrlvio_tpu_torch.estimator import stream
+    from torch_stream_case import build_case, port_args
+
+    real = torch.linalg.qr
+    seen = []
+
+    def spy(A, *args, **kw):
+        seen.append(A.device.type)
+        return real(A, *args, **kw)
+
+    monkeypatch.setattr(torch.linalg, "qr", spy)
+    n = qr.qr_prior_r.launches
+    args, kw = port_args(build_case(True), cuda, torch.float32)
+    stream.megastep(*args, **kw)
+    for dtype in (torch.float32, torch.float64):
+        qr.qr_prior_r(**qr_prior_case(QR_PRIOR_SHAPES["e2e"], dtype,
+                                      cuda)[0])
+    torch.cuda.synchronize()
+    assert qr.qr_prior_r.launches == n + 3
+    assert "cuda" not in seen
+
+
+def test_k6_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    """The wrapper raises on what K6 does not take, and launches
+    nothing."""
+    kw, _ = qr_prior_case(QR_PRIOR_SHAPES["e2e"], torch.float32, cuda)
+    n = qr.qr_prior_r.launches
+    with pytest.raises(TypeError):
+        qr.qr_prior_r(**{**kw, "J": kw["J"].half(), "r": kw["r"].half()})
+    with pytest.raises(TypeError):
+        qr.qr_prior_r(**{**kw, "order": kw["order"].int()})
+    with pytest.raises(ValueError):
+        qr.qr_prior_r(**{**kw, "cs_c": kw["cs_c"].cpu()})
+    with pytest.raises(ValueError):
+        qr.qr_prior_r(**{**kw, "J": kw["J"][1:], "r": kw["r"][1:]})
+    with pytest.raises(ValueError):
+        qr.qr_prior_r(**{**kw, "J_lm": kw["J_lm"].t()})
+    wide = qr_prior_case(dict(MOBS=8, MIMU=2, NBM1=2, C=600, MLM=4),
+                         torch.float32, cuda)[0]
+    with pytest.raises(ValueError):
+        qr.qr_prior_r(**wide)
+    assert qr.qr_prior_r.launches == n
