@@ -18,6 +18,9 @@
 //          N_TRIPS grows by one: one stamp each trip of a WHILE node, so
 //          the row counts the trips its run made;
 //   END:   the tag's slot takes the time and the head moves on.
+// Two kernels of one body, so that a trace tells the rings apart by name:
+// `stamp_kernel` (kind 0, the streamed megastep's ring) and
+// `stamp_frontend` (kind 1, the front end's step).
 // One thread, one launch a stamp on the caller's stream: nothing bounds it
 // but the launch (a graph node, ~1-2 us). %globaltimer counts ns on the
 // card's own clock; `spans.Clock` maps it onto the host's.
@@ -30,9 +33,9 @@ namespace {
 enum { SEQ = 0, N_TRIPS = 1 };
 enum { START = 0, MARK = 1, TRIP = 2, END = 3 };
 
-__global__ void stamp_kernel(long long* ring, long long* head,
-                             long long rows, int slots, int slot,
-                             int mode) {
+__device__ __forceinline__ void write_stamp(long long* ring, long long* head,
+                                            long long rows, int slots,
+                                            int slot, int mode) {
   unsigned long long t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
   const long long h = *head;
@@ -51,13 +54,27 @@ __global__ void stamp_kernel(long long* ring, long long* head,
   if (mode == END) *head = h + 1;
 }
 
+__global__ void stamp_kernel(long long* ring, long long* head,
+                             long long rows, int slots, int slot,
+                             int mode) {
+  write_stamp(ring, head, rows, slots, slot, mode);
+}
+
+__global__ void stamp_frontend(long long* ring, long long* head,
+                               long long rows, int slots, int slot,
+                               int mode) {
+  write_stamp(ring, head, rows, slots, slot, mode);
+}
+
 }  // namespace
 
 extern "C" int stamp(void* ring, void* head, long long rows, int slots,
-                     int slot, int mode, void* stream) {
-  if (rows < 1 || slot < 0 || slot >= slots || mode < START || mode > END)
+                     int slot, int mode, int kind, void* stream) {
+  if (rows < 1 || slot < 0 || slot >= slots || mode < START || mode > END ||
+      kind < 0 || kind > 1)
     return (int)cudaErrorInvalidValue;
-  stamp_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
+  auto kernel = kind == 0 ? stamp_kernel : stamp_frontend;
+  kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
       (long long*)ring, (long long*)head, rows, slots, slot, mode);
   return (int)cudaGetLastError();
 }

@@ -44,7 +44,10 @@ feature table native C++ by default (`native.NativeFeatureTable`).
 
 Raw images enter through `attach_frontend` and `process_image`, with the
 slot-identity `FusedTracker` or the classic `FeatureTracker` (the latter
-whenever the F-RANSAC gate is asked for, as in the JAX package). B
+whenever the F-RANSAC gate is asked for, as in the JAX package); with
+`lag=1`, the `FusedTracker`, gated or not, lagged one image (its pull
+overlaps the next image's work) and its spans and stamps in this
+estimator's records. B
 streaming instances serve in lockstep behind `parallel.stream_batch.
 BatchedStream`, which sets their `_dispatch_hook`. `residual_summary`
 re-linearizes the current window in f64 for the per-factor-type report
@@ -356,7 +359,8 @@ class CtrlVIO:
         self.gravity = np.array([0.0, 0.0, cfg.gravity_mag])
 
         # host spans: `timing` holds each phase's cumulative seconds
-        self._spans = spans.Recorder(frame_root="process_frame")
+        self._spans = spans.Recorder(frame_root=("process_frame",
+                                                 "process_image"))
         self._span = self._spans.span
         self.timing = self._spans.timing
         # device stamps and their clock (`trace`)
@@ -381,6 +385,7 @@ class CtrlVIO:
         self.last_solve_stats = None
         self._pending_frames: deque = deque()
         self.tracker = None
+        self._lagged = False
 
         # self-bootstrap state; recent frames replay into a fresh
         # initializer when a bootstrap is rejected
@@ -577,24 +582,41 @@ class CtrlVIO:
     # image front end
     # ------------------------------------------------------------------
     def attach_frontend(self, camera, image_shape, tracker_cfg=None,
-                        fused: bool = True):
+                        fused: bool = True, lag: int = 0):
         """Attach the KLT front end, on this estimator's device, so that raw
         images can be fed. fused=True without `tracker_cfg.reject_wf` gives
         the slot-identity `FusedTracker` with gyro-predicted initial flow
         from this estimator's own IMU buffer and gyro-bias estimate;
         otherwise the classic multi-dispatch `FeatureTracker`, which runs
-        the F-RANSAC gate on published frames (the JAX package's routing)."""
+        the F-RANSAC gate on published frames (the JAX package's routing).
+
+        lag=1 gives the `FusedTracker` in every case (its own F-gate where
+        `reject_wf` asks for it), one image behind: `process_image` hands
+        on the previous image's features, `flush` the last ones, and the
+        tracker's spans and stamps join this estimator's (`trace`)."""
         from ctrlvio_tpu_torch.frontend.fused import FusedTracker
         from ctrlvio_tpu_torch.frontend.tracker import (FeatureTracker,
                                                         TrackerConfig)
 
         tcfg = tracker_cfg or TrackerConfig()
-        if fused and not tcfg.reject_wf:
+        if lag not in (0, 1) or (lag and not fused):
+            raise ValueError(f"attach_frontend: lag={lag} takes the fused "
+                             f"tracker and 0 or 1")
+        if lag:
+            self.tracker = FusedTracker(tcfg, camera, image_shape, lag=lag,
+                                        device=self.device,
+                                        recorder=self._spans)
+            self.tracker.trace(self._stamping)
+        elif fused and not tcfg.reject_wf:
             self.tracker = FusedTracker(tcfg, camera, image_shape,
                                         device=self.device)
         else:
             self.tracker = FeatureTracker(tcfg, camera, image_shape,
                                           device=self.device)
+        # the estimator's matrix-product precision, pinned again after the
+        # tracker's own pin (process-wide: the last pin holds)
+        pin_f32_matmuls()
+        self._lagged = bool(lag)
         self._prev_img_t_ns = None
         self._img_first_t_ns = None
         self._img_pub = 0
@@ -603,38 +625,71 @@ class CtrlVIO:
         """Feed one raw image: CLAHE -> pyramidal KLT (gyro-predicted with
         the fused tracker) -> undistort -> feature frame -> per-frame
         estimation. Returns the pose like process_frame, or None for
-        rate-gated frames / pre-init."""
+        rate-gated frames / pre-init. Lagged (`attach_frontend(lag=1)`),
+        the frame estimated is the previous image's, at its own time, and
+        the pose is that frame's (None on the first image)."""
         if self.tracker is None:
             raise RuntimeError("call attach_frontend(camera, image_shape) first")
-        from ctrlvio_tpu_torch.frontend.fused import (FusedTracker,
-                                                      rotation_flow)
+        from ctrlvio_tpu_torch.frontend.fused import FusedTracker
 
+        if self._lagged:
+            with self._span("process_image"):
+                with self._span("frontend.flow"):
+                    M = self._image_flow(int(t_ns))
+                out = self.tracker.step(int(t_ns), img, R_rel=M)
+                self._prev_img_t_ns = int(t_ns)
+                return self._publish(out)
         if not isinstance(self.tracker, FusedTracker):
             out = self.tracker.process(int(t_ns), img)  # rate-gated inside
             if out is None:
                 return None
             return self.process_frame(out["t_ns"], out["ids"], out["pts"],
                                       out["rows"])
-        M = None
-        if self._prev_img_t_ns is not None and len(self.imu_t_ns):
-            R_ic = so3np.quat_to_matrix(self.q_CtoI[None])[0]
-            # the IMU buffer rebases to data_start_ns at init; frame times
-            # stay absolute
-            base = self.data_start_ns or 0
-            M = rotation_flow(self.imu_t_ns, self.imu_gyro,
-                              self._prev_img_t_ns - base, int(t_ns) - base,
-                              R_ic, bg=self.bg[-1])
+        M = self._image_flow(int(t_ns))
         out = self.tracker.step(int(t_ns), img, R_rel=M)
         self._prev_img_t_ns = int(t_ns)
         # publish-rate gate: track every frame, estimate at cfg.freq
-        if self._img_first_t_ns is None:
-            self._img_first_t_ns = int(t_ns)
-            self._img_pub = 0
-        elapsed = (int(t_ns) - self._img_first_t_ns) * 1e-9
-        if elapsed > 0 and self._img_pub / elapsed > self.tracker.cfg.freq:
+        if not self._publish_due(int(t_ns)):
             return None
-        self._img_pub += 1
         if out is None:
+            return None
+        return self.process_frame(out["t_ns"], out["ids"], out["pts"],
+                                  out["rows"])
+
+    def _image_flow(self, t_ns: int):
+        """The camera-frame rotation from the previous image to `t_ns`,
+        from this estimator's IMU buffer less its gyro-bias estimate
+        (`frontend.fused.rotation_flow`), or None before a second image or
+        any IMU sample."""
+        from ctrlvio_tpu_torch.frontend.fused import rotation_flow
+
+        if self._prev_img_t_ns is None or not len(self.imu_t_ns):
+            return None
+        R_ic = so3np.quat_to_matrix(self.q_CtoI[None])[0]
+        # the IMU buffer rebases to data_start_ns at init; frame times
+        # stay absolute
+        base = self.data_start_ns or 0
+        return rotation_flow(self.imu_t_ns, self.imu_gyro,
+                             self._prev_img_t_ns - base, t_ns - base, R_ic,
+                             bg=self.bg[-1])
+
+    def _publish_due(self, t_ns: int) -> bool:
+        """The publish-rate gate (≙ `feature_tracker_node.cpp:80-93`): a
+        frame at `t_ns` is estimated while the frames estimated so far
+        keep within `freq` a second; counts it if so."""
+        if self._img_first_t_ns is None:
+            self._img_first_t_ns = t_ns
+            self._img_pub = 0
+        elapsed = (t_ns - self._img_first_t_ns) * 1e-9
+        if elapsed > 0 and self._img_pub / elapsed > self.tracker.cfg.freq:
+            return False
+        self._img_pub += 1
+        return True
+
+    def _publish(self, out):
+        """A lagged tracker's published frame through the rate gate, at its
+        own time, into `process_frame`."""
+        if out is None or not self._publish_due(int(out["t_ns"])):
             return None
         return self.process_frame(out["t_ns"], out["ids"], out["pts"],
                                   out["rows"])
@@ -747,10 +802,13 @@ class CtrlVIO:
 
     def flush(self):
         """End of stream (call before reading final poses, keyframes or
-        the line delay): solve the frames still queued behind the
-        IMU-coverage check, then drain every in-flight stream summary into
-        the host mirror, and with recording on every queued stamp row
-        (one wait)."""
+        the line delay): estimate the frame a lagged front end still holds,
+        solve the frames still queued behind the IMU-coverage check, then
+        drain every in-flight stream summary into the host mirror, and
+        with recording on every queued stamp row (one wait)."""
+        if self._lagged:
+            with self._span("process_image"):
+                self._publish(self.tracker.flush())
         q = self._pending_frames
         last_imu = int(self.imu_t_ns[-1]) if len(self.imu_t_ns) else -1
         while q and q[0][0] <= last_imu:
@@ -1338,17 +1396,27 @@ class CtrlVIO:
             self._stamps.poll(wait=True)
             self._clock.calibrate(self.device)
             self._spans.stop()
+        if self._lagged:
+            self.tracker.trace(on)
         self._stamping = on
 
     def trace_record(self) -> dict:
         """What recording gathered: `spans` (`spans.Recorder.record`: the
         host spans on `time.time_ns()`), `megasteps` (`spans.StampRing.
         record`: each stamped megastep's row, on the host's clock),
+        `frontend` (a lagged front end's stamped steps alike, or None),
         `clock` (the calibrations: host ns, offset ns, error ns) and
-        `clock_error_ns` (the largest error)."""
-        return {"spans": self._spans.record(),
+        `clock_error_ns` (the largest error). Each stamped front-end step
+        also adds two spans under its frame's `process_image`,
+        `frontend.device.track` (its start to the end of K1's track) and
+        `frontend.device.refill` (from there to its end): device intervals
+        on the host's clock, which overlap the host spans beside them."""
+        fe = (self.tracker.stamp_record(self._clock) if self._lagged
+              else None)
+        return {"spans": _with_device_spans(self._spans.record(), fe),
                 "megasteps": (None if self._stamps is None
                               else self._stamps.record(self._clock)),
+                "frontend": fe,
                 "clock": list(self._clock.calibrations),
                 "clock_error_ns": self._clock.error_ns()}
 
@@ -1498,6 +1566,37 @@ class CtrlVIO:
             f"marg_caps={tuple(caps)}); the excess factors were dropped "
             "from the prior: raise VIOConfig.marg_caps", RuntimeWarning,
             stacklevel=3)
+
+
+# the front end's stamped device phases, as spans (from tag, to tag, name)
+FRONTEND_DEVICE_SPANS = (("start", "tracked", "frontend.device.track"),
+                         ("tracked", "end", "frontend.device.refill"))
+
+
+def _with_device_spans(rec: dict, fe: Optional[dict]) -> dict:
+    """A `spans.Recorder.record` with the front end's stamped phases added
+    as rows under their frame's `process_image` root (see `trace_record`)."""
+    if fe is None or not len(fe["stamps"]) or "process_image" not in \
+            rec["names"]:
+        return rec
+    names, rows = list(rec["names"]), rec["rows"]
+    code = names.index("process_image")
+    root = {int(r[spans.FRAME]): i for i, r in enumerate(rows)
+            if r[spans.NAME] == code and r[spans.PARENT] < 0}
+    slot = {t: i for i, t in enumerate(fe["tags"])}
+    extra = []
+    for st, f in zip(fe["stamps"], fe["frame"]):
+        if int(f) not in root:
+            continue
+        for a, b, name in FRONTEND_DEVICE_SPANS:
+            if st[slot[a]] > 0 and st[slot[b]] >= st[slot[a]]:
+                if name not in names:
+                    names.append(name)
+                extra.append((st[slot[a]], st[slot[b]], names.index(name),
+                              root[int(f)], int(f)))
+    if extra:
+        rows = np.concatenate([rows, np.array(extra, np.int64)])
+    return {"names": names, "rows": rows}
 
 
 def _empty_image_factors(wc: WindowConfig, dtype) -> ImageFactors:

@@ -25,6 +25,15 @@ With `reject_wf` the host runs the epipolar F-RANSAC gate
 the dominant two-view geometry is suppressed from publication at once and
 its slot is freed on the device at the next dispatch (≙ rejectWithF,
 `feature_tracker.cpp:201-235`).
+
+Attached to an estimator (`CtrlVIO.attach_frontend(..., lag=1)`), the
+tracker's host spans go to the estimator's recorder under `PREFIX` (so
+they nest in its frames), and `trace(True)` stamps each step's device
+phases (`spans.FRONTEND_TAGS`: its start, after K1's track, its end) into
+a ring of its own, which the estimator's `trace_record` reads. `counts`
+holds, since the tracker was made, the frames it published and their
+features, the slots the device refilled and the tracks the F-gate
+rejected.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ import numpy as np
 import torch
 
 from ctrlvio_tpu_torch.ops import so3np
+from ctrlvio_tpu_torch.ops import stamp as stamp_op
 from ctrlvio_tpu_torch.utils import graphs, spans
 from ctrlvio_tpu_torch.utils.device import recorded_syncs, resolve_device
 from ctrlvio_tpu_torch.utils.precision import pin_f32_matmuls
@@ -43,6 +53,9 @@ from . import clahe as clahe_mod
 from . import corners, klt
 from .fransac import reject_with_f
 from .tracker import TrackerConfig
+
+# the prefix of the tracker's spans in an estimator's recorder
+PREFIX = "frontend."
 
 
 def rotation_flow(imu_t_ns, gyro, t0_ns, t1_ns, R_CtoI, bg=None):
@@ -79,10 +92,11 @@ class FusedTracker:
     and `sync_warnings` collects their messages. `timing` holds cumulative
     host seconds of its spans (`utils/spans.py`): "dispatch", "consume",
     and within the latter "pull_wait" (the wait for the packed array) and
-    "fgate"."""
+    "fgate". Given a `recorder` (an estimator's `spans.Recorder`), the
+    spans are kept there under `PREFIX` and `timing` is a copy."""
 
     def __init__(self, cfg: TrackerConfig, camera, image_shape, lag: int = 0,
-                 device="cuda"):
+                 device="cuda", recorder: Optional[spans.Recorder] = None):
         self.device = resolve_device(device)
         pin_f32_matmuls()
         self.cfg = cfg
@@ -103,18 +117,51 @@ class FusedTracker:
         # publishing at once and freed on the device at the next dispatch
         self._kill = np.zeros((N,), dtype=bool)
         self._suppress = np.zeros((N,), dtype=bool)
-        self.n_rejected = 0  # cumulative F-gate rejections
+        self.counts = {"frames": 0, "features": 0, "refilled": 0,
+                       "rejected": 0}
         self.check_dispatch_syncs = False
         self.dispatch_syncs = 0
         self.sync_warnings = []
-        self._spans = spans.Recorder()
+        self._spans = (spans.Recorder() if recorder is None
+                       else spans.Prefixed(recorder, PREFIX))
         self._span = self._spans.span
-        self.timing = self._spans.timing
+        # device stamps of each step (`trace`)
+        self._stamps: Optional[spans.StampRing] = None
+        self._stamping = False
 
         # device-resident state: (pyramid tuple, pts (N,2) f32, live (N,))
         self._dev = None
         self._pending = None  # (t_ns, packed, event) awaiting consume
         self._programs = graphs.ProgramCache()
+
+    @property
+    def timing(self):
+        return self._spans.timing
+
+    @property
+    def n_rejected(self) -> int:
+        """Cumulative F-gate rejections."""
+        return self.counts["rejected"]
+
+    def trace(self, on: bool = True):
+        """Stamp each step's device phases from now on, or stop (waiting
+        once for the rows still queued). A stamped step is a program of
+        its own, captured at its first use."""
+        if on and self._stamps is None:
+            self._stamps = spans.StampRing(self.device, 0,
+                                           tags=spans.FRONTEND_TAGS,
+                                           kind=stamp_op.FRONTEND)
+        if not on and self._stamps is not None:
+            self._stamps.poll(wait=True)
+        self._stamping = on
+
+    def stamp_record(self, clock: Optional[spans.Clock] = None):
+        """The stamped steps' rows (`spans.StampRing.record`), or None
+        where none was stamped."""
+        if self._stamps is None:
+            return None
+        self._stamps.poll(wait=True)
+        return self._stamps.record(clock)
 
     # ------------------------------------------------------------------
     def _preprocess(self, img):
@@ -123,19 +170,24 @@ class FusedTracker:
             img = clahe_mod.clahe(img)
         return tuple(klt.pyramid(img, self.cfg.klt.levels))
 
-    def _step(self, state, img, mk):
+    def _step(self, state, img, mk, stamps=None):
         """The step's program: `_megastep` on the carried state (pyramid,
         pts, live), with the rotation and kill mask as one uploaded vector
-        (M_rel's 9 entries, then the N kill flags)."""
+        (M_rel's 9 entries, then the N kill flags); `stamps`, a stamped
+        program's ring."""
         pyr_prev, pts, live = state
-        return self._megastep(img, pyr_prev, pts, live, mk[:9].reshape(3, 3),
-                              mk[9:] > 0.5)
+        spans.stamp(stamps, "start")
+        out = self._megastep(img, pyr_prev, pts, live,
+                             mk[:9].reshape(3, 3), mk[9:] > 0.5, stamps)
+        spans.stamp(stamps, "end")
+        return out
 
-    def _megastep(self, img, pyr_prev, pts, live, M_rel, kill):
+    def _megastep(self, img, pyr_prev, pts, live, M_rel, kill, stamps=None):
         """track -> refill free slots -> lift; returns the new device state
         and the packed (N, 8) f32 array. M_rel (3, 3): camera-frame rotation
         prev -> cur used to predict each feature's position; kill (N,):
-        slots the host F-gate rejected."""
+        slots the host F-gate rejected; "tracked" stamped after the
+        track."""
         cfg = self.cfg
         pyr_cur = self._preprocess(img)
 
@@ -151,6 +203,7 @@ class FusedTracker:
         guess = torch.stack([guess[:, 0].clamp(0.0, self.W - 1.0),
                              guess[:, 1].clamp(0.0, self.H - 1.0)], dim=1)
         new_pts, ok = klt.track(pyr_prev, pyr_cur, pts_in, cfg.klt, init=guess)
+        spans.stamp(stamps, "tracked")
         ok = ok & live
 
         # refill: the k-th accepted candidate goes to the k-th free slot
@@ -208,12 +261,15 @@ class FusedTracker:
         # the program is captured (first use) before the check
         with self._span("dispatch"):
             args = (self._dev, imgd, self._upload(M, self._kill))
-            step = self._programs.get(self._step, args, self.device,
+            static = {"stamps": self._stamps} if self._stamping else None
+            step = self._programs.get(self._step, args, self.device, static,
                                       carry=True)
             with recorded_syncs(self.check_dispatch_syncs
                                 and self.device.type == "cuda") as msgs:
                 self._dev, packed = step(*args)
                 pulled = (t_ns, *self._pull(packed))
+                if self._stamping:
+                    self._stamps.queue(self._spans.frame(), False)
             self.dispatch_syncs += len(msgs)
             self.sync_warnings.extend(msgs)
             self._kill = np.zeros((self.N,), dtype=bool)
@@ -302,9 +358,12 @@ class FusedTracker:
                     if len(bad):
                         self._suppress[bad] = True
                         self._kill[bad] = True
-                        self.n_rejected += len(bad)
+                        self.counts["rejected"] += len(bad)
         live &= ~self._suppress
         tracked &= ~self._suppress
+        self.counts["frames"] += 1
+        self.counts["features"] += int(live.sum())
+        self.counts["refilled"] += int(refilled.sum())
 
         # id lifecycle on the host (slot identity makes this vectorizable)
         n_new = int(refilled.sum())

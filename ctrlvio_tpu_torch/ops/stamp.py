@@ -18,6 +18,10 @@ nothing while a program is captured, as a capture on the card runs
 nothing. `stamp.launches` counts the kernel's launches and
 `stamp_plain.calls` the plain version's; `counts()` reads them, settled as
 `utils/graphs.py` settles every registered count.
+
+Two kernels write the same stamp, so that a trace tells the rings apart by
+name: `stamp_kernel` (`MEGASTEP`, the streamed megastep's ring) and
+`stamp_frontend` (`FRONTEND`, the front end's step), picked by `kind`.
 """
 
 from __future__ import annotations
@@ -33,10 +37,11 @@ from ctrlvio_tpu_torch.utils import graphs
 OP = "ctrlvio_tpu_torch::stamp_"
 SEQ, N_TRIPS = 0, 1
 START, MARK, TRIP, END = 0, 1, 2, 3
+MEGASTEP, FRONTEND = 0, 1
 
 
 def stamp_plain(ring: torch.Tensor, head: torch.Tensor, slot: int,
-                mode: int) -> None:
+                mode: int, kind: int = MEGASTEP) -> None:
     """The stamp on the host's clock (see the module notes)."""
     stamp_plain.calls += 1
     if graphs.capturing():
@@ -65,12 +70,12 @@ def _lib():
     lib = cuda_build.load("stamp")
     p = ctypes.c_void_p
     lib.stamp.argtypes = [p, p, ctypes.c_longlong, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_int, p]
+                          ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
     lib.stamp.restype = ctypes.c_int
     return lib
 
 
-def _check(ring, head, slot, mode):
+def _check(ring, head, slot, mode, kind):
     if ring.dtype != torch.int64 or head.dtype != torch.int64:
         raise TypeError("stamp: the ring and its head must be int64")
     if ring.dim() != 2 or not ring.is_contiguous():
@@ -82,42 +87,47 @@ def _check(ring, head, slot, mode):
     if not (0 <= slot < ring.shape[1]) or mode not in (START, MARK, TRIP,
                                                        END):
         raise ValueError(f"stamp: slot {slot} or mode {mode} out of range")
+    if kind not in (MEGASTEP, FRONTEND):
+        raise ValueError(f"stamp: unknown kind {kind}")
 
 
-def _launch(ring, head, slot, mode):
+def _launch(ring, head, slot, mode, kind=MEGASTEP):
     with torch.cuda.device(ring.device):
-        launcher(ring, head, slot, mode)()
+        launcher(ring, head, slot, mode, kind)()
     stamp.launches += 1
 
 
 stamp_op = torch.library.custom_op(
     OP, stamp_plain, mutates_args=("ring", "head"),
-    schema="(Tensor(a!) ring, Tensor(b!) head, int slot, int mode) -> ()")
+    schema="(Tensor(a!) ring, Tensor(b!) head, int slot, int mode, "
+    "int kind=0) -> ()")
 stamp_op.register_kernel("cuda")(_launch)
 stamp_op.register_fake(lambda *args: None)
 
 
 def stamp(ring: torch.Tensor, head: torch.Tensor, slot: int,
-          mode: int) -> None:
+          mode: int, kind: int = MEGASTEP) -> None:
     """One stamp into `ring` at its head's row (see the module notes): the
-    kernel for CUDA tensors, the plain version for CPU ones; nothing in a
-    program's warm-up."""
+    kernel of `kind` for CUDA tensors, the plain version for CPU ones;
+    nothing in a program's warm-up."""
     if graphs.warming_up():
         return
-    stamp_op(ring, head, slot, mode)
+    stamp_op(ring, head, slot, mode, kind)
 
 
-def launcher(ring: torch.Tensor, head: torch.Tensor, slot: int, mode: int):
+def launcher(ring: torch.Tensor, head: torch.Tensor, slot: int, mode: int,
+             kind: int = MEGASTEP):
     """A function of no arguments that makes one stamp with the least host
     work there is, for timing a stamp against the host's clock: the
     kernel's C entry point for CUDA tensors (no dispatch, not counted),
     the plain version for CPU ones."""
     if ring.device.type != "cuda":
-        return functools.partial(stamp_plain, ring, head, slot, mode)
-    _check(ring, head, slot, mode)
+        return functools.partial(stamp_plain, ring, head, slot, mode, kind)
+    _check(ring, head, slot, mode, kind)
     lib = _lib()
     args = (ring.data_ptr(), head.data_ptr(), ring.shape[0], ring.shape[1],
-            slot, mode, torch.cuda.current_stream(ring.device).cuda_stream)
+            slot, mode, kind,
+            torch.cuda.current_stream(ring.device).cuda_stream)
 
     def launch():
         err = lib.stamp(*args)

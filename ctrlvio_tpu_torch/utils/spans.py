@@ -15,14 +15,20 @@ written to a ring of rows allocated at `start`, so nothing grows on the hot
 path: its name, its start and end in ns on `time.time_ns()` (the clock
 that `torch.profiler`'s events carry), its parent (the span open around
 it, or -1) and its frame: a number that every span under one frame root
-(the span named `frame_root`, counted from 0) shares, -1 outside any. Once
+(a span named in `frame_root`, counted from 0; a root opened inside a
+frame keeps that frame) shares, -1 outside any. Once
 `capacity` spans have begun, the oldest are overwritten. `record()` gives
 the rows. Recording is switched between calls, never inside a span.
 
+A `Prefixed` view keeps one part's spans in another object's recorder
+under a prefix (the front end's inside the estimator's frames), and gives
+that part's `timing` under the bare names.
+
 **Device stamps.** A `StampRing` is a ring of rows on the card, one row a
-stamped run of a captured program (a streamed megastep), one slot a tag
-(`TAGS`), and after them one slot a trip of the solve's WHILE node (the
-row counts its trips itself: `N_TRIPS`). The program writes it through
+stamped run of a captured program (a streamed megastep, or the front
+end's step), one slot a tag (`TAGS` for the megastep, `FRONTEND_TAGS` for
+the front end's step), and after them one slot a trip of the solve's WHILE
+node (the row counts its trips itself: `N_TRIPS`). The program writes it through
 the stamp op (`ops/stamp.py`, `csrc/stamp.cu`: the card's
 `%globaltimer`), and a program captured with stamps gets the ring as a
 static argument, so that stamped and unstamped programs are keyed apart
@@ -67,6 +73,8 @@ SLOT = {tag: 2 + i for i, tag in enumerate(TAGS)}
 TRIP0 = 2 + len(TAGS)
 MODE = dict.fromkeys(TAGS, stamp_op.MARK)
 MODE.update(start=stamp_op.START, end=stamp_op.END)
+# the front end's step: its start, after K1's track, its end
+FRONTEND_TAGS = ("start", "tracked", "end")
 RING_ROWS = 256
 ROW_CAPACITY = 1 << 15
 
@@ -99,10 +107,10 @@ class _Span:
 class Recorder:
     """The host spans of one object (see the module notes)."""
 
-    def __init__(self, frame_root: Optional[str] = None,
-                 capacity: int = SPAN_CAPACITY):
+    def __init__(self, frame_root=None, capacity: int = SPAN_CAPACITY):
         self.timing = defaultdict(float)
-        self.frame_root = frame_root
+        self.frame_root = (frame_root,) if isinstance(frame_root, str) \
+            else tuple(frame_root or ())
         self.capacity = capacity
         self.on = False
         self.begun = 0
@@ -118,7 +126,7 @@ class Recorder:
         s = self._spans.get(name)
         if s is None:
             s = self._spans[name] = _Span(self, name, len(self.names),
-                                          name == self.frame_root)
+                                          name in self.frame_root)
             self.names.append(name)
         return s
 
@@ -145,11 +153,12 @@ class Recorder:
         start, end, name, parent, frame = self._cols
         r = seq % self.capacity
         p = stack[-1] if stack else -1
-        if span.root:
+        inside = frame[p % self.capacity] if p >= 0 else -1
+        if span.root and inside < 0:
             frame[r] = self.frames
             self.frames += 1
         else:
-            frame[r] = frame[p % self.capacity] if p >= 0 else -1
+            frame[r] = inside
         start[r], end[r], name[r], parent[r] = t, -1, span.code, p
         stack.append(seq)
 
@@ -187,6 +196,29 @@ class Recorder:
         ok = p >= 0
         p[ok] = np.where(done[p[ok]], index[p[ok]], -1)
         return {"names": list(self.names), "rows": keep}
+
+
+class Prefixed:
+    """One part's spans in another object's `Recorder`, under `prefix` +
+    name (see the module notes); `timing` is the cumulative seconds of the
+    spans opened through this view, under their bare names (a copy)."""
+
+    def __init__(self, rec: Recorder, prefix: str):
+        self.rec, self.prefix = rec, prefix
+        self._names = set()
+
+    def span(self, name: str) -> _Span:
+        self._names.add(name)
+        return self.rec.span(self.prefix + name)
+
+    def frame(self) -> int:
+        return self.rec.frame()
+
+    @property
+    def timing(self) -> dict:
+        t = self.rec.timing
+        return {k: t[self.prefix + k] for k in self._names
+                if self.prefix + k in t}
 
 
 class Clock:
@@ -248,16 +280,25 @@ def _sync(device: torch.device):
 
 
 class StampRing:
-    """The device stamps of one estimator's stamped programs (see the
-    module notes): `ring` (rows, slots) and `head` on `device`, the slots
-    `SEQ`, `N_TRIPS`, one a tag (`SLOT`) and `max_trips` trip slots from
-    `TRIP0`."""
+    """The device stamps of one object's stamped programs (see the module
+    notes): `ring` (rows, slots) and `head` on `device`, the slots `SEQ`,
+    `N_TRIPS`, one a tag of `tags` (the first starts a row, the last ends
+    it; `TAGS` by default, whose slots are `SLOT` and trips from `TRIP0`)
+    and `max_trips` trip slots after them. `kind` picks the stamp kernel
+    (`ops/stamp.py`)."""
 
     def __init__(self, device, max_trips: int, rows: int = RING_ROWS,
-                 capacity: int = ROW_CAPACITY):
+                 capacity: int = ROW_CAPACITY, tags=TAGS,
+                 kind: int = stamp_op.MEGASTEP):
         device = torch.device(device)
         self.device = device
-        self.slots = TRIP0 + max(max_trips, 0)
+        self.tags, self.kind = tuple(tags), kind
+        self.slot = {tag: 2 + i for i, tag in enumerate(self.tags)}
+        self.mode = dict.fromkeys(self.tags, stamp_op.MARK)
+        self.mode.update({self.tags[0]: stamp_op.START,
+                          self.tags[-1]: stamp_op.END})
+        self.trip0 = 2 + len(self.tags)
+        self.slots = self.trip0 + max(max_trips, 0)
         self.ring = torch.zeros((rows, self.slots), dtype=torch.int64,
                                 device=device)
         self.head = torch.zeros((1,), dtype=torch.int64, device=device)
@@ -276,12 +317,14 @@ class StampRing:
         self.read = 0
 
     def stamp(self, tag: str):
-        """Stamp `tag` (a name of `TAGS`, or "trip") into the head's row:
+        """Stamp `tag` (a name of `tags`, or "trip") into the head's row:
         called inside the stamped program."""
         if tag == "trip":
-            stamp_op.stamp(self.ring, self.head, TRIP0, stamp_op.TRIP)
+            stamp_op.stamp(self.ring, self.head, self.trip0, stamp_op.TRIP,
+                           self.kind)
         else:
-            stamp_op.stamp(self.ring, self.head, SLOT[tag], MODE[tag])
+            stamp_op.stamp(self.ring, self.head, self.slot[tag],
+                           self.mode[tag], self.kind)
 
     def queue(self, frame: int, marg_old: bool):
         """After a stamped run (on the host, in stream order): queue the
@@ -330,7 +373,7 @@ class StampRing:
         stamps = rows[:, 2:].copy()
         if clock is not None and clock.calibrations:
             stamps = clock.to_host(stamps)
-        return {"tags": TAGS, "trip0": TRIP0 - 2, "stamps": stamps,
+        return {"tags": self.tags, "trip0": self.trip0 - 2, "stamps": stamps,
                 "trips": rows[:, N_TRIPS].copy(), "seq": rows[:, SEQ].copy(),
                 "index": idx, "frame": meta[:, 0].copy(),
                 "marg_old": meta[:, 1].astype(bool)}
