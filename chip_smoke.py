@@ -7,8 +7,8 @@ Phases, each printed as one JSON line:
                then the textured frames of phase 7 start rendering in a
                separate process (host numpy, minutes) beside phases 2-6;
   2. build   - every hand-written kernel compiled from the repo's sources
-               (K1, the LM exit's WHILE-node helper, K2 and K3, K4), and
-               the native feature table's host library (g++);
+               (K1, the LM exit's WHILE-node helper, K2 and K3, K4, K6,
+               K7), and the native feature table's host library (g++);
   3. k1_level - the LK kernel's one-level case against its plain PyTorch
                version at the main path's shapes (each of the three pyramid
                levels of a 1280x1024 pair);
@@ -84,7 +84,12 @@ Phases, each printed as one JSON line:
                streaming CtrlVIO;
                bench.py's image gates (ATE < 0.15 m, line-delay error
                < 5 us), one 3-level K1 launch a frame and no plain LK call,
-               the gate fired, >= 40 megasteps with no synchronizing call;
+               one K7 launch a frame (the F-gate in the step) and no plain
+               gate, the gate fired, >= 40 megasteps with no synchronizing
+               call; K7 at the cell's shapes against its plain version
+               (equal but within FGATE_TOL_PX of the threshold), its time
+               beside its bound, the plain version's and the host numpy
+               gate's;
                front-end and estimator times, warmup and streamed medians,
                sustained fps, render time, the front end's synchronizing
                calls and a torch.profiler trace of one streamed frame;
@@ -165,7 +170,8 @@ Phases, each printed as one JSON line:
                one state under deterministic algorithms: times that
                compare across trees);
  14. kernels - one line listing every kernel with launches, error and times
-               (K2, K3, K4 and K5 with their launches on every path;
+               (K2, K3, K4 and K5 with their launches on every path, K7
+               with image_textured's;
                every path must have launched K2, K3 and K4, every
                streamed path K5, and none run a plain accept step or a
                plain summary).
@@ -194,6 +200,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import re
 import struct
@@ -216,10 +223,11 @@ from ctrlvio_tpu_torch.estimator.odometry import (CtrlVIO, VIOConfig,
                                                   iters_histogram)
 from ctrlvio_tpu_torch.frontend import klt
 from ctrlvio_tpu_torch.frontend import tracker as tracker_mod
+from ctrlvio_tpu_torch.frontend.fransac import reject_with_f
 from ctrlvio_tpu_torch.frontend.fused import FusedTracker, rotation_flow
 from ctrlvio_tpu_torch.frontend.tracker import FeatureTracker, TrackerConfig
 from ctrlvio_tpu_torch.ops import factor_kernels as fk
-from ctrlvio_tpu_torch.ops import lk, so3np
+from ctrlvio_tpu_torch.ops import fgate, lk, so3np
 from ctrlvio_tpu_torch.ops import lm_kernels as k4
 from ctrlvio_tpu_torch.ops import qr_prior as qr
 from ctrlvio_tpu_torch.parallel import batch, multihost, sharded_lm
@@ -228,8 +236,8 @@ from ctrlvio_tpu_torch.parallel.stream_batch import BatchedStream
 from ctrlvio_tpu_torch.sim import render, synthetic, tiny
 from ctrlvio_tpu_torch.sim.windows import (ACCEPT_CASES, FACTOR_WINDOWS,
                                            QR_PRIOR_SHAPES, accept_case,
-                                           factor_window, qr_prior_case,
-                                           summary_window)
+                                           factor_window, fgate_case,
+                                           qr_prior_case, summary_window)
 from ctrlvio_tpu_torch.solver import assemble, lm
 from ctrlvio_tpu_torch.solver.layout import (SolveOptions, WindowConfig,
                                              column_mask, retract)
@@ -256,12 +264,13 @@ def emit(obj):
 
 
 def reset_counts():
-    """Zero K1's to K6's launch counts and the captured programs'
+    """Zero K1's to K7's launch counts and the captured programs'
     records, just before a phase drives its path."""
     lk.reset_counts()
     fk.reset_counts()
     k4.reset_counts()
     qr.reset_counts()
+    fgate.reset_counts()
     graphs.reset_counts()
 
 
@@ -452,7 +461,7 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    names = ["lk", "graph_cond", "factors", "lm_accept", "qr_prior"]
+    names = ["lk", "graph_cond", "factors", "lm_accept", "qr_prior", "fgate"]
     paths = cuda_build.build(names)
     for n in names:
         cuda_build.load(n)
@@ -2122,6 +2131,99 @@ def textured_frames(proc):
     return imgs, render_s, wait_s
 
 
+# K7 (`ops/fgate.py`, the front end's F-gate): a track that K7 and its
+# plain version gate apart lies within this of the threshold (virtual px)
+FGATE_TOL_PX = 1e-9
+FGATE_THRESH = 1.0
+# the image cell's slots and common tracks a step (it keeps 84-92 % of 150)
+FGATE_CELL = dict(N=150, n=130)
+# the float64 peak of an H100 SXM (data sheet; tensor cores, 34 TFLOP/s
+# without)
+F64_FLOP_PER_S = 67e12
+
+
+def fgate_disagreements(case, table, thresh=FGATE_THRESH):
+    """K7 on `case` (`sim/windows.py::fgate_case`'s tensors, on the card)
+    against its plain version on the CPU: (slot, |d - thresh|) for each
+    slot where an output differs, d the plain version's final distance of
+    the slot's track (inf for a slot that is not a common track)."""
+    got = [t.cpu() for t in fgate.fgate(**case, table=table, thresh=thresh)]
+    cpu = {k: v.cpu() for k, v in case.items()}
+    tab = table.cpu()
+    want = fgate.fgate_plain(**cpu, table=tab, thresh=thresh)
+    supp1 = cpu["suppress"] & ~cpu["refilled"]
+    idx = torch.nonzero(cpu["tracked"] & cpu["prev_pub"] & ~supp1).flatten()
+    d = None
+    if idx.numel() >= fgate.MIN_TRACKS:
+        d = fgate.gate_mask_plain(
+            cpu["prev_norm"][idx].double() * fgate.VIRTUAL_FOCAL,
+            cpu["norm"][idx].double() * fgate.VIRTUAL_FOCAL,
+            tab[idx.numel()].long(),
+            thresh)[1]
+    where = {int(slot): k for k, slot in enumerate(idx)}
+    diff = torch.zeros_like(supp1)
+    for g, w in zip(got, want):
+        diff |= g != w
+    out = []
+    for slot in torch.nonzero(diff).flatten().tolist():
+        k = where.get(slot)
+        out.append((slot, math.inf if d is None or k is None
+                    else abs(float(d[k]) - thresh)))
+    return out
+
+
+def fgate_operations(n, m):
+    """K7's float64 operations over n common tracks with m inliers at each
+    refit: 200 SVDs of 8 x 9 and two of m x 9 for V (Golub and Van Loan's
+    4 m n^2 + 8 n^3), 202 scorings of n tracks (~35 operations a track),
+    the whitening (~20 a track)."""
+    def svd(rows):
+        return 4 * rows * 81 + 8 * 729
+    return (fgate.HYPS * svd(fgate.SAMPLE) + fgate.REFITS * svd(m)
+            + (fgate.HYPS + fgate.REFITS) * n * 35 + 20 * n)
+
+
+def k7_times(reps=50):
+    """K7 at the image cell's shapes (FGATE_CELL; a clean two-view set and
+    one with 30 % outliers): its disagreements with the plain version, its
+    ms a launch by graph replay (the ticket's memset node included), the
+    plain version's ms on the CPU, the host numpy gate's
+    (`fransac.reject_with_f`, what the port ran before K7) on the same
+    tracks, the bound by operations; and its resources."""
+    N, n = FGATE_CELL["N"], FGATE_CELL["n"]
+    table = torch.from_numpy(fgate.sample_table(N).copy()).cuda()
+    out = {"N": N, "n": n, "attributes": fgate.kernel_attributes()}
+    for kind in ("clean", "outliers"):
+        case = fgate_case(N, n, kind, seed=7, device="cuda")
+        cpu = {k: v.cpu() for k, v in case.items()}
+        supp1 = cpu["suppress"] & ~cpu["refilled"]
+        idx = torch.nonzero(cpu["tracked"] & cpu["prev_pub"]
+                            & ~supp1).flatten().numpy()
+        a = cpu["prev_norm"].numpy().astype(np.float64)[idx]
+        b = cpu["norm"].numpy().astype(np.float64)[idx]
+        m = int(reject_with_f(a, b, thresh_px=FGATE_THRESH).sum())
+        ops = fgate_operations(n, m)
+
+        def host_ms(fn):
+            fn()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                fn()
+            return (time.perf_counter() - t0) / 5 * 1e3
+
+        out[kind] = {
+            "disagreements": fgate_disagreements(case, table),
+            "ms": graph_ms(lambda: fgate.fgate(**case, table=table,
+                                               thresh=FGATE_THRESH), reps),
+            "plain_ms": host_ms(lambda: fgate.fgate_plain(
+                **cpu, table=table.cpu(), thresh=FGATE_THRESH)),
+            "numpy_ms": host_ms(lambda: reject_with_f(
+                a, b, thresh_px=FGATE_THRESH)),
+            "inliers": m, "operations": ops,
+            "bound_ms": ops / F64_FLOP_PER_S * 1e3, "bound_by": "operations"}
+    return out
+
+
 def gated_tracker_config():
     """`bench.py:446-449` for the textured scene: cam_tumrs.yaml's tracker
     block with the F-RANSAC gate on."""
@@ -2220,6 +2322,7 @@ def phase_image_textured(render_proc):
     vio.flush()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_run0
+    k7 = fgate.counts()
     launches = lk.lk_track.launches
     by_levels = dict(lk.lk_track.launches_by_levels)
     plain_calls = lk.lk_level_plain.calls + lk.lk_track_plain.calls
@@ -2245,6 +2348,8 @@ def phase_image_textured(render_proc):
            "line_delay_s": vio.traj.line_delay,
            "line_delay_true_s": sim.cfg.line_delay, "ld_err_s": ld_err,
            "n_rejected": tracker.n_rejected,
+           "gated_frames": tracker.counts["gated"],
+           "k7_launches": k7["fgate"], "plain_fgate_calls": k7["fgate_plain"],
            "k1_track_launches": launches,
            "k1_track_launches_by_levels": by_levels,
            "k1_level_launches": level_launches, "plain_lk_calls": plain_calls,
@@ -2301,6 +2406,19 @@ def phase_image_textured(render_proc):
     if not iters_exact(rec):
         raise SystemExit(f"image_textured: the LM's exit nodes did not run "
                          f"exactly the iterations its solves needed: {rec}")
+    k7_st = graphs.stats()
+    if not (k7_st["launches_replayed"].get("fgate") == len(sim.frames)
+            and k7["fgate"] == len(sim.frames)
+            + k7_st["launches_warm_up"].get("fgate", 0)
+            and k7["fgate_plain"] == 0 and tracker.counts["gated"] > 0):
+        raise SystemExit(f"image_textured did not gate each step with one "
+                         f"K7 launch: {rec}")
+    rec["k7"] = k7_times()
+    emit({"phase": "image_textured_k7", **rec["k7"]})
+    if any(dist >= FGATE_TOL_PX for kind in ("clean", "outliers")
+           for _, dist in rec["k7"][kind]["disagreements"]):
+        raise SystemExit(f"image_textured: K7 gates a track apart from its "
+                         f"plain version: {rec['k7']}")
     rec["classic"] = phase_image_classic(sim, imgs_dev, cam)
     return rec
 
@@ -3775,7 +3893,14 @@ def main():
         "max_err": qr_rec["max_err"],
         **{k: qr_rec[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                   "bound_by", "f64_ms", "vmapped_ms",
-                                  "attributes")}}]
+                                  "attributes")}}, {
+        "name": "K7 fgate", "route": "cuda",
+        "source": "ctrlvio_tpu_torch/csrc/fgate.cu", "replaces": None,
+        "replaces_note": "no TPU kernel: the JAX package's F-RANSAC gate "
+                         "is host numpy (ctrlvio_tpu/frontend/fransac.py::"
+                         "reject_with_f, called from fused.py's _consume)",
+        "launches": textured["k7_launches"], "library_ms": None,
+        **textured["k7"]}]
     replaced = {
         "k2": ("ctrlvio_tpu/solver/assemble.py:49", "vmapped _image_blocks "
                "and its one-hot expansion into dense rows"),

@@ -5,10 +5,10 @@ Per frame: CLAHE -> pyramid -> gyro-predicted pyramidal LK (kernel K1 on
 the card) with the forward-backward check -> Shi-Tomasi refill of free
 slots -> undistortion. The pyramid and the track state stay on the device
 between frames; the host receives one packed (N, 8) array per frame
-([x, y, nx, ny, live, tracked, refilled, pad]) and keeps the id lifecycle
-in numpy. Feature identity is the slot: a slot tracks one feature until it
-dies and is refilled; the host assigns globally unique ids to refill
-events.
+([x, y, nx, ny, live, tracked, refilled, rejected]) and keeps the id
+lifecycle in numpy. Feature identity is the slot: a slot tracks one
+feature until it dies and is refilled; the host assigns globally unique
+ids to refill events.
 
 On the card a step reads nothing back: the gyro rotation and the kill mask
 go up in one non-blocking copy from pinned memory, and the packed array
@@ -20,10 +20,14 @@ package's `_jit_pre` and `_jit_step`), one each for the tracker's pyramid,
 K1 inside the step's; the pyramid, points and live mask are carried in
 place from step to step.
 
-With `reject_wf` the host runs the epipolar F-RANSAC gate
-(`frontend/fransac.py`) on each consumed frame: a feature that violates
-the dominant two-view geometry is suppressed from publication at once and
-its slot is freed on the device at the next dispatch (≙ rejectWithF,
+With `reject_wf` each step runs the epipolar F-RANSAC gate of
+`frontend/fransac.py` on the tracks common to this frame and the last one
+published (`ops/fgate.py`: kernel K7 on the card, the plain version on the
+CPU), on state the step carries (the previous lifted points, the slots
+published and those the gate suppressed, as the host holds them). A
+feature that violates the dominant two-view geometry comes down marked
+rejected: the host suppresses it from publication at once and frees its
+slot on the device at the next dispatch (≙ rejectWithF,
 `feature_tracker.cpp:201-235`).
 
 Attached to an estimator (`CtrlVIO.attach_frontend(..., lag=1)`), the
@@ -32,8 +36,8 @@ they nest in its frames), and `trace(True)` stamps each step's device
 phases (`spans.FRONTEND_TAGS`: its start, after K1's track, its end) into
 a ring of its own, which the estimator's `trace_record` reads. `counts`
 holds, since the tracker was made, the frames it published and their
-features, the slots the device refilled and the tracks the F-gate
-rejected.
+features, the slots the device refilled, the frames the F-gate ran on
+(`gated`: 12 or more common tracks) and the tracks it rejected.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ctrlvio_tpu_torch.ops import fgate as fgate_op
 from ctrlvio_tpu_torch.ops import so3np
 from ctrlvio_tpu_torch.ops import stamp as stamp_op
 from ctrlvio_tpu_torch.utils import graphs, spans
@@ -51,7 +56,6 @@ from ctrlvio_tpu_torch.utils.precision import pin_f32_matmuls
 
 from . import clahe as clahe_mod
 from . import corners, klt
-from .fransac import reject_with_f
 from .tracker import TrackerConfig
 
 # the prefix of the tracker's spans in an estimator's recorder
@@ -113,12 +117,16 @@ class FusedTracker:
         self.prev_live = np.zeros((N,), dtype=bool)
         self.prev_t_ns: Optional[int] = None
         self.next_id = 0
-        # F-gate state: slots the host gate killed are suppressed from
+        # F-gate state: slots the gate rejected are suppressed from
         # publishing at once and freed on the device at the next dispatch
         self._kill = np.zeros((N,), dtype=bool)
         self._suppress = np.zeros((N,), dtype=bool)
         self.counts = {"frames": 0, "features": 0, "refilled": 0,
-                       "rejected": 0}
+                       "gated": 0, "rejected": 0}
+        # the gate's samples for every number of common tracks, on the
+        # device once
+        self._table = (torch.from_numpy(fgate_op.sample_table(N).copy()).to(
+            self.device) if cfg.reject_wf else None)
         self.check_dispatch_syncs = False
         self.dispatch_syncs = 0
         self.sync_warnings = []
@@ -129,7 +137,8 @@ class FusedTracker:
         self._stamps: Optional[spans.StampRing] = None
         self._stamping = False
 
-        # device-resident state: (pyramid tuple, pts (N,2) f32, live (N,))
+        # device-resident state: (pyramid tuple, pts (N,2) f32, live (N,),
+        # the gate's (prev_norm (N,2) f32, prev_pub (N,), suppress (N,)))
         self._dev = None
         self._pending = None  # (t_ns, packed, event) awaiting consume
         self._programs = graphs.ProgramCache()
@@ -172,26 +181,28 @@ class FusedTracker:
 
     def _step(self, state, img, mk, stamps=None):
         """The step's program: `_megastep` on the carried state (pyramid,
-        pts, live), with the rotation and kill mask as one uploaded vector
-        (M_rel's 9 entries, then the N kill flags); `stamps`, a stamped
-        program's ring."""
-        pyr_prev, pts, live = state
+        pts, live, the gate's state), with the rotation and kill mask as
+        one uploaded vector (M_rel's 9 entries, then the N kill flags);
+        `stamps`, a stamped program's ring."""
+        pyr_prev, pts, live, gate = state
         spans.stamp(stamps, "start")
-        out = self._megastep(img, pyr_prev, pts, live,
+        out = self._megastep(img, pyr_prev, pts, live, gate,
                              mk[:9].reshape(3, 3), mk[9:] > 0.5, stamps)
         spans.stamp(stamps, "end")
         return out
 
-    def _megastep(self, img, pyr_prev, pts, live, M_rel, kill, stamps=None):
-        """track -> refill free slots -> lift; returns the new device state
-        and the packed (N, 8) f32 array. M_rel (3, 3): camera-frame rotation
-        prev -> cur used to predict each feature's position; kill (N,):
-        slots the host F-gate rejected; "tracked" stamped after the
-        track."""
+    def _megastep(self, img, pyr_prev, pts, live, gate, M_rel, kill,
+                  stamps=None):
+        """track -> refill free slots -> lift -> F-gate (with `reject_wf`);
+        returns the new device state and the packed (N, 8) f32 array.
+        M_rel (3, 3): camera-frame rotation prev -> cur used to predict
+        each feature's position; kill (N,): slots the F-gate rejected;
+        gate: (prev_norm, prev_pub, suppress), passed through without
+        `reject_wf`; "tracked" stamped after the track."""
         cfg = self.cfg
         pyr_cur = self._preprocess(img)
 
-        live = live & ~kill  # host F-gate kills free their slots here
+        live = live & ~kill  # the F-gate's kills free their slots here
         pts_in = torch.where(live[:, None], pts, torch.zeros_like(pts))
         # gyro-predicted initial flow: rotate the lifted ray, re-project
         rays = self.camera.lift(pts_in)
@@ -226,14 +237,22 @@ class FusedTracker:
         live_out = ok | refilled
         norm = self.camera.lift(torch.where(live_out[:, None], pts_out,
                                             torch.zeros_like(pts_out)))
+        norm = norm.to(torch.float32)
+        if cfg.reject_wf:
+            bad, suppress, pub = fgate_op.fgate(
+                norm, gate[0], ok, refilled, live_out, gate[1], gate[2],
+                self._table, cfg.f_threshold)
+            gate = (norm, pub, suppress)
+        else:
+            bad = torch.zeros_like(ok)
         packed = torch.cat([
-            pts_out, norm.to(torch.float32),
+            pts_out, norm,
             live_out[:, None].to(torch.float32),
             ok[:, None].to(torch.float32),
             refilled[:, None].to(torch.float32),
-            torch.zeros((self.N, 1), dtype=torch.float32, device=self.device),
+            bad[:, None].to(torch.float32),
         ], dim=1)
-        return (tuple(pyr_cur), pts_out, live_out), packed
+        return (tuple(pyr_cur), pts_out, live_out, gate), packed
 
     # ------------------------------------------------------------------
     def step(self, t_ns: int, img, R_rel=None):
@@ -250,11 +269,14 @@ class FusedTracker:
         imgd = torch.as_tensor(img, device=self.device)
         if self._dev is None:
             pre = self._programs.get(self._preprocess, (imgd,), self.device)
+            none = torch.zeros((self.N,), dtype=torch.bool,
+                               device=self.device)
             self._dev = (pre(imgd),
                          torch.full((self.N, 2), -1.0, dtype=torch.float32,
-                                    device=self.device),
-                         torch.zeros((self.N,), dtype=torch.bool,
-                                     device=self.device))
+                                    device=self.device), none,
+                         (torch.zeros((self.N, 2), dtype=torch.float32,
+                                      device=self.device), none.clone(),
+                          none.clone()))
         M = np.eye(3, dtype=np.float32) if R_rel is None \
             else np.asarray(R_rel, np.float32)
         # dispatch with the kills of the previous consume, then clear them;
@@ -342,23 +364,22 @@ class FusedTracker:
         tracked = p[:, 5] > 0.5
         refilled = p[:, 6] > 0.5
 
-        # epipolar outlier gate on the host: features violating the
-        # dominant two-view geometry (e.g. tracks on independently moving
-        # objects) are suppressed from this frame's publication and their
-        # slots queued for the next dispatch's kill and refill
+        # the step's epipolar outlier gate: features violating the dominant
+        # two-view geometry (e.g. tracks on independently moving objects)
+        # are suppressed from this frame's publication and their slots
+        # queued for the next dispatch's kill and refill
         self._suppress &= ~refilled  # the device refilled the slot
         if self.cfg.reject_wf:
             with self._span("fgate"):
                 same = tracked & self.prev_live & ~self._suppress
-                idx = np.nonzero(same)[0]
-                if len(idx) >= 12:
-                    inl = reject_with_f(self.prev_norm[idx], norm[idx],
-                                        thresh_px=self.cfg.f_threshold)
-                    bad = idx[~inl]
-                    if len(bad):
-                        self._suppress[bad] = True
-                        self._kill[bad] = True
-                        self.counts["rejected"] += len(bad)
+                if int(same.sum()) >= fgate_op.MIN_TRACKS:
+                    self.counts["gated"] += 1
+                bad = p[:, 7] > 0.5
+                n_bad = int(bad.sum())
+                if n_bad:
+                    self._suppress |= bad
+                    self._kill |= bad
+                    self.counts["rejected"] += n_bad
         live &= ~self._suppress
         tracked &= ~self._suppress
         self.counts["frames"] += 1

@@ -4,7 +4,9 @@ with bias pairs and a prior) to their plain versions and timing them at the
 shapes the estimator gives them: `chip_smoke.py`'s `factor_kernels` phase,
 the gpu tests and `tools/factor_geometry.py`; and an LM state and trial at
 a window's shapes in the accept step's cases, for K4 (`accept_case`:
-`chip_smoke.py`'s `lm_accept` phase and the tests)."""
+`chip_smoke.py`'s `lm_accept` phase and the tests); the QR prior's rows,
+for K6 (`qr_prior_case`); and the front end's state over two views of a
+rigid scene, for the F-gate K7 (`fgate_case`)."""
 
 from __future__ import annotations
 
@@ -258,3 +260,73 @@ def qr_prior_case(shape, dtype, device, seed=0, n_drop=2, landmarks=None,
               order=t(order, torch.int64), keep_from=6 * n_drop + 6, MLM=MLM,
               eps=3e-4 if dtype == torch.float32 else 1e-7)
     return kw, t(row_ok)
+
+
+# the F-gate's (K7's) cases: what the second view's points carry besides
+# the rigid motion
+FGATE_KINDS = ("clean", "outliers", "tie", "cluster")
+
+
+def fgate_case(N, n, kind, seed, device="cpu"):
+    """The inputs of `ops/fgate.py::fgate` (without the table and the
+    threshold) over N slots, n of them tracks common to both frames
+    (tracked, published before, not suppressed), drawn from `seed`: their
+    points two views of a rigid scene (x in [-2, 2], y in [-1.5, 1.5],
+    depth 3 to 9 m, from the identity and from a pose 0.4 m and 0.06 rad
+    away) in normalized coordinates, the second with 0.3 px of noise (at
+    the gate's 460 px focal length) and, by `kind`: nothing more
+    ("clean"); 30 % of them moved 23 to 92 px ("outliers"); 0.6 px of
+    noise, so that many tracks lie near a 1 px threshold and hypotheses
+    tie ("tie"); the quarter nearest a point moved together by (2.3, 9.2)
+    px, across the epipolar lines, a rigid cluster moving against the
+    scene ("cluster"). The other slots: tracked but not published before,
+    suppressed, refilled after a suppression, or dead, at random, with
+    points of their own. Returns a
+    dict of (N, 2) float32 `norm`, `prev_norm` and (N,) bool `tracked`,
+    `refilled`, `live`, `prev_pub`, `suppress`."""
+    if kind not in FGATE_KINDS:
+        raise ValueError(f"fgate_case: kind {kind!r} is not one of "
+                         f"{FGATE_KINDS}")
+    rng = np.random.default_rng(seed)
+    X = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n),
+                  rng.uniform(3, 9, n)], axis=1)
+    th = 0.06
+    R = np.array([[np.cos(th), 0, np.sin(th)], [0, 1, 0],
+                  [-np.sin(th), 0, np.cos(th)]])
+    X1 = (X - np.array([0.4, 0.05, 0.1])) @ R
+    p0, p1 = X[:, :2] / X[:, 2:3], X1[:, :2] / X1[:, 2:3]
+    px = 1.0 / 460.0
+    p1 = p1 + rng.normal(0, (0.6 if kind == "tie" else 0.3) * px, p1.shape)
+    if kind == "outliers":
+        k = rng.random(n) < 0.3
+        ang = rng.uniform(0, 2 * np.pi, k.sum())
+        r = rng.uniform(0.05, 0.2, k.sum())
+        p1[k] += np.stack([np.cos(ang), np.sin(ang)], axis=1) * r[:, None]
+    elif kind == "cluster":
+        near = np.argsort(np.linalg.norm(p0 - p0[rng.integers(n)], axis=1))
+        p1[near[: max(n // 4, 1)]] += np.array([0.005, 0.02])
+    slots = rng.permutation(N)
+    same = np.zeros(N, bool)
+    same[np.sort(slots[:n])] = True
+    other = rng.integers(0, 4, N)  # 0 new, 1 suppressed, 2 refilled, 3 dead
+    tracked = same | (~same & (other < 2))
+    prev_pub = same | (~same & (other == 1)) | (~same & (other == 2)
+                                                 & (rng.random(N) < 0.5))
+    suppress = ~same & ((other == 1) | (other == 2)
+                        | ((other == 3) & (rng.random(N) < 0.5)))
+    refilled = ~same & (other == 2)
+    prev_norm = rng.uniform(-0.6, 0.6, (N, 2))
+    norm = prev_norm + rng.normal(0, 0.01, (N, 2))
+    prev_norm[same], norm[same] = p0, p1
+
+    def t(x, dt):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device=device,
+                                                            dtype=dt)
+
+    return dict(norm=t(norm, torch.float32), prev_norm=t(prev_norm,
+                                                         torch.float32),
+                tracked=t(tracked, torch.bool), refilled=t(refilled,
+                                                           torch.bool),
+                live=t(tracked | refilled, torch.bool),
+                prev_pub=t(prev_pub, torch.bool),
+                suppress=t(suppress, torch.bool))

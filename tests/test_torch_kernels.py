@@ -2,7 +2,8 @@
 PyTorch versions: K1 (`csrc/lk.cu`), K2 and K3 and K5 (the residual
 summary; `csrc/factors.cu`), K4 (`csrc/lm_accept.cu`, the
 LM's accept step, and the WHILE node whose condition it sets), K6
-(`csrc/qr_prior.cu`, the QR prior's Q-less QR). Every
+(`csrc/qr_prior.cu`, the QR prior's Q-less QR), K7 (`csrc/fgate.cu`, the
+front end's F-RANSAC gate, alone and in the fused tracker's step). Every
 test here needs a CUDA
 device and skips without one. The file imports neither JAX nor the JAX package, so that it runs on
 a machine that has only PyTorch:
@@ -15,22 +16,27 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (CASE_LEVELS, FACTOR_TOL, FACTOR_WINDOWS, LOOP_ITERS,
-                        QR_LANES, QR_TOL, SEARCH_MARGIN, SUMMARY_TOL,
-                        TRACK_CASES, assembled_qr_prior, col_rel_err,
-                        factor_calls, factor_window, k4_loop, loop_args,
-                        prior_gram_err, rel_err, stack_tree, summary_calls,
-                        textured_pair, track_case, tree_err)
+from chip_smoke import (CASE_LEVELS, FACTOR_TOL, FACTOR_WINDOWS,
+                        FGATE_THRESH, FGATE_TOL_PX, LOOP_ITERS, QR_LANES,
+                        QR_TOL, SEARCH_MARGIN, SUMMARY_TOL, TRACK_CASES,
+                        assembled_qr_prior, col_rel_err, factor_calls,
+                        factor_window, fgate_disagreements, k4_loop,
+                        loop_args, prior_gram_err, rel_err, stack_tree,
+                        summary_calls, textured_pair, track_case, tree_err)
 from ctrlvio_tpu_torch.frontend import klt
+from ctrlvio_tpu_torch.frontend.fused import FusedTracker, rotation_flow
+from ctrlvio_tpu_torch.frontend.tracker import TrackerConfig
 from ctrlvio_tpu_torch.ops import factor_kernels as fk
-from ctrlvio_tpu_torch.ops import lk
+from ctrlvio_tpu_torch.ops import fgate, lk, so3np
 from ctrlvio_tpu_torch.ops import lm_kernels as k4
 from ctrlvio_tpu_torch.ops import qr_prior as qr
 from ctrlvio_tpu_torch.parallel.batch import stack
-from ctrlvio_tpu_torch.sim.windows import (ACCEPT_CASES, QR_PRIOR_SHAPES,
-                                           accept_case, qr_prior_case,
+from ctrlvio_tpu_torch.sim.windows import (ACCEPT_CASES, FGATE_KINDS,
+                                           QR_PRIOR_SHAPES, accept_case,
+                                           fgate_case, qr_prior_case,
                                            summary_window)
 from ctrlvio_tpu_torch.utils import graphs
+from test_torch_frontend_lagged import TRACKER, H, W, scene  # noqa: F401
 
 pytestmark = pytest.mark.gpu
 
@@ -765,3 +771,114 @@ def test_k6_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         qr.qr_prior_r(**wide)
     assert qr.qr_prior_r.launches == n
+
+
+# ---------------------------------------------------------------------------
+# K7: the front end's F-gate
+# ---------------------------------------------------------------------------
+
+
+def fgate_table(N, device):
+    return torch.from_numpy(fgate.sample_table(N).copy()).to(device)
+
+
+def test_k7_matches_plain_version(cuda):
+    """K7 against its plain version at N = 150 for every n from 12 to 150
+    with planted outliers, and every case kind at 12, 13, 40 and 150
+    tracks; fewer tracks than the gate takes (5, 11); other slot counts
+    (13, 40, 256). Equal outputs, but for a track within FGATE_TOL_PX of
+    the threshold (each disagreement listed with its distance from it)."""
+    runs = [(150, n, "outliers") for n in range(12, 151)]
+    runs += [(150, n, kind) for n in (12, 13, 40, 150) for kind in
+             FGATE_KINDS if kind != "outliers"]
+    runs += [(150, 5, "clean"), (150, 11, "outliers"), (13, 12, "outliers"),
+             (40, 40, "cluster"), (256, 200, "outliers"),
+             (256, 256, "tie")]
+    tables = {N: fgate_table(N, cuda) for N in {r[0] for r in runs}}
+    n0 = fgate.fgate.launches
+    apart = []
+    for N, n, kind in runs:
+        case = fgate_case(N, n, kind, seed=N + n, device=cuda)
+        apart += [(N, n, kind, slot, dist) for slot, dist in
+                  fgate_disagreements(case, tables[N])]
+    torch.cuda.synchronize()
+    assert fgate.fgate.launches == n0 + len(runs)
+    assert all(dist < FGATE_TOL_PX for *_, dist in apart), apart
+
+
+def test_k7_in_a_captured_program(cuda):
+    """K7 inside a captured program: each replay one launch, every replay
+    equal to the eager launch (the ticket set back each time)."""
+    table = fgate_table(150, cuda)
+    case = fgate_case(150, 130, "outliers", seed=3, device=cuda)
+    names = list(case)
+
+    def gate(*ts):
+        return fgate.fgate(*ts, table=table, thresh=FGATE_THRESH)
+
+    ts = tuple(case[k] for k in names)
+    ref = gate(*ts)
+    assert ref[0].any()
+    prog = graphs.ProgramCache().get(gate, ts, cuda, {})
+    prog(*ts)
+    torch.cuda.synchronize()
+    fgate.reset_counts()
+    for _ in range(3):
+        got = prog(*ts)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    assert fgate.counts() == {"fgate": 3, "fgate_plain": 0}
+
+
+def test_k7_in_the_gated_trackers_step(cuda, scene):
+    """The fused tracker with the gate on the card, at lag 0 and 1, on the
+    lagged tests' scene with its moving quad: one K7 launch a replayed
+    step (and one in the warm-up before its capture), no plain gate, no
+    synchronizing call in a dispatch, the gate run and firing."""
+    sim, cam, imgs = scene
+    R = so3np.quat_to_matrix(
+        so3np.quat_exp(np.asarray(sim.cfg.ext_rot))[None])[0]
+    for lag in (0, 1):
+        tr = FusedTracker(TrackerConfig(**TRACKER), cam, (H, W), lag=lag,
+                          device=cuda)
+        tr.check_dispatch_syncs = True
+        fgate.reset_counts()
+        graphs.reset_counts()
+        prev = None
+        for i, fr in enumerate(sim.frames):
+            M = None if prev is None else rotation_flow(
+                sim.imu_t_ns, sim.gyro, prev, fr.t_ns, R)
+            prev = fr.t_ns
+            tr.step(fr.t_ns, imgs[i], R_rel=M)
+        tr.flush()
+        torch.cuda.synchronize()
+        n = len(sim.frames)
+        st = graphs.stats()
+        assert st["launches_replayed"]["fgate"] == n
+        assert st["launches_warm_up"]["fgate"] == 1
+        assert fgate.counts() == {"fgate": n + 1, "fgate_plain": 0}
+        assert tr.dispatch_syncs == 0, tr.sync_warnings
+        assert tr.counts["gated"] > 0 and tr.counts["rejected"] > 0
+
+
+def test_k7_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    """The wrapper raises on what K7 does not take, and launches
+    nothing."""
+    table = fgate_table(150, cuda)
+    case = fgate_case(150, 40, "clean", seed=1, device=cuda)
+    n = fgate.fgate.launches
+    bad_inputs = [
+        (TypeError, dict(norm=case["norm"].double())),
+        (TypeError, dict(tracked=case["tracked"].to(torch.uint8))),
+        (ValueError, dict(suppress=case["suppress"].cpu())),
+        (ValueError, dict(prev_norm=case["prev_norm"][:-1])),
+        (ValueError, dict(norm=case["norm"].t().contiguous().t())),
+        (ValueError, dict(table=table[:-1]))]
+    for err, change in bad_inputs:
+        with pytest.raises(err):
+            fgate.fgate(**{**case, "table": table, **change},
+                        thresh=FGATE_THRESH)
+    wide = fgate_case(300, 40, "clean", seed=1, device=cuda)
+    with pytest.raises(ValueError):
+        fgate.fgate(**wide, table=table, thresh=FGATE_THRESH)
+    assert fgate.fgate.launches == n
