@@ -17,8 +17,10 @@ Phases, each printed as one JSON line:
                shapes: three levels for interior features, features near
                the borders and a large motion that sends taps outside the
                kernel's staged windows; four levels with init = pts, the
-               classic tracker's track; two levels, the command line's
-               track (`KLTConfig`'s default pred_levels);
+               track `klt.track` makes without an initial guess (K1's
+               four-level instance, which no image path launches); two
+               levels, the command line's track (`KLTConfig`'s default
+               pred_levels);
                then lm_accept: K4 (`csrc/lm_accept.cu`, the LM's accept
                step) against its plain version at e2e's window, f32 and
                f64, in every accept case, functional, in place and
@@ -88,15 +90,16 @@ Phases, each printed as one JSON line:
                gate, the gate fired, >= 40 megasteps with no synchronizing
                call; K7 at the cell's shapes against its plain version
                (equal but within FGATE_TOL_PX of the threshold), its time
-               beside its bound, the plain version's and the host numpy
-               gate's;
+               beside its bound and the plain version's;
                front-end and estimator times, warmup and streamed medians,
                sustained fps, render time, the front end's synchronizing
                calls and a torch.profiler trace of one streamed frame;
-               then image_textured_classic: the first 4 s through
-               CtrlVIO.process_image with the classic FeatureTracker, its
-               four stages captured programs (one 4-level K1 launch a
-               frame by replays, >= 100 features);
+               then image_textured_gated: the first 4 s through
+               CtrlVIO.process_image after attach_frontend with the gated
+               config at lag 0 (the command line's route), the gated
+               FusedTracker (one 3-level K1 and one K7 launch a frame by
+               replays, no plain LK or gate call, no synchronizing call,
+               >= 100 features);
   8. serve   - `bench.py --mode serve` at its default width, cut from 12 s
                to 6 s: 8 streaming CtrlVIOs behind one BatchedStream, one
                batched megastep (torch.func.vmap) a frame for all lanes;
@@ -161,26 +164,25 @@ Phases, each printed as one JSON line:
                program replayed from its captured CUDA graph and eagerly:
                10 synchronous `main` frames with the front end on every
                frame, ~20 streamed e2e frames, 10 serve steps at B = 8,
-               12 frames of the classic tracker, the batched solver at
-               B = 8; `main` and `e2e` (LM exit nodes inside) and the
-               batched solver bit for bit, the rest within the gpu tests'
-               tolerances, ATE within 1 mm, host ms a frame both ways; the
-               e2e run's last streamed megastep and synchronous window
-               solve replayed from their held inputs (CUDA events, from
-               one state under deterministic algorithms: times that
-               compare across trees);
+               the batched solver at B = 8; `main` and `e2e` (LM exit
+               nodes inside) and the batched solver bit for bit, the rest
+               within the gpu tests' tolerances, ATE within 1 mm, host ms
+               a frame both ways; the e2e run's last streamed megastep and
+               synchronous window solve replayed from their held inputs
+               (CUDA events, from one state under deterministic
+               algorithms: times that compare across trees);
  14. kernels - one line listing every kernel with launches, error and times
                (K2, K3, K4 and K5 with their launches on every path, K7
-               with image_textured's;
+               with image_textured's and image_textured_gated's;
                every path must have launched K2, K3 and K4, every
                streamed path K5, and none run a plain accept step or a
                plain summary).
 Every path runs as the port runs on the card: each per-frame program (the
 streamed and batched megasteps, the synchronous solve, prior and predict,
-the f64 bootstrap BA, the fused front end, the classic tracker's four
-stages, the batched solver, NCCL's sharded solve and step) a captured
-CUDA graph (`utils/graphs.py`), the LM's iterations after the first the
-body of a WHILE node that stops once the solve is done. Each
+the f64 bootstrap BA, the fused front end, the batched solver, NCCL's
+sharded solve and step) a captured CUDA graph (`utils/graphs.py`), the
+LM's iterations after the first the body of a WHILE node that stops once
+the solve is done. Each
 phase's line lists the graphs it captured (key, seconds, reserved memory
 before and after), their seconds, the shared graph pool's size, the
 replays and the K1 launches made by replays and by the warm-up runs before
@@ -222,10 +224,8 @@ from ctrlvio_tpu_torch.estimator import native, odometry, stream
 from ctrlvio_tpu_torch.estimator.odometry import (CtrlVIO, VIOConfig,
                                                   iters_histogram)
 from ctrlvio_tpu_torch.frontend import klt
-from ctrlvio_tpu_torch.frontend import tracker as tracker_mod
-from ctrlvio_tpu_torch.frontend.fransac import reject_with_f
 from ctrlvio_tpu_torch.frontend.fused import FusedTracker, rotation_flow
-from ctrlvio_tpu_torch.frontend.tracker import FeatureTracker, TrackerConfig
+from ctrlvio_tpu_torch.frontend.tracker import TrackerConfig
 from ctrlvio_tpu_torch.ops import factor_kernels as fk
 from ctrlvio_tpu_torch.ops import fgate, lk, so3np
 from ctrlvio_tpu_torch.ops import lm_kernels as k4
@@ -543,9 +543,10 @@ def track_case(name, device, N=150):
     off. border: features within 12 px of a border, init 2 px off.
     large_motion: a smoother texture (32 px blocks, sigma 8) with init
     32 px off, 8 px at the coarsest level, so that level moves most
-    features beyond the staged search window. four_levels: the classic
-    tracker's track, the interior features over all four levels (1280x1024
-    down to 160x128) with init = pts. two_levels: the command line's
+    features beyond the staged search window. four_levels: `klt.track`
+    without an initial guess, the interior features over all four levels
+    (1280x1024 down to 160x128) with init = pts: K1's four-level
+    instance, which no image path launches. two_levels: the command line's
     track (`KLTConfig.pred_levels` 2), the interior case over two levels.
     Returns (pyr0, pyr1, pts, init, shift)."""
     H, W = 1024, 1280
@@ -2084,7 +2085,7 @@ def phase_e2e():
 # bench.py --mode image's chip preset: 12 s of the textured scene, cut to
 # 10 s for the script's time limit
 TEXTURED_S = 10.0
-CLASSIC_FRAMES = 40
+GATED_FRAMES = 40
 FRAMES_FILE = Path(__file__).resolve().parent / "build" / "textured_frames.npy"
 
 
@@ -2187,9 +2188,8 @@ def k7_times(reps=50):
     """K7 at the image cell's shapes (FGATE_CELL; a clean two-view set and
     one with 30 % outliers): its disagreements with the plain version, its
     ms a launch by graph replay (the ticket's memset node included), the
-    plain version's ms on the CPU, the host numpy gate's
-    (`fransac.reject_with_f`, what the port ran before K7) on the same
-    tracks, the bound by operations; and its resources."""
+    plain version's ms on the CPU, the bound by operations; and its
+    resources."""
     N, n = FGATE_CELL["N"], FGATE_CELL["n"]
     table = torch.from_numpy(fgate.sample_table(N).copy()).cuda()
     out = {"N": N, "n": n, "attributes": fgate.kernel_attributes()}
@@ -2198,10 +2198,11 @@ def k7_times(reps=50):
         cpu = {k: v.cpu() for k, v in case.items()}
         supp1 = cpu["suppress"] & ~cpu["refilled"]
         idx = torch.nonzero(cpu["tracked"] & cpu["prev_pub"]
-                            & ~supp1).flatten().numpy()
-        a = cpu["prev_norm"].numpy().astype(np.float64)[idx]
-        b = cpu["norm"].numpy().astype(np.float64)[idx]
-        m = int(reject_with_f(a, b, thresh_px=FGATE_THRESH).sum())
+                            & ~supp1).flatten()
+        m = int(fgate.gate_mask_plain(
+            cpu["prev_norm"][idx].double() * fgate.VIRTUAL_FOCAL,
+            cpu["norm"][idx].double() * fgate.VIRTUAL_FOCAL,
+            table.cpu()[idx.numel()].long(), FGATE_THRESH)[0].sum())
         ops = fgate_operations(n, m)
 
         def host_ms(fn):
@@ -2217,8 +2218,6 @@ def k7_times(reps=50):
                                                thresh=FGATE_THRESH), reps),
             "plain_ms": host_ms(lambda: fgate.fgate_plain(
                 **cpu, table=table.cpu(), thresh=FGATE_THRESH)),
-            "numpy_ms": host_ms(lambda: reject_with_f(
-                a, b, thresh_px=FGATE_THRESH)),
             "inliers": m, "operations": ops,
             "bound_ms": ops / F64_FLOP_PER_S * 1e3, "bound_by": "operations"}
     return out
@@ -2250,7 +2249,7 @@ def phase_image_textured(render_proc):
     solved frame, yaw-aligned; line-delay error < 5 us); one 3-level K1
     track launch a frame and no plain LK call; the F-gate fired; >= 40
     megasteps, none with a synchronizing call, no synchronous solve after
-    the handoff. Then the classic tracker's check on the same frames."""
+    the handoff."""
     H, W = 1024, 1280
     cam = tumrs_camera()
     sim = image_sim(TEXTURED_S, 300)
@@ -2419,94 +2418,90 @@ def phase_image_textured(render_proc):
            for _, dist in rec["k7"][kind]["disagreements"]):
         raise SystemExit(f"image_textured: K7 gates a track apart from its "
                          f"plain version: {rec['k7']}")
-    rec["classic"] = phase_image_classic(sim, imgs_dev, cam)
+    rec["gated"] = phase_image_gated(sim, imgs_dev, cam)
     return rec
 
 
-def phase_image_classic(sim, imgs_dev, cam):
-    """The classic tracker on the card, briefly: the first 4 s of the same
-    frames through `CtrlVIO.process_image` with `attach_frontend` and the
-    gated tracker config, which routes to `FeatureTracker` (all 4 levels,
-    no initial flow); the synchronous estimator from the ground-truth
-    bootstrap. The tracker's four stages run as captured programs (the
-    preprocessing, the track with K1 inside, the corner detection, the
-    lift). Gates: finite poses, one 4-level K1 track launch a frame from
-    the second on (the first has no previous pyramid), counted through
-    replays, and no plain LK call; each program captured once; 100 or
-    more published features a frame after the first. ATE and line-delay
-    error are reported, not gated."""
+def phase_image_gated(sim, imgs_dev, cam):
+    """The estimator's own image route with the gate, briefly: the first
+    4 s of the same frames through `CtrlVIO.process_image` after
+    `attach_frontend` with the gated tracker config at the default lag 0
+    (what `python -m ctrlvio_tpu_torch run` attaches), the synchronous
+    estimator from the ground-truth bootstrap. Gates: the gated, unlagged
+    `FusedTracker`; finite poses; one 3-level K1 track launch and one K7
+    launch a frame, counted through replays, and no plain LK or plain
+    gate call; no synchronizing call inside a step; each program captured
+    once; 100 or more features a frame after the first. ATE and
+    line-delay error are reported, not gated."""
     H, W = imgs_dev.shape[1:]
     reset_counts()
     t_run0 = time.perf_counter()
     vio = started_vio(sim, image_vio_config(stream=False))
     vio.attach_frontend(cam, (H, W), gated_tracker_config())
     tracker = vio.tracker
-    if not isinstance(tracker, FeatureTracker):
+    if not (type(tracker) is FusedTracker and tracker.lag == 0
+            and tracker.cfg.reject_wf):
         raise SystemExit(f"attach_frontend with reject_wf gave "
-                         f"{type(tracker).__name__}, not FeatureTracker")
-    est, gt, n_pub = [], [], []
-    frame_ms = []
-    est_ms = []
-    for i, fr in enumerate(sim.frames[:CLASSIC_FRAMES]):
-        pub = tracker._pub_count
-        est0 = sum(vio.timing.get(k, 0.0) for k in RUN_TOP_KEYS)
+                         f"{type(tracker).__name__}, not the gated, "
+                         f"unlagged FusedTracker")
+    tracker.check_dispatch_syncs = True
+    n = min(GATED_FRAMES, len(sim.frames))
+    est, gt, n_live, frame_ms = [], [], [], []
+    for i, fr in enumerate(sim.frames[:n]):
         t0 = time.perf_counter()
         out = vio.process_image(fr.t_ns, imgs_dev[i])
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
-        est_ms.append((sum(vio.timing.get(k, 0.0) for k in RUN_TOP_KEYS)
-                       - est0) * 1e3)
-        if tracker._pub_count > pub:
-            n_pub.append(int((tracker.ids >= 0).sum()))
+        n_live.append(int((tracker.ids >= 0).sum()))
         if out is not None:
             est.append(out[1])
             gt.append(sim.pose_at(fr.t_ns * 1e-9)[1])
     vio.flush()
     torch.cuda.synchronize()
-    n = min(CLASSIC_FRAMES, len(sim.frames))
+    k7 = fgate.counts()
     launches = lk.lk_track.launches
     by_levels = dict(lk.lk_track.launches_by_levels)
     plain_calls = lk.lk_level_plain.calls + lk.lk_track_plain.calls
     est, gt = np.asarray(est), np.asarray(gt)
-    fc = factor_fields()
     g = graph_fields()
-    rec = {"phase": "image_textured_classic", "frames": n,
-           "solved": len(est), "published": len(n_pub),
-           "wall_s": time.perf_counter() - t_run0,
-           "features_min_after_first": min(n_pub[1:]) if len(n_pub) > 1
-           else None,
-           "features_median": float(np.median(n_pub)) if n_pub else None,
+    st = graphs.stats()
+    rec = {"phase": "image_textured_gated", "frames": n,
+           "solved": len(est), "wall_s": time.perf_counter() - t_run0,
+           "tracker": type(tracker).__name__, "lag": tracker.lag,
+           "features_min_after_first": min(n_live[1:]),
+           "features_median": float(np.median(n_live)),
+           "n_rejected": tracker.n_rejected,
+           "gated_frames": tracker.counts["gated"],
            "ate_m": ate_rmse(est[10:], gt[10:], align="yaw")
            if len(est) > 12 else None,
            "ld_err_s": abs(vio.traj.line_delay - sim.cfg.line_delay),
-           "frame_ms_median": float(np.median(frame_ms[1:])),
            "frame_ms_median_steady": float(np.median(frame_ms[12:])),
-           # the estimator's share of a steady frame (its timed phases),
-           # the rest the classic tracker's and process_image's own
-           "estimator_ms_median_steady": float(np.median(est_ms[12:])),
-           "frontend_ms_median_steady": float(np.median(
-               np.subtract(frame_ms, est_ms)[12:])),
+           "k7_launches": k7["fgate"],
+           "k7_launches_replayed": st["launches_replayed"].get("fgate"),
+           "plain_fgate_calls": k7["fgate_plain"],
            "k1_track_launches": launches,
            "k1_track_launches_by_levels": by_levels,
            "plain_lk_calls": plain_calls,
-           "tracker_programs": sorted(p.label for p in
-                                      tracker_mod._PROGRAMS._programs
-                                      .values()), **fc, **g}
+           "frontend_dispatch_syncs": tracker.dispatch_syncs,
+           "frontend_sync_messages": sorted(set(tracker.sync_warnings))[:5],
+           **factor_fields(), **g}
     emit(rec)
     if not (len(est) > 0 and bool(np.isfinite(est).all())
-            and k1_once_a_frame(launches, g, n - 1)
-            and by_levels == {4: launches}
-            and plain_calls == 0 and lk.lk_level.launches == 0
-            and rec["features_min_after_first"] is not None
+            and k1_once_a_frame(launches, g, n)
+            and by_levels == {3: launches} and plain_calls == 0
+            and lk.lk_level.launches == 0
+            and rec["k7_launches_replayed"] == n
+            and k7["fgate"] == n + st["launches_warm_up"].get("fgate", 0)
+            and k7["fgate_plain"] == 0 and tracker.dispatch_syncs == 0
             and rec["features_min_after_first"] >= 100):
-        raise SystemExit(f"the classic tracker's check failed (finite "
-                         f"poses, one 4-level K1 launch a frame after the "
-                         f"first through replays, no plain LK call, >= 100 "
-                         f"features): {rec}")
-    # the tracker's four programs, the synchronous estimator's four
-    if not (captured_once(g, 4 + 4) and len(rec["tracker_programs"]) == 4):
-        raise SystemExit(f"the classic tracker did not run as four captured "
-                         f"programs, or captured one twice: {rec}")
+        raise SystemExit(f"the gated route's check failed (finite poses, "
+                         f"one 3-level K1 and one K7 launch a frame through "
+                         f"replays, no plain LK or gate call, no "
+                         f"synchronizing call, >= 100 features): {rec}")
+    # the tracker's two programs, the synchronous estimator's four
+    if not captured_once(g, 2 + 4):
+        raise SystemExit(f"the gated route captured a program twice, or "
+                         f"more than six: {rec}")
     return rec
 
 
@@ -2695,12 +2690,11 @@ def both_ways(run):
     return got, ref
 
 
-def graphs_main(seq):
+def graphs_main():
     """The main path's synchronous frames after its 11-frame window filled
     (2.5 s of the blobs scene, rendered here as `phase_main` renders it:
     about 14 solved frames), and the front end on every frame: positions
-    and ATE, the published features, each solve's LM iterations. The
-    rendered sequence is left in `seq` (sim, images, camera)."""
+    and ATE, the published features, each solve's LM iterations."""
     sim = image_sim(2.5, 1500)
     cam = tumrs_camera()
     imgs = render.render_sequence(sim, 1024, 1280, camera=cam, seed=1,
@@ -2719,7 +2713,6 @@ def graphs_main(seq):
                     fe_ms=float(np.median(r["t_feat"])) * 1e3)
 
     g, e = both_ways(run)
-    seq[:] = [sim, imgs, cam]
     same_ids = all((a is None and b is None) or np.array_equal(
         a["ids"], b["ids"]) for a, b in zip(g["feats"], e["feats"]))
     uv = max((float(np.abs(a["uv"] - b["uv"]).max()) for a, b in
@@ -2849,36 +2842,6 @@ def graphs_serve():
             "step_ms_median": g["ms"], "step_ms_median_eager": e["ms"]}
 
 
-def graphs_classic(sim, imgs, cam, frames=12):
-    """The classic `FeatureTracker` (the gated config, all 4 levels) on
-    the first frames of `graphs_main`'s sequence: its four stages
-    replayed against run eagerly; the published ids and points, host ms a
-    frame."""
-    H, W = imgs.shape[1:]
-    imgs_dev = torch.as_tensor(imgs[:frames], device="cuda")
-
-    def run():
-        tr = FeatureTracker(gated_tracker_config(), cam, (H, W),
-                            device="cuda")
-        outs, ms = [], []
-        for i in range(frames):
-            t0 = time.perf_counter()
-            outs.append(tr.process(sim.frames[i].t_ns, imgs_dev[i]))
-            torch.cuda.synchronize()
-            ms.append(time.perf_counter() - t0)
-        return outs, float(np.median(ms[2:])) * 1e3
-
-    (g, g_ms), (e, e_ms) = both_ways(run)
-    pub = [(a, b) for a, b in zip(g, e) if a is not None or b is not None]
-    same = all(a is not None and b is not None
-               and np.array_equal(a["ids"], b["ids"]) for a, b in pub)
-    uv = max((float(np.abs(a["uv"] - b["uv"]).max()) for a, b in pub
-              if same and len(a["uv"])), default=0.0)
-    return {"frames": frames, "published": len(pub),
-            "features_same_ids": same, "features_max_uv_dev_px": uv,
-            "frame_ms_median": g_ms, "frame_ms_median_eager": e_ms}
-
-
 def graphs_batch(B=8):
     """`phase_batch`'s window (f32, 15 LM iterations) solved B times by
     the batched solver's program and by the same vmapped solve run
@@ -2909,20 +2872,18 @@ def phase_graphs():
     runs the same frame and step counts; the synchronous solves and the
     streamed megasteps, whose LM exit nodes skip what the eager run
     freezes, equal bit for bit (`main`, `e2e`), with the same LM
-    iteration counts; the classic tracker's ids equal and points within
-    1e-4 px; the batched solver's lanes equal bit for bit. Host ms a frame
-    both ways."""
+    iteration counts; the batched solver's lanes equal bit for bit. Host
+    ms a frame both ways."""
     t0 = time.perf_counter()
     reset_counts()
-    seq, held = [], []
+    held = []
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.use_deterministic_algorithms(True, warn_only=True)
         try:
             rec = {"phase": "graphs", "deterministic": True,
-                   "main": graphs_main(seq), "e2e": graphs_e2e(held),
-                   "serve": graphs_serve(), "classic": graphs_classic(*seq),
-                   "batch": graphs_batch()}
+                   "main": graphs_main(), "e2e": graphs_e2e(held),
+                   "serve": graphs_serve(), "batch": graphs_batch()}
         finally:
             torch.use_deterministic_algorithms(False)
     rec.update(graph_fields(), wall_s=time.perf_counter() - t0,
@@ -2934,12 +2895,11 @@ def phase_graphs():
         name: {**replays_from_held(prog), "lm_iters": int(iters(prog))}
         for name, prog, iters in held}
     m, e2e, sv = rec["main"], rec["e2e"], rec["serve"]
-    cl, bt = rec["classic"], rec["batch"]
+    bt = rec["batch"]
     ok = (m["max_pos_dev_m"] == 0.0 and e2e["max_pos_dev_m"] == 0.0
           and e2e["max_posthoc_dev_m"] == 0.0
           and m["lm_iters_equal"] and e2e["lm_iters_equal"]
-          and cl["features_same_ids"] and cl["published"] >= 6
-          and cl["features_max_uv_dev_px"] <= 1e-4 and bt["bit_equal"]
+          and bt["bit_equal"]
           and m["max_pos_dev_m"] <= GRAPH_TOL_M
           and abs(m["ate_m"] - m["ate_eager_m"]) <= GRAPH_ATE_M
           and m["ld_dev_s"] <= 1e-8 and m["features_same_ids"]
@@ -3827,7 +3787,7 @@ def main():
                 proc.join()
     check_serve_device_ops(serve, e2e["eager_megastep_stages"]["device_ops"])
     paths = {"main": main_rec, "main_marg_dev": marg_dev, "e2e": e2e,
-             "image_textured": textured, "classic": textured["classic"],
+             "image_textured": textured, "image_gated": textured["gated"],
              "serve": serve, "batch": batched, "cli": cli_rec,
              "multichip": multichip, "bench_image": bench[
                  "image_factor_kernels"]}
@@ -3855,8 +3815,7 @@ def main():
         "two_levels": k1["two_levels"],
         "e2e_launches": e2e["k1_launches"],
         "textured_launches": textured["k1_track_launches_by_levels"],
-        "classic_launches": textured["classic"][
-            "k1_track_launches_by_levels"],
+        "gated_launches": textured["gated"]["k1_track_launches_by_levels"],
         "serve_launches": serve["k1_launches"],
         "batch_launches": batched["k1_launches"],
         "cli_launches": cli_rec["k1_track_launches_by_levels"],
@@ -3899,8 +3858,9 @@ def main():
         "replaces_note": "no TPU kernel: the JAX package's F-RANSAC gate "
                          "is host numpy (ctrlvio_tpu/frontend/fransac.py::"
                          "reject_with_f, called from fused.py's _consume)",
-        "launches": textured["k7_launches"], "library_ms": None,
-        **textured["k7"]}]
+        "launches": textured["k7_launches"],
+        "gated_launches": textured["gated"]["k7_launches"],
+        "library_ms": None, **textured["k7"]}]
     replaced = {
         "k2": ("ctrlvio_tpu/solver/assemble.py:49", "vmapped _image_blocks "
                "and its one-hot expansion into dense rows"),

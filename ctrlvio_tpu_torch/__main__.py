@@ -74,8 +74,7 @@ def _cmd_run(args):
     vio.check_dispatch_syncs = args.check_syncs
     if tc is not None:
         vio.attach_frontend(cam, seq.images.shape[1:3], tc)
-        if hasattr(vio.tracker, "check_dispatch_syncs"):
-            vio.tracker.check_dispatch_syncs = args.check_syncs
+        vio.tracker.check_dispatch_syncs = args.check_syncs
 
     lk.reset_counts()
     factor_kernels.reset_counts()
@@ -99,8 +98,8 @@ def _cmd_run(args):
         int(np.searchsorted(seq.frame_t_ns, init_t)),
         "init_t_ns": init_t, "line_delay_s": vio.traj.line_delay,
         "counts": dict(vio.counts),
-        "frontend_dispatch_syncs": getattr(vio.tracker, "dispatch_syncs",
-                                           None),
+        "frontend_dispatch_syncs": None if vio.tracker is None
+        else vio.tracker.dispatch_syncs,
         "k1_track_launches": lk.lk_track.launches,
         "k1_track_launches_by_levels": lk.lk_track.launches_by_levels,
         "k1_level_launches": lk.lk_level.launches,
@@ -111,7 +110,8 @@ def _cmd_run(args):
         "graphs": graphs.stats(),
         "lm_iters": vio.lm_iters_record(),
         "timing_s": dict(vio.timing),
-        "frontend_timing_s": dict(getattr(vio.tracker, "timing", {})),
+        "frontend_timing_s": {} if vio.tracker is None
+        else dict(vio.tracker.timing),
         "frame_ms_median": float(np.median(frame_s)) * 1e3
         if frame_s else None,
         "sustained_fps": len(frame_s) / max(wall, 1e-9)}

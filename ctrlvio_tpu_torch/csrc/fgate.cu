@@ -76,7 +76,7 @@ constexpr int MAX_N = 256;      // slots K7 takes (sample positions are uint8)
 constexpr int WORDS = MAX_N / 32;
 constexpr int COLS = 9;
 constexpr int MAX_SWEEPS = 30;
-constexpr double FOCAL = 460.0;  // fransac.VIRTUAL_FOCAL
+constexpr double FOCAL = 460.0;  // ops/fgate.py's VIRTUAL_FOCAL
 constexpr double TOL = 256.0 * DBL_EPSILON;
 constexpr unsigned FULL = 0xffffffffu;
 

@@ -43,12 +43,10 @@ window. Host bookkeeping (trajectory, feature table, packing) is numpy, the
 feature table native C++ by default (`native.NativeFeatureTable`).
 
 Raw images enter through `attach_frontend` and `process_image`, with the
-slot-identity `FusedTracker` or the classic `FeatureTracker` (the latter
-whenever the F-RANSAC gate is asked for, as in the JAX package); with
-`lag=1`, the `FusedTracker`, gated or not, lagged one image (its pull
-overlaps the next image's work) and its spans and stamps in this
-estimator's records. B
-streaming instances serve in lockstep behind `parallel.stream_batch.
+slot-identity `FusedTracker` (its F-RANSAC gate, K7 on the card, where the
+config asks for it), its spans and stamps in this estimator's records;
+with `lag=1` it runs one image behind (its pull overlaps the next image's
+work). B streaming instances serve in lockstep behind `parallel.stream_batch.
 BatchedStream`, which sets their `_dispatch_hook`. `residual_summary`
 re-linearizes the current window in f64 for the per-factor-type report
 (`VIOConfig.debug_residual_summary` prints it every frame).
@@ -385,7 +383,6 @@ class CtrlVIO:
         self.last_solve_stats = None
         self._pending_frames: deque = deque()
         self.tracker = None
-        self._lagged = False
 
         # self-bootstrap state; recent frames replay into a fresh
         # initializer when a bootstrap is rejected
@@ -582,79 +579,46 @@ class CtrlVIO:
     # image front end
     # ------------------------------------------------------------------
     def attach_frontend(self, camera, image_shape, tracker_cfg=None,
-                        fused: bool = True, lag: int = 0):
-        """Attach the KLT front end, on this estimator's device, so that raw
-        images can be fed. fused=True without `tracker_cfg.reject_wf` gives
-        the slot-identity `FusedTracker` with gyro-predicted initial flow
-        from this estimator's own IMU buffer and gyro-bias estimate;
-        otherwise the classic multi-dispatch `FeatureTracker`, which runs
-        the F-RANSAC gate on published frames (the JAX package's routing).
+                        lag: int = 0):
+        """Attach the slot-identity `FusedTracker`, on this estimator's
+        device, so that raw images can be fed: gyro-predicted initial flow
+        from this estimator's own IMU buffer and gyro-bias estimate, the
+        F-RANSAC gate where `tracker_cfg.reject_wf` asks for it, the
+        tracker's spans and stamps in this estimator's (`trace`).
 
-        lag=1 gives the `FusedTracker` in every case (its own F-gate where
-        `reject_wf` asks for it), one image behind: `process_image` hands
-        on the previous image's features, `flush` the last ones, and the
-        tracker's spans and stamps join this estimator's (`trace`)."""
+        lag=1 runs it one image behind: `process_image` hands on the
+        previous image's features and `flush` the last ones."""
         from ctrlvio_tpu_torch.frontend.fused import FusedTracker
-        from ctrlvio_tpu_torch.frontend.tracker import (FeatureTracker,
-                                                        TrackerConfig)
+        from ctrlvio_tpu_torch.frontend.tracker import TrackerConfig
 
-        tcfg = tracker_cfg or TrackerConfig()
-        if lag not in (0, 1) or (lag and not fused):
-            raise ValueError(f"attach_frontend: lag={lag} takes the fused "
-                             f"tracker and 0 or 1")
-        if lag:
-            self.tracker = FusedTracker(tcfg, camera, image_shape, lag=lag,
-                                        device=self.device,
-                                        recorder=self._spans)
-            self.tracker.trace(self._stamping)
-        elif fused and not tcfg.reject_wf:
-            self.tracker = FusedTracker(tcfg, camera, image_shape,
-                                        device=self.device)
-        else:
-            self.tracker = FeatureTracker(tcfg, camera, image_shape,
-                                          device=self.device)
+        if lag not in (0, 1):
+            raise ValueError(f"attach_frontend: lag={lag}, not 0 or 1")
+        self.tracker = FusedTracker(tracker_cfg or TrackerConfig(), camera,
+                                    image_shape, lag=lag, device=self.device,
+                                    recorder=self._spans)
+        self.tracker.trace(self._stamping)
         # the estimator's matrix-product precision, pinned again after the
         # tracker's own pin (process-wide: the last pin holds)
         pin_f32_matmuls()
-        self._lagged = bool(lag)
         self._prev_img_t_ns = None
         self._img_first_t_ns = None
         self._img_pub = 0
 
     def process_image(self, t_ns: int, img):
-        """Feed one raw image: CLAHE -> pyramidal KLT (gyro-predicted with
-        the fused tracker) -> undistort -> feature frame -> per-frame
+        """Feed one raw image: CLAHE -> gyro-predicted pyramidal KLT ->
+        refill -> undistort (-> F-gate) -> feature frame -> per-frame
         estimation. Returns the pose like process_frame, or None for
         rate-gated frames / pre-init. Lagged (`attach_frontend(lag=1)`),
         the frame estimated is the previous image's, at its own time, and
         the pose is that frame's (None on the first image)."""
         if self.tracker is None:
             raise RuntimeError("call attach_frontend(camera, image_shape) first")
-        from ctrlvio_tpu_torch.frontend.fused import FusedTracker
-
-        if self._lagged:
-            with self._span("process_image"):
-                with self._span("frontend.flow"):
-                    M = self._image_flow(int(t_ns))
-                out = self.tracker.step(int(t_ns), img, R_rel=M)
-                self._prev_img_t_ns = int(t_ns)
-                return self._publish(out)
-        if not isinstance(self.tracker, FusedTracker):
-            out = self.tracker.process(int(t_ns), img)  # rate-gated inside
-            if out is None:
-                return None
-            return self.process_frame(out["t_ns"], out["ids"], out["pts"],
-                                      out["rows"])
-        M = self._image_flow(int(t_ns))
-        out = self.tracker.step(int(t_ns), img, R_rel=M)
-        self._prev_img_t_ns = int(t_ns)
-        # publish-rate gate: track every frame, estimate at cfg.freq
-        if not self._publish_due(int(t_ns)):
-            return None
-        if out is None:
-            return None
-        return self.process_frame(out["t_ns"], out["ids"], out["pts"],
-                                  out["rows"])
+        with self._span("process_image"):
+            with self._span("frontend.flow"):
+                M = self._image_flow(int(t_ns))
+            out = self.tracker.step(int(t_ns), img, R_rel=M)
+            self._prev_img_t_ns = int(t_ns)
+            return self._publish(out)
 
     def _image_flow(self, t_ns: int):
         """The camera-frame rotation from the previous image to `t_ns`,
@@ -673,24 +637,21 @@ class CtrlVIO:
                              self._prev_img_t_ns - base, t_ns - base, R_ic,
                              bg=self.bg[-1])
 
-    def _publish_due(self, t_ns: int) -> bool:
-        """The publish-rate gate (≙ `feature_tracker_node.cpp:80-93`): a
-        frame at `t_ns` is estimated while the frames estimated so far
-        keep within `freq` a second; counts it if so."""
+    def _publish(self, out):
+        """The tracker's published frame, at its own time, into
+        `process_frame` through the publish-rate gate (≙
+        `feature_tracker_node.cpp:80-93`; every image is tracked): a frame
+        is estimated while the frames estimated so far keep within `freq`
+        a second."""
+        if out is None:
+            return None
+        t_ns = int(out["t_ns"])
         if self._img_first_t_ns is None:
             self._img_first_t_ns = t_ns
-            self._img_pub = 0
         elapsed = (t_ns - self._img_first_t_ns) * 1e-9
         if elapsed > 0 and self._img_pub / elapsed > self.tracker.cfg.freq:
-            return False
-        self._img_pub += 1
-        return True
-
-    def _publish(self, out):
-        """A lagged tracker's published frame through the rate gate, at its
-        own time, into `process_frame`."""
-        if out is None or not self._publish_due(int(out["t_ns"])):
             return None
+        self._img_pub += 1
         return self.process_frame(out["t_ns"], out["ids"], out["pts"],
                                   out["rows"])
 
@@ -806,7 +767,7 @@ class CtrlVIO:
         solve the frames still queued behind the IMU-coverage check, then
         drain every in-flight stream summary into the host mirror, and
         with recording on every queued stamp row (one wait)."""
-        if self._lagged:
+        if self.tracker is not None:
             with self._span("process_image"):
                 self._publish(self.tracker.flush())
         q = self._pending_frames
@@ -1396,7 +1357,7 @@ class CtrlVIO:
             self._stamps.poll(wait=True)
             self._clock.calibrate(self.device)
             self._spans.stop()
-        if self._lagged:
+        if self.tracker is not None:
             self.tracker.trace(on)
         self._stamping = on
 
@@ -1404,15 +1365,15 @@ class CtrlVIO:
         """What recording gathered: `spans` (`spans.Recorder.record`: the
         host spans on `time.time_ns()`), `megasteps` (`spans.StampRing.
         record`: each stamped megastep's row, on the host's clock),
-        `frontend` (a lagged front end's stamped steps alike, or None),
+        `frontend` (the front end's stamped steps alike, or None),
         `clock` (the calibrations: host ns, offset ns, error ns) and
         `clock_error_ns` (the largest error). Each stamped front-end step
         also adds two spans under its frame's `process_image`,
         `frontend.device.track` (its start to the end of K1's track) and
         `frontend.device.refill` (from there to its end): device intervals
         on the host's clock, which overlap the host spans beside them."""
-        fe = (self.tracker.stamp_record(self._clock) if self._lagged
-              else None)
+        fe = (None if self.tracker is None
+              else self.tracker.stamp_record(self._clock))
         return {"spans": _with_device_spans(self._spans.record(), fe),
                 "megasteps": (None if self._stamps is None
                               else self._stamps.record(self._clock)),

@@ -20,24 +20,24 @@ package's `_jit_pre` and `_jit_step`), one each for the tracker's pyramid,
 K1 inside the step's; the pyramid, points and live mask are carried in
 place from step to step.
 
-With `reject_wf` each step runs the epipolar F-RANSAC gate of
-`frontend/fransac.py` on the tracks common to this frame and the last one
-published (`ops/fgate.py`: kernel K7 on the card, the plain version on the
-CPU), on state the step carries (the previous lifted points, the slots
-published and those the gate suppressed, as the host holds them). A
-feature that violates the dominant two-view geometry comes down marked
-rejected: the host suppresses it from publication at once and frees its
-slot on the device at the next dispatch (≙ rejectWithF,
+With `reject_wf` each step runs the epipolar F-RANSAC gate of the JAX
+package's `ctrlvio_tpu/frontend/fransac.py` on the tracks common to this
+frame and the last one published (`ops/fgate.py`: kernel K7 on the card,
+the plain version on the CPU), on state the step carries (the previous
+lifted points, the slots published and those the gate suppressed, as the
+host holds them). A feature that violates the dominant two-view geometry
+comes down marked rejected: the host suppresses it from publication at
+once and frees its slot on the device at the next dispatch (≙ rejectWithF,
 `feature_tracker.cpp:201-235`).
 
-Attached to an estimator (`CtrlVIO.attach_frontend(..., lag=1)`), the
-tracker's host spans go to the estimator's recorder under `PREFIX` (so
-they nest in its frames), and `trace(True)` stamps each step's device
-phases (`spans.FRONTEND_TAGS`: its start, after K1's track, its end) into
-a ring of its own, which the estimator's `trace_record` reads. `counts`
-holds, since the tracker was made, the frames it published and their
-features, the slots the device refilled, the frames the F-gate ran on
-(`gated`: 12 or more common tracks) and the tracks it rejected.
+Attached to an estimator (`CtrlVIO.attach_frontend`), the tracker's host
+spans go to the estimator's recorder under `PREFIX` (so they nest in its
+frames), and `trace(True)` stamps each step's device phases
+(`spans.FRONTEND_TAGS`: its start, after K1's track, its end) into a ring
+of its own, which the estimator's `trace_record` reads. `counts` holds,
+since the tracker was made, the frames it published and their features,
+the slots the device refilled, the frames the F-gate ran on (`gated`: 12
+or more common tracks) and the tracks it rejected.
 """
 
 from __future__ import annotations

@@ -1,10 +1,11 @@
 """The front end's epipolar F-RANSAC gate on the step's own state: kernel
 K7 and its plain version.
 
-The fused tracker (`frontend/fused.py`) runs the gate of
-`frontend/fransac.py::reject_with_f` inside its step, on what the step
-carries from the frame before: the lifted points (`prev_norm`), the slots
-it published (`prev_pub`) and those the gate suppressed (`suppress`).
+The fused tracker (`frontend/fused.py`) runs the gate of the JAX
+package's `ctrlvio_tpu/frontend/fransac.py::reject_with_f` inside its
+step, on what the step carries from the frame before: the lifted points
+(`prev_norm`), the slots it published (`prev_pub`) and those the gate
+suppressed (`suppress`).
 `fgate` gives, for this step's lifted points `norm` and its tracked,
 refilled and live masks:
 
@@ -38,9 +39,9 @@ import math
 import numpy as np
 import torch
 
-from ctrlvio_tpu_torch.frontend.fransac import VIRTUAL_FOCAL
 from ctrlvio_tpu_torch.utils import graphs
 
+VIRTUAL_FOCAL = 460.0  # ≙ feature_tracker::FOCAL_LENGTH (parameters.cpp)
 HYPS = 200         # hypotheses (`reject_with_f`'s iters)
 SAMPLE = 8         # points a hypothesis
 MIN_TRACKS = 12    # fewer common tracks: nothing is rejected
@@ -100,7 +101,7 @@ def _system(an, bn):
 
 def _epipolar_dist(F, a, b):
     """Symmetric epipolar distance (S, n) of a -> b (n, 2) under F (S, 3,
-    3), as `fransac._epipolar_dist`."""
+    3), as the JAX package's `fransac._epipolar_dist`."""
     one = torch.ones_like(a[:, :1])
     ah, bh = torch.cat([a, one], dim=1), torch.cat([b, one], dim=1)
     l1 = torch.einsum("sij,nj->sni", F, ah)

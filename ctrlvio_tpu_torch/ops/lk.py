@@ -18,11 +18,12 @@ no fallback.
 else), so a run can show that its main path went through the kernel;
 `lk_track.launches_by_levels` splits the former by the number of pyramid
 levels tracked (the fused tracker's gyro-predicted track takes
-`pred_levels`, the classic tracker's every level). `lk_track_plain.calls`
-and `lk_level_plain.calls` count runs of the plain versions, so a run can
-show that they stayed off the path. `reset_counts` sets all of them to 0.
-The counts are registered with `utils/graphs.py`: a launch recorded into a
-captured graph counts when the graph replays it, once a replay.
+`pred_levels`, `klt.track` without an initial guess every level).
+`lk_track_plain.calls` and `lk_level_plain.calls` count runs of the plain
+versions, so a run can show that they stayed off the path. `reset_counts`
+sets all of them to 0. The counts are registered with `utils/graphs.py`: a
+launch recorded into a captured graph counts when the graph replays it,
+once a replay.
 """
 
 from __future__ import annotations

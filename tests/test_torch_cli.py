@@ -3,12 +3,14 @@
 `convert` writes the same npz from the same rosbag; `viz` writes the HTML
 replay (and the PNG); `run` raises without a card unless the CPU is asked
 for, and on the CPU turns `tests/test_cli.py`'s config and a feature
-sequence into a TUM trajectory with its stats line. Slow: the same run
-through both packages gives the same TUM file (positions within 2e-6 m,
-twice the file's printed resolution, quaternions within 2e-9; both solve
-in float64 with the synchronous pipeline), and the port of
-`test_lz4_bag_convert_run_roundtrip` (an lz4 rosbag of raw rolling-shutter
-images through `convert` and `run` with the in-process front end)."""
+sequence into a TUM trajectory with its stats line, and a raw-image
+sequence with the F-RANSAC gate asked for through the gated tracker. Slow:
+the same run through both packages gives the same TUM file (positions
+within 2e-6 m, twice the file's printed resolution, quaternions within
+2e-9; both solve in float64 with the synchronous pipeline), and the port
+of `test_lz4_bag_convert_run_roundtrip` (an lz4 rosbag of raw
+rolling-shutter images through `convert` and `run` with the in-process
+front end)."""
 
 import json
 
@@ -117,6 +119,64 @@ def test_run_cli_on_cpu(tmp_path, capsys):
         c["sync_solve"] + 1
     assert st["k1_track_launches"] == st["plain_lk_track_calls"] == 0
     assert 2e-5 < st["line_delay_s"] < 3.5e-5
+
+
+def test_run_cli_gates_raw_images_on_cpu(tmp_path, capsys, monkeypatch):
+    """A raw-image sequence whose camera file asks for the F-RANSAC gate
+    (`reject_wf: 1`): `run` attaches the gated `FusedTracker`, unlagged,
+    whose step runs the gate once an image (the plain version, as CPU
+    tensors take it) with no synchronizing call."""
+    from ctrlvio_tpu_torch.estimator.odometry import CtrlVIO
+    from ctrlvio_tpu_torch.frontend.fused import FusedTracker
+    from ctrlvio_tpu_torch.ops import fgate
+    from tests.test_frontend import make_texture, shift_image
+
+    n = 6
+    tex = make_texture(seed=9)
+    images = np.stack([shift_image(tex, 1.5 * k, -1.0 * k)
+                       for k in range(n)]).astype(np.uint8)
+    imu_t = np.arange(0, n * 100_000_000 + 1, 5_000_000, dtype=np.int64)
+    accel = np.tile([0.0, 0.0, 9.80766], (len(imu_t), 1))
+    npz = tmp_path / "images.npz"
+    np.savez(npz, imu_t_ns=imu_t, gyro=np.zeros((len(imu_t), 3)),
+             accel=accel, frame_t_ns=np.arange(n) * 100_000_000,
+             feat_ptr=np.zeros(n + 1, np.int64), feat_ids=np.zeros(0),
+             feat_pts=np.zeros((0, 2)), feat_rows=np.zeros(0),
+             images=images)
+    cfg = _write_config(tmp_path)
+    (tmp_path / "cam.yaml").write_text("""%YAML:1.0
+---
+model_type: PINHOLE
+image_width: 320
+image_height: 240
+projection_parameters:
+   fx: 200.0
+   fy: 200.0
+   cx: 160.0
+   cy: 120.0
+max_cnt: 60
+min_dist: 12
+freq: 10
+reject_wf: 1
+""")
+    attached = []
+    attach = CtrlVIO.attach_frontend
+
+    def spy(vio, *args, **kw):
+        attach(vio, *args, **kw)
+        attached.append(vio.tracker)
+
+    monkeypatch.setattr(CtrlVIO, "attach_frontend", spy)
+    calls = fgate.fgate_plain.calls
+    main(["run", cfg, str(npz), "--device", "cpu", "--check-syncs"])
+    (tracker,) = attached
+    assert type(tracker) is FusedTracker
+    assert tracker.cfg.reject_wf and tracker.lag == 0
+    assert fgate.fgate_plain.calls - calls == n
+    assert tracker.counts["frames"] == n and tracker.counts["gated"] > 0
+    st = run_stats(capsys.readouterr().err)
+    assert st["frames"] == n and st["frontend_dispatch_syncs"] == 0
+    assert "fgate" in st["frontend_timing_s"]
 
 
 @pytest.mark.slow

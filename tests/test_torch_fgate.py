@@ -38,7 +38,7 @@ from ctrlvio_tpu_torch.sim.windows import FGATE_KINDS, fgate_case
 from ctrlvio_tpu_torch.utils import graphs
 from tests.test_torch_frontend_lagged import (CAM, TRACKER, H, W,  # noqa: F401
                                              scene)
-from tests.test_torch_textured import fransac_cases
+from tests.test_fransac import _two_view
 from tests.torch_graph_standin import replayed_programs
 from tests.torch_parity import one_torch_thread  # noqa: F401
 
@@ -73,6 +73,20 @@ def expected(case, thresh):
         bad[idx[~inl]] = True
     supp = (case["suppress"] & ~case["refilled"]).numpy() | bad
     return bad, supp, case["live"].numpy() & ~supp
+
+
+def fransac_cases():
+    """`tests/test_fransac.py`'s three cases: gross outliers, noise only,
+    a degenerate set of five."""
+    p0, p1 = _two_view()
+    bad = np.zeros(len(p0), bool)
+    bad[::9] = True
+    p1c = p1.copy()
+    p1c[bad] += np.random.default_rng(7).uniform(0.05, 0.2, (bad.sum(), 2))
+    q0, q1 = _two_view(seed=5)
+    q1n = q1 + np.random.default_rng(11).normal(0, 0.3 / 460.0, q1.shape)
+    d0 = np.random.default_rng(0).normal(0, 0.3, (5, 2))
+    return [(p0, p1c, 1.0, 0), (q0, q1n, 1.5, 0), (d0, d0 + 0.01, 1.0, 0)]
 
 
 def placed(p0, p1, seed):

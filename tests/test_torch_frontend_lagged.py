@@ -1,14 +1,16 @@
-"""The lagged, F-gated front end on the estimator's normal path
-(`CtrlVIO.attach_frontend(lag=1)`, `process_image`, `flush`), and its
-spans, stamps and counters in the estimator's records.
+"""The F-gated front end on the estimator's normal path
+(`CtrlVIO.attach_frontend`, `process_image`, `flush`), one image behind
+(`lag=1`, as the image cell runs it) and unlagged, and its spans, stamps
+and counters in the estimator's records.
 
 On the CPU at 80x64 (Kannala-Brandt with `cam_tumrs.yaml`'s distortion at
 a focal length that fits the small image), a seeded textured world with a
 moving quad planted in view: the normal path publishes the same frames
 and returns the same poses as the side path that `bench.py --mode image`
 drives (`FusedTracker.step` then `process_frame`, the flow from the
-estimator's own IMU buffer and gyro bias); the default route is left as
-it was. This file imports neither JAX nor the JAX package.
+estimator's own IMU buffer and gyro bias); the default lag is 0, and a
+gated config gets the gated tracker. This file imports neither JAX nor
+the JAX package.
 """
 
 import numpy as np
@@ -19,7 +21,7 @@ from ctrlvio_tpu_torch.estimator.initializer import bootstrap_from_sim
 from ctrlvio_tpu_torch.estimator.odometry import CtrlVIO, VIOConfig
 from ctrlvio_tpu_torch.frontend.fused import FusedTracker, rotation_flow
 from ctrlvio_tpu_torch.frontend.klt import KLTConfig
-from ctrlvio_tpu_torch.frontend.tracker import FeatureTracker, TrackerConfig
+from ctrlvio_tpu_torch.frontend.tracker import TrackerConfig
 from ctrlvio_tpu_torch.models.cameras import Equidistant
 from ctrlvio_tpu_torch.ops import lk, so3np
 from ctrlvio_tpu_torch.sim import render, synthetic
@@ -105,12 +107,12 @@ def started(sim, **kw):
     return vio, feed
 
 
-def normal_path(sim, cam, imgs, record=False, frames=None):
+def normal_path(sim, cam, imgs, lag=1, record=False, frames=None):
     """The estimator's entry points only: process_imu, process_image,
     flush. Returns the estimator, each call's pose (None or (q, p)) and
     each frame handed to process_frame."""
     vio, feed = started(sim)
-    vio.attach_frontend(cam, (H, W), TrackerConfig(**TRACKER), lag=1)
+    vio.attach_frontend(cam, (H, W), TrackerConfig(**TRACKER), lag=lag)
     if record:
         vio.trace(True)
     handed = []
@@ -132,12 +134,12 @@ def normal_path(sim, cam, imgs, record=False, frames=None):
     return vio, poses, handed
 
 
-def side_path(sim, cam, imgs):
-    """`bench.py --mode image`'s loop: the lagged F-gated FusedTracker
-    beside the estimator, the flow from the estimator's own IMU buffer and
-    gyro bias, each published frame into process_frame."""
+def side_path(sim, cam, imgs, lag=1):
+    """`bench.py --mode image`'s loop: the F-gated FusedTracker beside the
+    estimator, the flow from the estimator's own IMU buffer and gyro bias,
+    each published frame into process_frame."""
     vio, feed = started(sim)
-    tracker = FusedTracker(TrackerConfig(**TRACKER), cam, (H, W), lag=1,
+    tracker = FusedTracker(TrackerConfig(**TRACKER), cam, (H, W), lag=lag,
                            device="cpu")
     R_ic = so3np.quat_to_matrix(vio.q_CtoI[None])[0]
     poses, handed, prev = [], [], None
@@ -164,23 +166,38 @@ def side_path(sim, cam, imgs):
 
 
 @pytest.fixture(scope="module")
-def runs(scene):
+def runs_at(scene):
+    """Both paths at a lag, recorded on the normal path; each lag run
+    once for the module."""
     sim, cam, imgs = scene
-    calls = lk.lk_track_plain.calls
-    normal = normal_path(sim, cam, imgs, record=True)
-    n_plain = lk.lk_track_plain.calls - calls
-    side = side_path(sim, cam, imgs)
-    return normal, side, n_plain
+    done = {}
+
+    def at(lag):
+        if lag not in done:
+            calls = lk.lk_track_plain.calls
+            normal = normal_path(sim, cam, imgs, lag=lag, record=True)
+            n_plain = lk.lk_track_plain.calls - calls
+            done[lag] = normal, side_path(sim, cam, imgs, lag=lag), n_plain
+        return done[lag]
+
+    return at
 
 
-def test_normal_path_equals_the_side_path(runs, scene):
+@pytest.fixture(scope="module")
+def runs(runs_at):
+    return runs_at(1)
+
+
+@pytest.mark.parametrize("lag", [0, 1])
+def test_normal_path_equals_the_side_path(runs_at, scene, lag):
     sim = scene[0]
-    (vio, poses, handed), (svio, sposes, shanded, tracker), n_plain = runs
+    (vio, poses, handed), (svio, sposes, shanded, tracker), n_plain = \
+        runs_at(lag)
     n = len(sim.frames)
     # one plain 3-level track an image (the CPU's K1), every frame handed
-    # on one image late, the last by flush
+    # on (with lag 1 one image late, the last by flush)
     assert n_plain == n
-    assert isinstance(vio.tracker, FusedTracker) and vio.tracker.lag == 1
+    assert isinstance(vio.tracker, FusedTracker) and vio.tracker.lag == lag
     assert len(handed) == len(shanded) == n
     assert [h[0] for h in handed] == [fr.t_ns for fr in sim.frames]
     for (t, ids, pts, rows), (st, sids, spts, srows) in zip(handed, shanded):
@@ -188,7 +205,9 @@ def test_normal_path_equals_the_side_path(runs, scene):
         np.testing.assert_array_equal(ids, sids)
         np.testing.assert_array_equal(pts, spts)
         np.testing.assert_array_equal(rows, srows)
-    assert poses[0] is None and sposes[0] is None
+    if lag:
+        assert poses[0] is None and sposes[0] is None
+    assert len(poses) == len(sposes) == n
     for a, b in zip(poses, sposes):
         assert (a is None) == (b is None)
         if a is not None:
@@ -202,19 +221,19 @@ def test_normal_path_equals_the_side_path(runs, scene):
 
 
 def test_the_default_route_is_unchanged(scene):
+    """The default lag's route (the name is the test's old one; the route
+    itself changed: a gated config no longer goes to a tracker of its
+    own): a gated config at the default lag gets the gated
+    `FusedTracker`, unlagged; a lag other than 0 or 1 raises."""
     sim, cam, _ = scene
     vio, _ = new_vio(sim)
     vio.attach_frontend(cam, (H, W), TrackerConfig(**TRACKER))
-    assert type(vio.tracker) is FeatureTracker
-    vio.attach_frontend(cam, (H, W), TrackerConfig(
-        **{**TRACKER, "reject_wf": False}))
-    assert type(vio.tracker) is FusedTracker and vio.tracker.lag == 0
-    assert not vio.tracker.timing and "frontend.dispatch" not in vio.timing
+    tr = vio.tracker
+    assert type(tr) is FusedTracker and tr.lag == 0 and tr.cfg.reject_wf
+    assert tr._table is not None and tr.device == vio.device
+    assert not tr.timing and "frontend.dispatch" not in vio.timing
     with pytest.raises(ValueError):
         vio.attach_frontend(cam, (H, W), TrackerConfig(**TRACKER), lag=2)
-    with pytest.raises(ValueError):
-        vio.attach_frontend(cam, (H, W), TrackerConfig(**TRACKER),
-                            fused=False, lag=1)
 
 
 # ---------------------------------------------------------------------------
@@ -231,8 +250,9 @@ FRONTEND_TREE = {"frontend.flow": "process_image",
                  "frontend.device.refill": "process_image"}
 
 
-def test_frontend_spans_nest_under_process_image(runs, scene):
-    vio = runs[0][0]
+@pytest.mark.parametrize("lag", [0, 1])
+def test_frontend_spans_nest_under_process_image(runs_at, scene, lag):
+    vio = runs_at(lag)[0][0]
     n = len(scene[0].frames)
     got = vio.trace_record()["spans"]
     names, rows = got["names"], got["rows"]
@@ -253,10 +273,11 @@ def test_frontend_spans_nest_under_process_image(runs, scene):
             assert rows[i, spans.END] <= rows[p, spans.END]
         seen.add(x)
     assert seen == set(FRONTEND_TREE)
-    # the process_frame of a call estimates the previous image
+    # the process_frame of a call estimates its image (lag 0) or the
+    # previous one (lag 1, the last in flush()'s)
     frames = [rows[i, spans.FRAME] for i, x in enumerate(name)
               if x == "process_frame"]
-    assert frames == list(range(1, n + 1))
+    assert frames == list(range(lag, n + lag))
 
 
 def test_frontend_stamps_each_step(runs, scene):

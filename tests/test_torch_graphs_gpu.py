@@ -362,50 +362,6 @@ def test_bootstrap_program_matches_host_exit_solve(cuda, deterministic):
     assert float(got[-1]) == int(st.iters) == 30 and bodies == 29
 
 
-def test_classic_tracker_programs_match_eager(cuda, monkeypatch):
-    """The classic tracker's four programs (preprocessing, the track with
-    K1 inside, the corners, the lift) over 8 textured frames against the
-    eager tracker on the card: the same published ids, points within 1e-4
-    px; K1 launched once a frame from the second on by replays, plus once
-    by the warm-up before the track's capture."""
-    from ctrlvio_tpu_torch.frontend.tracker import (FeatureTracker,
-                                                    TrackerConfig)
-    from ctrlvio_tpu_torch.models import cameras
-    from ctrlvio_tpu_torch.ops import lk
-    from ctrlvio_tpu_torch.sim import render, synthetic
-
-    H, W, FX = 256, 320, 200.0
-    s = synthetic.generate(synthetic.SimConfig(
-        duration=0.8, n_landmarks=50, seed=5, image_h=H, image_w=W, fx=FX,
-        fy=FX, cx=W / 2, cy=H / 2))
-    cam = cameras.Pinhole(FX, FX, W / 2, H / 2)
-    imgs = render.render_textured_sequence(s, H, W, cam, seed=2)
-
-    def track():
-        tracker = FeatureTracker(TrackerConfig(max_cnt=80, min_dist=12,
-                                               freq=100.0), cam, (H, W),
-                                 device=cuda)
-        return [tracker.process(fr.t_ns, imgs[i])
-                for i, fr in enumerate(s.frames)]
-
-    lk.reset_counts()
-    graphs.reset_counts()
-    got = track()
-    launches, st = lk.lk_track.launches, graphs.stats()
-    monkeypatch.setattr(graphs, "graphed_on", lambda device: False)
-    ref = track()
-    n = len(s.frames)
-    assert st["launches_replayed"]["lk_track"] == n - 1
-    assert launches == n - 1 + st["launches_warm_up"]["lk_track"] == n
-    assert sorted(c["key"].split("(")[0] for c in
-                  st["graphs_captured"]) == ["detect", "lift", "preprocess",
-                                             "track"]
-    for a, b in zip(got, ref):
-        assert np.array_equal(a["ids"], b["ids"])
-        if len(a["ids"]):
-            assert np.abs(a["uv"] - b["uv"]).max() <= 1e-4
-
-
 HOST_READ_IN_NODE = """
 import torch
 from ctrlvio_tpu_torch.utils import graphs

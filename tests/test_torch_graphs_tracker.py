@@ -1,11 +1,9 @@
-"""The classic `FeatureTracker`'s four programs (≙ the JAX package's
-`_jit_pre`, `_jit_track`, `_jit_detect`, `_jit_lift`) and the estimator's
-f64 bootstrap BA as a program, on the CPU through the test-only replay
-stand-in (`tests/torch_graph_standin.py`), against the eager runs: equal
-bit for bit. Also a short sequence through the synchronous estimator at
-the default LM depths, whose replayed solves skip the iterations after
-convergence (the stand-in models the WHILE node of `graphs.run_while`), and
-the bootstrap's timing keys."""
+"""The estimator's f64 bootstrap BA as a program, on the CPU through the
+test-only replay stand-in (`tests/torch_graph_standin.py`), against the
+eager run: equal bit for bit. Also a short sequence through the
+synchronous estimator at the default LM depths, whose replayed solves skip
+the iterations after convergence (the stand-in models the WHILE node of
+`graphs.run_while`), and the bootstrap's timing keys."""
 
 import numpy as np
 import pytest
@@ -14,66 +12,12 @@ import torch
 from ctrlvio_tpu_torch.estimator import odometry
 from ctrlvio_tpu_torch.estimator.odometry import (CtrlVIO, VIOConfig,
                                                   blob_unpack, window_solve)
-from ctrlvio_tpu_torch.frontend.tracker import FeatureTracker, TrackerConfig
-from ctrlvio_tpu_torch.models import cameras
-from ctrlvio_tpu_torch.ops import lk
-from ctrlvio_tpu_torch.sim import render, synthetic
+from ctrlvio_tpu_torch.sim import synthetic
 from ctrlvio_tpu_torch.solver import gauge, lm
 from ctrlvio_tpu_torch.utils import graphs
 from tests.torch_graph_standin import (WHILE_COUNTS, assert_same_estimate,
                                        captured, replayed_programs, run)
 from tests.torch_parity import one_torch_thread  # noqa: F401
-
-# `tests/test_torch_tracker.py`'s classic-tracker frames and settings: a
-# 256x320 textured room, 2 s, the F-gate on
-H, W, FX, CX, CY = 256, 320, 200.0, 160.0, 128.0
-TRACKER = dict(max_cnt=110, min_dist=12, freq=100.0, reject_wf=True,
-               f_threshold=1.0)
-
-
-@pytest.fixture(scope="module")
-def frames():
-    sim = synthetic.generate(synthetic.SimConfig(
-        duration=2.0, n_landmarks=50, seed=5, line_delay=1.15e-4,
-        image_h=H, image_w=W, fx=FX, fy=FX, cx=CX, cy=CY))
-    cam = cameras.Pinhole(FX, FX, CX, CY)
-    return sim, render.render_textured_sequence(sim, H, W, cam, seed=2), cam
-
-
-def track(frames):
-    """Every frame through a classic tracker; the published dicts and the
-    plain LK's track calls."""
-    sim, imgs, cam = frames
-    tracker = FeatureTracker(TrackerConfig(**TRACKER), cam, (H, W),
-                             device="cpu")
-    lk.reset_counts()
-    outs = [tracker.process(fr.t_ns, imgs[i])
-            for i, fr in enumerate(sim.frames)]
-    return outs, lk.lk_track_plain.calls
-
-
-def test_classic_tracker_replayed_equals_eager(frames):
-    """Every published frame of the classic tracker with its four stages
-    replayed equals the eager tracker's (ids, points, velocities) bit for
-    bit; four programs, each captured once; the plain LK (the CPU's K1)
-    counted once a frame from the second on through replays, plus the one
-    warm-up run before the track's capture."""
-    eager, calls_e = track(frames)
-    with replayed_programs():
-        got, calls_r = track(frames)
-        st = graphs.stats()
-    assert len(got) == len(eager) > 10
-    for a, b in zip(got, eager):
-        assert a.keys() == b.keys()
-        for k in a:
-            assert np.array_equal(a[k], b[k]), k
-    n = len(frames[0].frames)
-    assert calls_e == n - 1
-    assert st["launches_replayed"]["lk_track_plain"] == n - 1
-    assert st["launches_warm_up"]["lk_track_plain"] == 1
-    assert calls_r == n
-    assert sorted(k.split("(")[0] for k in captured()) == [
-        "detect", "lift", "preprocess", "track"]
 
 
 @pytest.fixture(scope="module")

@@ -97,8 +97,8 @@ def test_k1_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 def test_k1_track_matches_plain_version(cuda, case):
     """The fused forward-backward track (`chip_smoke.track_case`: three
     levels of a 1280x1024 pair, N=150, 10 iterations; four levels with
-    init = pts, the classic tracker's track; two levels, the command
-    line's) in one launch, counted under its level count: ok as
+    init = pts, `klt.track` without an initial guess; two levels, the
+    command line's) in one launch, counted under its level count: ok as
     the plain version's except within 1e-3 px of fb_thresh or of the
     in-bounds edge, or within 1e-4 relative of min_eig; positions within
     1e-3 px where both say ok; min_eig within 1e-4 relative; the known

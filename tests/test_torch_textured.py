@@ -1,11 +1,11 @@
 """The port's textured image path on the CPU: the ray-cast textured world
-renderer and the epipolar F-RANSAC gate against the JAX package, and the
-slice as a whole (textured frames through `FusedTracker(reject_wf=True,
-lag=1)` into the streaming `CtrlVIO`); the trackers alone are in
-`tests/test_torch_tracker.py`.
+renderer against the JAX package, and the slice as a whole (textured
+frames through `FusedTracker(reject_wf=True, lag=1)` into the streaming
+`CtrlVIO`); the trackers alone are in `tests/test_torch_tracker.py`, the
+F-RANSAC gate in `tests/test_torch_fgate.py`.
 
-Tolerances: the renderer and the gate are host numpy in both packages and
-must agree bit for bit; in the whole slice, ids agree exactly and tracked
+Tolerances: the renderer is host numpy in both packages and must agree
+bit for bit; in the whole slice, ids agree exactly and tracked
 points to 1e-3 px (the plain LK sums its 441 patch terms in another order
 than JAX, and the differences compound over frames). The JAX side of the
 whole-slice comparison compiles its solves and megastep for minutes on the
@@ -19,7 +19,6 @@ import torch
 from ctrlvio_tpu.estimator import initializer as jinit
 from ctrlvio_tpu.estimator.odometry import CtrlVIO as JCtrlVIO
 from ctrlvio_tpu.estimator.odometry import VIOConfig as JVIOConfig
-from ctrlvio_tpu.frontend import fransac as jfransac
 from ctrlvio_tpu.frontend.fused import FusedTracker as JFusedTracker
 from ctrlvio_tpu.frontend.fused import rotation_flow as jrotation_flow
 from ctrlvio_tpu.frontend.tracker import TrackerConfig as JTrackerConfig
@@ -30,7 +29,6 @@ from ctrlvio_tpu.solver.layout import WindowConfig as JWindowConfig
 from ctrlvio_tpu_torch.estimator import initializer as tinit
 from ctrlvio_tpu_torch.estimator.odometry import CtrlVIO as TCtrlVIO
 from ctrlvio_tpu_torch.estimator.odometry import VIOConfig as TVIOConfig
-from ctrlvio_tpu_torch.frontend import fransac as tfransac
 from ctrlvio_tpu_torch.frontend.fused import FusedTracker as TFusedTracker
 from ctrlvio_tpu_torch.frontend.fused import rotation_flow as trotation_flow
 from ctrlvio_tpu_torch.frontend.tracker import TrackerConfig as TTrackerConfig
@@ -40,7 +38,6 @@ from ctrlvio_tpu_torch.sim import render as trender
 from ctrlvio_tpu_torch.sim import synthetic as tsynthetic
 from ctrlvio_tpu_torch.solver.layout import WindowConfig as TWindowConfig
 from ctrlvio_tpu_torch.utils.ate import ate_rmse
-from tests.test_fransac import _two_view
 from tests.torch_parity import one_torch_thread  # noqa: F401
 
 PX_TOL = 1e-3          # px, published points
@@ -126,29 +123,6 @@ def test_make_world_and_default_renderer_match_jax():
     for a, b in zip(w_j.tex_faces + [q["tex"] for q in w_j.occ],
                     w_t.tex_faces + [q["tex"] for q in w_t.occ]):
         np.testing.assert_array_equal(b, a)
-
-
-def fransac_cases():
-    """`tests/test_fransac.py`'s three cases: gross outliers, noise only,
-    a degenerate set of five."""
-    p0, p1 = _two_view()
-    bad = np.zeros(len(p0), bool)
-    bad[::9] = True
-    p1c = p1.copy()
-    p1c[bad] += np.random.default_rng(7).uniform(0.05, 0.2, (bad.sum(), 2))
-    q0, q1 = _two_view(seed=5)
-    q1n = q1 + np.random.default_rng(11).normal(0, 0.3 / 460.0, q1.shape)
-    d0 = np.random.default_rng(0).normal(0, 0.3, (5, 2))
-    return [(p0, p1c, 1.0, 0), (q0, q1n, 1.5, 0), (d0, d0 + 0.01, 1.0, 0)]
-
-
-@pytest.mark.parametrize("case", [0, 1, 2])
-def test_reject_with_f_matches_jax(case):
-    a, b, thresh, seed = fransac_cases()[case]
-    ref = jfransac.reject_with_f(a, b, thresh_px=thresh, seed=seed)
-    out = tfransac.reject_with_f(a, b, thresh_px=thresh, seed=seed)
-    assert out.dtype == np.bool_
-    np.testing.assert_array_equal(out, ref)
 
 
 # the whole slice at a reduced size: 256x320 pinhole with the TUM-RSVI

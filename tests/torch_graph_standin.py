@@ -38,7 +38,6 @@ import torch
 from ctrlvio_tpu_torch.estimator import odometry
 from ctrlvio_tpu_torch.estimator.initializer import bootstrap_from_sim
 from ctrlvio_tpu_torch.estimator.odometry import CtrlVIO, VIOConfig
-from ctrlvio_tpu_torch.frontend import tracker as tracker_mod
 from ctrlvio_tpu_torch.ops import so3np
 from ctrlvio_tpu_torch.parallel import batch
 from ctrlvio_tpu_torch.sim import synthetic
@@ -104,15 +103,14 @@ def standin_capture(body, inputs, device, pool, stream):
 @contextlib.contextmanager
 def replayed_programs():
     """Inside, programs are captured and replayed through the stand-in on
-    the CPU, with fresh process-wide caches (the synchronous path's, the
-    batched solver's, the classic tracker's) and fresh counts."""
+    the CPU, with fresh process-wide caches (the synchronous path's and
+    the batched solver's) and fresh counts."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(graphs, "graphed_on", lambda device: True)
         mp.setattr(graphs, "capture", standin_capture)
         mp.setattr(graphs, "run_while", standin_run_while)
         mp.setattr(odometry, "_SYNC_PROGRAMS", graphs.ProgramCache())
         mp.setattr(batch, "_PROGRAMS", graphs.ProgramCache())
-        mp.setattr(tracker_mod, "_PROGRAMS", graphs.ProgramCache())
         graphs.reset_counts()
         WHILE_COUNTS.update(run=0, skipped=0, nodes=0)
         yield
