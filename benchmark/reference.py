@@ -3,15 +3,23 @@
 From the generator's draws it works out the ground truth again (the
 lissajous poses at each frame time, the true line delay), evaluates the
 estimator's final spline from its knots with its own cumulative B-spline,
-aligns each trajectory to the truth in yaw and translation (the directions
-visual-inertial odometry cannot observe), and compares, for each lane:
+and compares each lane's answers with the truth.
+
+The judged poses are cut into consecutive stretches of `SEGMENT_S` (30 s)
+of frame time, counted from the window's first judged frame; a last
+stretch shorter than half of that joins the one before, so a window of
+less than 45 s is one stretch. Each stretch is aligned to the truth on its
+own, in yaw and translation (the directions visual-inertial odometry
+cannot observe): the numbers measure the drift over a fixed stretch of the
+rig's path, not over however many frames the window held. Every judged
+pose lies in exactly one stretch, and for each lane:
 
 - `ate_online_cm`: RMS position error of the poses the timed calls
-  returned;
+  returned, over all of them, each under its stretch's alignment;
 - `pose_err_max_cm`, `rot_err_max_deg`: the worst single returned pose, in
   position and in rotation, so that one wrong answer shows;
 - `ate_posthoc_cm`: RMS position error of the final spline at the same
-  times;
+  times, its stretches aligned alike;
 - `ld_err_us`: the line delay's error.
 
 Over lanes each number is the worst lane's. Beside them come the numbers
@@ -32,6 +40,8 @@ NUMBERS = ("ate_online_cm", "pose_err_max_cm", "rot_err_max_deg",
            "ate_posthoc_cm", "ld_err_us")
 SOLVE_NUMBERS = ("solve_rot_urad", "solve_ba_ums2", "prior_info",
                  "prior_grad", "input_faults", "marg_overflows")
+# the length of frame time each alignment to the truth spans
+SEGMENT_S = 30.0
 
 
 def qexp(phi):
@@ -122,17 +132,43 @@ def pose_errors(q, p, q_gt, p_gt):
     return dp, ang
 
 
+def stretches(t_ns):
+    """The stretch of each judged pose at frame times `t_ns`: how many whole
+    `SEGMENT_S` lie between it and the first judged frame. A last stretch
+    whose last frame comes less than `SEGMENT_S / 2` after its start is
+    counted in the one before."""
+    t = np.asarray(t_ns, np.int64)
+    seg = round(SEGMENT_S * 1e9)
+    t = t - t.min()
+    k = t // seg
+    last = int(k.max())
+    if last and t.max() - last * seg < seg // 2:
+        k[k == last] = last - 1
+    return k
+
+
+def stretch_errors(q, p, q_gt, p_gt, k):
+    """`pose_errors` of each stretch (`k`, as `stretches` gives it) under its
+    own alignment, in the poses' order."""
+    dp, ang = np.empty(len(p)), np.empty(len(p))
+    for s in np.unique(k):
+        m = k == s
+        dp[m], ang[m] = pose_errors(q[m], p[m], q_gt[m], p_gt[m])
+    return dp, ang
+
+
 def lane_numbers(lane: dict, line_delay: float) -> dict:
     q_gt, p_gt = truth(lane["phases"], lane["speed"], lane["pause"],
                        lane["t_ns"] * 1e-9)
     q, p = lane["q"], lane["p"]
     if not (np.isfinite(q).all() and np.isfinite(p).all()):
         return {k: math.nan for k in NUMBERS}
-    dp, ang = pose_errors(q / np.linalg.norm(q, axis=-1, keepdims=True), p,
-                          q_gt, p_gt)
+    k = stretches(lane["t_ns"])
+    dp, ang = stretch_errors(q / np.linalg.norm(q, axis=-1, keepdims=True),
+                             p, q_gt, p_gt, k)
     qs, ps = spline(lane["knots_q"], lane["knots_p"], lane["dt_ns"],
                     lane["t_ns"] - lane["start_ns"])
-    dp_post, _ = pose_errors(qs, ps, q_gt, p_gt)
+    dp_post, _ = stretch_errors(qs, ps, q_gt, p_gt, k)
     return {"ate_online_cm": float(np.sqrt(np.mean(dp ** 2)) * 100),
             "pose_err_max_cm": float(dp.max() * 100),
             "rot_err_max_deg": float(np.degrees(ang.max())),
